@@ -1,0 +1,146 @@
+"""Build, load and count the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source is one kernel with a plain C interface. It is
+compiled by its own ``nvcc`` call for ``sm_90a`` into a shared library
+under ``quantizations_tpu_torch/build/`` (named by a hash of the source,
+so an edited source rebuilds) and loaded with ``ctypes``. :func:`build`
+starts every missing build at once and waits for all of them; a launch
+builds its own kernel if nothing built it before. Nothing is built at
+import: the CPU tests import every module on machines with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+import torch
+
+__all__ = ["Kernel", "PAIR_MATMUL", "QUANTIZE_4BIT", "KERNELS", "build",
+           "launch", "nvcc_path", "NVCC_FLAGS"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+
+# No --use_fast_math: the quantize kernel needs the IEEE 1.0f / absmax.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@dataclasses.dataclass
+class Kernel:
+    """A kernel's identity, its C entry points and its launch counter:
+    the wrapper adds one to ``launches`` each time it launches the
+    kernel, and nowhere else.
+
+    ``functions`` maps each C entry point to its argument types (every
+    pointer and the trailing stream are ``c_void_p``: a plain int would
+    cut them to 32 bits); every entry point returns ``cudaGetLastError()``
+    as an int."""
+
+    name: str
+    source: str            # the .cu file, relative to the repo root
+    replaces: str          # the TPU kernel, file:line
+    functions: Dict[str, Sequence]
+    launches: int = 0
+
+    @property
+    def path(self) -> Path:
+        return _PKG.parent / self.source
+
+    def so_path(self) -> Path:
+        digest = hashlib.sha256(self.path.read_bytes()).hexdigest()[:16]
+        return BUILD / f"lib{self.path.stem}_{digest}.so"
+
+
+PAIR_MATMUL = Kernel(
+    "pair_matmul", "quantizations_tpu_torch/csrc/pair_matmul.cu",
+    "quantizations_tpu/ops/qmatmul.py:481 _pair_kernel "
+    "(matmul_4bit_pair_pallas_stacked :662, matmul_4bit_pair_pallas :588)",
+    {"qt_pair_matmul": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                        ctypes.c_float, _P]})
+QUANTIZE_4BIT = Kernel(
+    "quantize_4bit", "quantizations_tpu_torch/csrc/quantize.cu",
+    "quantizations_tpu/ops/quantize.py:93 _quantize_kernel "
+    "(quantize_4bit_pallas :142)",
+    {"qt_quantize_4bit": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P]})
+KERNELS = (PAIR_MATMUL, QUANTIZE_4BIT)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` to build with: ``$CUDA_HOME/bin/nvcc``, else the one on
+    ``PATH``, else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def build(kernels: Sequence[Kernel] = KERNELS) -> None:
+    """Compile every kernel whose library is missing, one ``nvcc`` per
+    source, all started together; raise if any build fails. Then load
+    them all."""
+    with _lock:
+        BUILD.mkdir(parents=True, exist_ok=True)
+        jobs = []
+        for k in kernels:
+            so = k.so_path()
+            if so.exists() or k.name in _libs:
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(k.path)]
+            jobs.append((k, so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for k, so, tmp, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode == 0:
+                os.replace(tmp, so)
+            else:
+                os.unlink(tmp)
+                failed.append(f"{k.source}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        for k in kernels:
+            if k.name not in _libs:
+                lib = ctypes.CDLL(str(k.so_path()))
+                for fn, argtypes in k.functions.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+                _libs[k.name] = lib
+
+
+def launch(kernel: Kernel, fn: str, device: torch.device, *args) -> None:
+    """Call C entry point ``fn`` of ``kernel`` on ``device``'s current
+    stream (appended as the last argument), raise if the launch was
+    refused, and count it."""
+    if kernel.name not in _libs:
+        build([kernel])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_libs[kernel.name], fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel.name}: CUDA launch failed with error {err}")
+    kernel.launches += 1

@@ -1,0 +1,78 @@
+"""Blockwise 4-bit quantize kernel K2 (counterpart of
+``quantizations_tpu/ops/quantize.py quantize_4bit_pallas``).
+
+``quantize_4bit_kernel(W [M, K]) -> (wp int32 [M, K/8], absmax fp32
+[M, K/blocksize])``: per-block absmax, the FP4 ladder or NF4 midpoint
+count on ``w * (1/absmax)``, and 8 codes per int32 word in bnb byte
+order. Bit-exact with :func:`quantizations_tpu_torch.quant.quantize_4bit`
+(without double quantization). The wrapper launches
+``csrc/quantize.cu`` for CUDA tensors and runs the plain version for CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import torch
+
+from ..quant.codebooks import NF4_CODE, code_midpoints
+from ..quant.functional import _CODES_FN, _block_absmax, _normalize, pack_4bit
+from .cuda import QUANTIZE_4BIT, launch
+
+__all__ = ["quantize_4bit_kernel", "quantize_4bit_kernel_plain"]
+
+
+def quantize_4bit_kernel_plain(W: torch.Tensor, blocksize: int = 64,
+                               quant_type: str = "fp4"
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2, same signature and outputs."""
+    M, K = W.shape
+    _check_shape(M, K, blocksize, quant_type)
+    blocked, absmax, _ = _block_absmax(W.reshape(-1).to(torch.float32),
+                                       blocksize)
+    codes = _CODES_FN[quant_type](_normalize(blocked, absmax))
+    wp = pack_4bit(codes).reshape(M, K // 2).view(torch.int32)
+    return wp, absmax.reshape(M, K // blocksize)
+
+
+def _check_shape(M: int, K: int, blocksize: int, quant_type: str) -> None:
+    if quant_type not in ("fp4", "nf4"):
+        raise ValueError(f"quantize_4bit: quant_type {quant_type!r}")
+    if blocksize % 8 or K % blocksize:
+        raise ValueError(f"quantize_4bit: K={K} must be a multiple of "
+                         f"blocksize={blocksize}, itself a multiple of 8")
+
+
+@functools.lru_cache(maxsize=None)
+def _device_mids(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(code_midpoints(NF4_CODE)).to(device)
+
+
+def quantize_4bit_kernel(W: torch.Tensor, blocksize: int = 64,
+                         quant_type: str = "fp4"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise 4-bit quantization of a ``[M, K]`` fp32 or bf16 weight:
+    ``(wp int32 [M, K/8], absmax fp32 [M, K/blocksize])``. Launches K2
+    for a CUDA tensor, runs the plain version for a CPU tensor."""
+    if W.device.type == "cpu":
+        return quantize_4bit_kernel_plain(W, blocksize, quant_type)
+    if W.dim() != 2 or W.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"quantize_4bit: W must be fp32/bf16 [M, K], got "
+                         f"{W.dtype} {tuple(W.shape)}")
+    if not W.is_contiguous() or W.data_ptr() % 16:
+        raise ValueError("quantize_4bit: W must be contiguous and 16-byte "
+                         "aligned")
+    M, K = W.shape
+    _check_shape(M, K, blocksize, quant_type)
+    wp = torch.empty((M, K // 8), dtype=torch.int32, device=W.device)
+    absmax = torch.empty((M, K // blocksize), dtype=torch.float32,
+                         device=W.device)
+    if M == 0:
+        return wp, absmax
+    launch(QUANTIZE_4BIT, "qt_quantize_4bit", W.device, W.data_ptr(),
+           int(W.dtype == torch.bfloat16), _device_mids(W.device).data_ptr(),
+           wp.data_ptr(), absmax.data_ptr(), M, K, blocksize,
+           int(quant_type == "nf4"))
+    return wp, absmax
