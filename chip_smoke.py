@@ -18,22 +18,52 @@ Phases, each raising on failure:
    FP4 and NF4, fp32 and ``bf16x2`` scales, stacked at a layer other
    than 0 and unstacked. Tolerance: 1e-5 * max|y|, for the fp32
    summation order only (both sides round every operand identically);
-5. ``time``: each kernel timed with CUDA events over many launches after
-   a warm-up (K1 at the decode and prefill T of batch 1, 4 and 8), K1's
-   weights rotating over a 32-layer stack so that they
-   do not sit in the 50 MB L2, beside its bound, its plain version and
-   one PyTorch library call computing the same function;
-6. ``model``: the main path. Llama3-8B at full width and depth with a
-   4-bit embedding and lm_head, random weights from seed 0 quantized by
-   K2, fused q|k|v and gate|up, then greedy generation of 60 tokens
-   after a 16-token prompt at batch 1, 4 and 8 (FP4) and batch 1 (NF4).
-   Every generate must launch K1 exactly 60 * (4 * 32 + 1) = 7740 times
-   and give the same tokens on every run; tok/s is new tokens over the
-   whole generate call, from CUDA events, the median of 5 timed runs
-   after a warm-up at every batch, printed with their min and max. A
-   tiny model then checks the CUDA path against the CPU's plain path on
-   the same parameters;
-7. ``profile``: one FP4 batch-1 generate of 8 new tokens under
+5. ``attn``: the flash-decode kernels K3 (bf16 cache) and K4 (int8
+   codes with bf16 steps) against their plain versions at the main
+   path's shapes (8 kv heads, 4 query heads each, D 128, B 1/4/8): the
+   slot cache (S 2048, attend_len 128 and 2048, unstacked and stacked at
+   layer 1) and the paged pool (page 256 and 128, shuffled block tables
+   with page 0 in the unused entries, pages_per_step 1 and 2, q_span 1
+   and 4), lengths {1, 17, 255, 256, 257, 1900, 2047}, window none / 100
+   / 2**30, softcap none / 50. Tolerance 1e-5 * max|out| (the same
+   values on both sides; fp32 summation order only);
+6. ``time``: each kernel timed with CUDA events over many launches after
+   a warm-up (K1 at the decode and prefill T of batch 1, 4 and 8 and at
+   the paged engine's 256-token admission chunk), K1's weights rotating
+   over a 32-layer stack so that they do not sit in the 50 MB L2, beside
+   its bound, its plain version and one PyTorch library call computing
+   the same function; then K3 and K4 per launch at B 1/4/8 and a live
+   context of 128, 512 and 1900 tokens, slot and paged, the cache
+   rotating over enough layers to exceed the L2 four times, beside the
+   bound (the live K/V and step bytes plus q and out over 3.35 TB/s),
+   the plain version and, for K3, ``scaled_dot_product_attention(...,
+   enable_gqa=True)`` over the same keys laid out contiguously;
+7. ``model``: Llama3-8B at full width and depth with a 4-bit embedding
+   and lm_head, random weights from seed 0 quantized by K2, fused q|k|v
+   and gate|up, then greedy generation of 60 tokens after a 16-token
+   prompt at batch 1, 4 and 8: FP4 on the einsum path, with
+   ``use_flash_attention`` (K3) and with flash and an int8 KV cache
+   (K4); NF4 at batch 1. Every generate must launch K1 exactly
+   60 * (4 * 32 + 1) = 7740 times (and K3 or K4 exactly 59 * 32 = 1888
+   times) and give the same tokens on every run; tok/s is new tokens
+   over the whole generate call, from CUDA events, the median of 5
+   timed runs after a warm-up, printed with their min and max. A tiny
+   model then checks the CUDA path against the CPU's plain path on the
+   same parameters (prefill, and a flash decode step, bf16 and int8);
+8. ``paged``: the slice's path. ``PagedEngine(slots=4, max_seq=2048,
+   prefill_buckets=(64, 256), admit_width=4, prefix_cache=True,
+   num_pages=40)`` (page 256) over the FP4 model serves 8 greedy
+   requests of 32 new tokens: prompts of 16, 100, 300, 700, 1100, 1500
+   and 1900 tokens from seed 0, and an eighth that shares the 700-token
+   prompt's first 512 tokens (it must hit the prefix cache for two
+   pages). Then again on a fresh engine (the same tokens), then with an
+   int8 pool (its agreement with the bf16 tokens is printed). Each run
+   must launch K3 (K4) exactly 32 * steps times and K1 at least
+   129 * steps times, finish every request with 32 in-vocabulary
+   tokens and return every page but the prefix cache's pins. Printed:
+   aggregate new tokens per second, steps, admission group sizes, and
+   the wall time split into admission and decode;
+9. ``profile``: one FP4 batch-1 generate of 8 new tokens under
    ``torch.profiler``: device kernel time by name, kernels per forward,
    the device's busy share of the wall time, the host's enqueue time.
 
@@ -66,7 +96,19 @@ K1_SHAPES = (("qkv", 6144, 4096), ("o", 4096, 4096),
 K1_TOKENS = (1, 4, 8, 16, 64, 128, 256)
 K1_DECODE_TOKENS = (1, 4, 8)               # decode at B = 1, 4, 8
 K1_TIMED_TOKENS = K1_DECODE_TOKENS + (16, 64, 128)   # and their prefill
+K1_CHUNK_TOKENS = 256          # one admission chunk of the paged engine
 PROMPT_LEN = 16
+INT8_OP_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
+# decode attention at Llama3-8B: 8 kv heads, 4 query heads each, D 128
+KVH, GQA, HEAD_DIM = 8, 4, 128
+ATTN_BATCHES = (1, 4, 8)
+ATTN_LENGTHS = (1, 17, 255, 256, 257, 1900, 2047)
+ATTN_KNOBS = ((None, None), (100, 50.0), (2 ** 30, None))  # window, softcap
+ATTN_TIMED_CTX = (128, 512, 1900)
+# the paged phase: 7 prompt lengths, and an eighth request that shares
+# the 700-token prompt's first 512 tokens (two 256-token pages)
+PAGED_LENS = (16, 100, 300, 700, 1100, 1500, 1900)
+PAGED_NEW = 32
 LAYERS = 32
 # (M, K) -> K2 launches in one Llama3-8B model build: per layer q and o,
 # k and v, gate and up, down; then the embedding and the lm_head. The
@@ -222,25 +264,27 @@ def phase_k1(dev, gen, results):
 
 
 def phase_time(dev, gen, results):
-    """Per-shape K1 times at the decode T (the batch) and the prefill T
-    (16 x the batch); the per-forward sums weight each shape by its
-    launches in one forward (32 layers x 4 projections + the lm_head).
-    Prefill computes logits for the last token only, so a prefill
-    forward's lm_head launch is the one at T / 16."""
+    """Per-shape K1 times at the decode T (the batch), the prefill T
+    (16 x the batch) and the paged engine's 256-token admission chunk;
+    the per-forward sums weight each shape by its launches in one forward
+    (32 layers x 4 projections + the lm_head). Prefill computes logits
+    for the last token only, so a prefill forward's lm_head launch is the
+    one at T / 16, and an admission chunk's the one at T = 1."""
     from quantizations_tpu_torch.ops import (matmul_4bit_pair,
                                              matmul_4bit_pair_plain,
                                              matmul_4bit_pair_stacked)
 
+    timed = K1_TIMED_TOKENS + (K1_CHUNK_TOKENS,)
     rows = []
     for name, M, K in K1_SHAPES:
         L = LAYERS
         wp2, scales = _pair_operands(M, K, L, dev, gen)
-        x = torch.randn(max(K1_TIMED_TOKENS), K, generator=gen,
+        x = torch.randn(max(timed), K, generator=gen,
                         device=dev).to(torch.bfloat16)
         dense_bytes = M * K * 2
         R = max(2, math.ceil(4 * L2_BYTES / dense_bytes))
         Wd = torch.randn(R, M, K, generator=gen, device=dev).to(torch.bfloat16)
-        for T in K1_TIMED_TOKENS:
+        for T in timed:
             xt = x[:T].contiguous()
             if name == "lm_head":
                 ms = device_ms(lambda i: matmul_4bit_pair(
@@ -261,8 +305,10 @@ def phase_time(dev, gen, results):
         del wp2, scales, x, Wd
         torch.cuda.empty_cache()
     per_t = {}
-    for T in K1_TIMED_TOKENS:
-        head_t = T if T in K1_DECODE_TOKENS else T // PROMPT_LEN
+    for T in timed:
+        # an admission chunk samples one row: its lm_head runs at T = 1
+        head_t = (T if T in K1_DECODE_TOKENS else
+                  1 if T == K1_CHUNK_TOKENS else T // PROMPT_LEN)
         sel = [r for r in rows if (r["T"] == head_t if r["shape"] == "lm_head"
                                    else r["T"] == T)]
         per_t[T] = {k: sum((1 if r["shape"] == "lm_head" else LAYERS) * r[k]
@@ -275,47 +321,305 @@ def phase_time(dev, gen, results):
     results["k1_time"] = dict(rows=rows, per_forward=per_t)
 
 
+def _attn_pool(B, lengths, page, n_pages, q_span, dev, gen, int8, L=3):
+    """A pool [L, P, KVH, page, D] and a shuffled block table [B, n_pages]
+    holding each row's pages for lengths[b] + q_span - 1 positions (at
+    most n_pages), page 0 in the unused entries."""
+    need = [min(n_pages, -(-(int(n) + q_span - 1) // page))
+            for n in lengths]
+    P = 1 + sum(need) + 3
+    perm = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        B * 1000 + page)) + 1).to(torch.int32)
+    table = torch.zeros((B, n_pages), dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(need):
+        table[b, :n] = perm[at:at + n]
+        at += n
+    return _attn_cache((L, P, KVH, page, HEAD_DIM), dev, gen, int8) + (
+        table.to(dev),)
+
+
+def _attn_cache(shape, dev, gen, int8):
+    """(k, v, k_step, v_step) of ``shape``: bf16 normal values, or int8
+    codes with bf16 steps (None for bf16)."""
+    if int8:
+        k = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        ks = (torch.rand(shape[:-1], generator=gen, device=dev) * 0.03
+              + 0.002).to(torch.bfloat16)
+        vs = (torch.rand(shape[:-1], generator=gen, device=dev) * 0.03
+              + 0.002).to(torch.bfloat16)
+        return k, v, ks, vs
+    k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    return k, v, None, None
+
+
+def phase_attn(dev, gen, results):
+    """K3 and K4 against their plain versions at the main path's shapes
+    (KVH 8, G 4, D 128, B 1/4/8): the slot cache (S 2048, attend_len 128
+    and 2048, unstacked and stacked at layer 1) and the paged pool (page
+    256 and 128, shuffled tables, pages_per_step 1 and 2, q_span 1 and
+    4), over lengths, window and softcap. Tolerance 1e-5 * max|out|: both
+    sides read the same bf16 or int8 values and differ only in the fp32
+    summation order."""
+    from quantizations_tpu_torch.ops import attention as at
+    from quantizations_tpu_torch.ops import paged_attention as pa
+
+    worst = {"flash_decode": [0.0, 0.0, 0], "flash_decode_i8": [0.0, 0.0, 0]}
+
+    def check(name, what, got, ref):
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {what}: bad output")
+        err = (got - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{name} {what}: max|err| {err:.3e} > tol "
+                                 f"{tol:.3e}")
+        w = worst[name]
+        w[0] = max(w[0], err)
+        w[1] = max(w[1], err / max(ref.abs().max().item(), 1e-30))
+        w[2] += 1
+
+    S = 2048
+    for B in ATTN_BATCHES:
+        lens = [ATTN_LENGTHS[b % len(ATTN_LENGTHS)] for b in range(B)]
+        for int8 in (False, True):
+            name = "flash_decode_i8" if int8 else "flash_decode"
+            k, v, ks, vs = _attn_cache((3, B, KVH, S, HEAD_DIM), dev, gen,
+                                       int8)
+            q = torch.randn(B, KVH, GQA, HEAD_DIM, generator=gen, device=dev)
+            for attend in (128, S):
+                ln = torch.tensor([min(n, attend) for n in lens],
+                                  dtype=torch.int32, device=dev)
+                for win, cap in ATTN_KNOBS:
+                    kw = dict(attend_len=attend, softcap=cap, window=win)
+                    what = f"slot B={B} attend={attend} win={win} cap={cap}"
+                    if int8:
+                        check(name, what, at.flash_decode_attention_stacked_i8(
+                            q, k, v, ks, vs, 1, ln, **kw),
+                            at.flash_decode_attention_stacked_i8_plain(
+                                q, k, v, ks, vs, 1, ln, **kw))
+                        continue
+                    check(name, what + " stacked",
+                          at.flash_decode_attention_stacked(q, k, v, 1, ln,
+                                                            **kw),
+                          at.flash_decode_attention_stacked_plain(
+                              q, k, v, 1, ln, **kw))
+                    if attend == S:
+                        qb = q.to(torch.bfloat16)
+                        check(name, what + " unstacked",
+                              at.flash_decode_attention(
+                                  qb, k[0], v[0], ln, softcap=cap,
+                                  window=win),
+                              at.flash_decode_attention_plain(
+                                  qb, k[0], v[0], ln, softcap=cap,
+                                  window=win))
+            del k, v, ks, vs
+            for page in (256, 128):
+                for q_span in (1, 4):
+                    k, v, ks, vs, table = _attn_pool(
+                        B, lens, page, S // page, q_span, dev, gen, int8)
+                    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+                    q = torch.randn(B, KVH, q_span * GQA, HEAD_DIM,
+                                    generator=gen, device=dev)
+                    for pps in (1, 2):
+                        for win, cap in ATTN_KNOBS:
+                            kw = dict(softcap=cap, window=win, q_span=q_span,
+                                      pages_per_step=pps)
+                            what = (f"paged B={B} page={page} "
+                                    f"q_span={q_span} pps={pps} win={win} "
+                                    f"cap={cap}")
+                            if int8:
+                                got = pa.paged_flash_decode_attention_i8(
+                                    q, k, v, ks, vs, table, 2, ln, **kw)
+                                ref = pa.paged_flash_decode_attention_i8_plain(
+                                    q, k, v, ks, vs, table, 2, ln, **kw)
+                            else:
+                                got = pa.paged_flash_decode_attention(
+                                    q, k, v, table, 2, ln, **kw)
+                                ref = pa.paged_flash_decode_attention_plain(
+                                    q, k, v, table, 2, ln, **kw)
+                            check(name, what, got, ref)
+                    del k, v, ks, vs
+        log(f"  B={B}: K3 {worst['flash_decode'][2]} and K4 "
+            f"{worst['flash_decode_i8'][2]} cases so far within 1e-5 * "
+            "max|out| of the plain versions")
+        torch.cuda.empty_cache()
+    results["attn_err"] = {n: dict(max_abs_err=w[0], max_err_over_max_out=w[1],
+                                   cases=w[2]) for n, w in worst.items()}
+    for n, w in worst.items():
+        log(f"  {n}: {w[2]} cases, worst max|err| {w[0]:.3e}, worst "
+            f"max|err| / max|out| {w[1]:.3e}")
+
+
+def _attn_bytes(B, ctx, int8, q_span=1):
+    """Bytes a decode attention launch must move: the K/V (and step)
+    rows of the live positions, q (fp32) and out (fp32)."""
+    row = HEAD_DIM + 2 if int8 else 2 * HEAD_DIM
+    return (2 * B * KVH * ctx * row
+            + 2 * B * KVH * q_span * GQA * HEAD_DIM * 4)
+
+
+def phase_attn_time(dev, gen, results):
+    """K3/K4 per launch at B 1/4/8 and a live context of 128, 512 and 1900
+    tokens, slot and paged (page 256), with the cache rotating over enough
+    layers that the read set exceeds the 50 MB L2 four times; beside the
+    bound, the plain version and, for K3, one
+    ``scaled_dot_product_attention(..., enable_gqa=True)`` over the same
+    keys laid out contiguously (the port never calls it)."""
+    from quantizations_tpu_torch.ops import attention as at
+    from quantizations_tpu_torch.ops import paged_attention as pa
+
+    F = torch.nn.functional
+    rows = []
+    for int8 in (False, True):
+        name = "flash_decode_i8" if int8 else "flash_decode"
+        for B in ATTN_BATCHES:
+            for ctx in ATTN_TIMED_CTX:
+                nbytes = _attn_bytes(B, ctx, int8)
+                L = max(2, min(256, math.ceil(4 * L2_BYTES / nbytes)))
+                flops = 4 * B * KVH * GQA * ctx * HEAD_DIM
+                bms, by = bound(nbytes, flops * (BF16_FLOP_PER_S / (
+                    INT8_OP_PER_S if int8 else BF16_FLOP_PER_S)))
+                ln = torch.full((B,), ctx, dtype=torch.int32, device=dev)
+                q = torch.randn(B, KVH, GQA, HEAD_DIM, generator=gen,
+                                device=dev)
+                # slot: a cache of exactly ctx positions per layer
+                k, v, ks, vs = _attn_cache((L, B, KVH, ctx, HEAD_DIM), dev,
+                                           gen, int8)
+                if int8:
+                    slot = lambda i: at.flash_decode_attention_stacked_i8(
+                        q, k, v, ks, vs, i % L, ln)
+                    slot_plain = lambda i: (
+                        at.flash_decode_attention_stacked_i8_plain(
+                            q, k, v, ks, vs, i % L, ln))
+                else:
+                    slot = lambda i: at.flash_decode_attention_stacked(
+                        q, k, v, i % L, ln)
+                    slot_plain = lambda i: (
+                        at.flash_decode_attention_stacked_plain(
+                            q, k, v, i % L, ln))
+                ms_slot = device_ms(slot, 200)
+                plain_slot = device_ms(slot_plain, 20)
+                lib = None
+                if not int8:
+                    qs = q.to(torch.bfloat16).reshape(B, KVH * GQA, 1,
+                                                      HEAD_DIM)
+                    lib = device_ms(lambda i: F.scaled_dot_product_attention(
+                        qs, k[i % L], v[i % L], enable_gqa=True), 200)
+                del k, v, ks, vs
+                # paged: page 256, each row's pages shuffled over the pool
+                page = 256
+                n_pages = -(-ctx // page)
+                Lp = max(2, min(256, math.ceil(4 * L2_BYTES / nbytes)))
+                k, v, ks, vs, table = _attn_pool(B, [ctx] * B, page, n_pages,
+                                                 1, dev, gen, int8, L=Lp)
+                if int8:
+                    paged = lambda i: pa.paged_flash_decode_attention_i8(
+                        q, k, v, ks, vs, table, i % Lp, ln)
+                    paged_plain = lambda i: (
+                        pa.paged_flash_decode_attention_i8_plain(
+                            q, k, v, ks, vs, table, i % Lp, ln))
+                else:
+                    paged = lambda i: pa.paged_flash_decode_attention(
+                        q, k, v, table, i % Lp, ln)
+                    paged_plain = lambda i: (
+                        pa.paged_flash_decode_attention_plain(
+                            q, k, v, table, i % Lp, ln))
+                ms_paged = device_ms(paged, 200)
+                plain_paged = device_ms(paged_plain, 20)
+                del k, v, ks, vs, table
+                torch.cuda.empty_cache()
+                for form, ms, pms in (("slot", ms_slot, plain_slot),
+                                      ("paged", ms_paged, plain_paged)):
+                    rows.append(dict(kernel=name, form=form, B=B, ctx=ctx,
+                                     ms=ms, plain_ms=pms, bound_ms=bms,
+                                     bound_by=by, library_ms=lib,
+                                     bytes=nbytes, layers_rotated=L))
+                    libs = ("none" if lib is None else
+                            f"{lib * 1e3:8.2f} us" + (
+                                " (contiguous keys)" if form == "paged"
+                                else ""))
+                    log(f"  {name:15s} {form:5s} B={B} ctx={ctx:4d}: "
+                        f"{ms * 1e3:8.2f} us  bound {bms * 1e3:7.2f} us "
+                        f"({by})  plain {pms * 1e3:8.1f} us  sdpa {libs}")
+    results["attn_time"] = rows
+
+
 def phase_model(dev, results):
+    """Greedy generation at full Llama3-8B: FP4 at B = 1, 4, 8 on the
+    einsum path, with ``use_flash_attention`` (K3), and with flash and an
+    int8 KV cache (K4); NF4 at B = 1. Returns the FP4 parameters for the
+    paged phase."""
     from quantizations_tpu_torch.config import QuantConfig, ServeConfig
     from quantizations_tpu_torch.models.llama import (
-        LLAMA3_8B, TINY_LLAMA, KVCache, fuse_projections, init_llama_params,
-        map_tensors, named_tensors, prefill)
-    from quantizations_tpu_torch.ops import KERNELS, PAIR_MATMUL
+        LLAMA3_8B, TINY_LLAMA, KVCache, decode_step, fuse_projections,
+        init_llama_params, map_tensors, named_tensors, prefill)
+    from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
+                                             KERNELS, PAIR_MATMUL)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
 
     serve = ServeConfig(max_seq_len=128, max_new_tokens=60, temperature=0.0)
     layers = LLAMA3_8B.num_hidden_layers
     per_generate = serve.max_new_tokens * (4 * layers + 1)
+    per_generate_attn = (serve.max_new_tokens - 1) * layers
+    variants = (("fp4", "einsum", {}, (1, 4, 8)),
+                ("fp4", "flash", dict(use_flash_attention=True), (1, 4, 8)),
+                ("fp4", "flash+int8", dict(use_flash_attention=True,
+                                           kv_cache_dtype="int8"), (1, 4, 8)),
+                ("nf4", "einsum", {}, (1,)))
     runs = []
+    fp4_params = params = None
     for k in KERNELS:
         k.launches = 0
-    for qt, batches in (("fp4", (1, 4, 8)), ("nf4", (1,))):
+    for qt, attn, knobs, batches in variants:
         cfg = dataclasses.replace(
             LLAMA3_8B,
-            quant=QuantConfig(quant_type=qt, quantize_embedding=True))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params = fuse_projections(init_llama_params(cfg, seed=0, device=dev))
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        wbytes = sum(t.numel() * t.element_size()
-                     for _, t in named_tensors(params))
-        log(f"  {qt} Llama3-8B ({layers} layers) built in {build_s:.2f} s, "
-            f"{wbytes / 1e9:.3f} GB of weights")
+            quant=QuantConfig(quant_type=qt, quantize_embedding=True),
+            **knobs)
+        if qt == "fp4" and fp4_params is not None:
+            params = fp4_params
+        else:
+            params = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params = fuse_projections(init_llama_params(cfg, seed=0,
+                                                        device=dev))
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            wbytes = sum(t.numel() * t.element_size()
+                         for _, t in named_tensors(params))
+            log(f"  {qt} Llama3-8B ({layers} layers) built in {build_s:.2f} "
+                f"s, {wbytes / 1e9:.3f} GB of weights")
+            ids = ((torch.arange(16, device=dev) * 7 + 11) % cfg.vocab_size
+                   ).to(torch.int32)[None, :]
+            logits, _ = prefill(params, ids, KVCache.create(cfg, 1, 128, dev),
+                                cfg)
+            torch.cuda.synchronize()
+            if logits.shape != (1, 16, cfg.vocab_size) or not torch.isfinite(
+                    logits).all():
+                raise AssertionError(f"{qt} prefill logits bad: "
+                                     f"{logits.shape}")
+            del logits
+            if qt == "fp4":
+                fp4_params = params
+        attn_kernel = (FLASH_DECODE_I8 if knobs.get("kv_cache_dtype")
+                       else FLASH_DECODE if knobs else None)
+        gen = make_generate_fn(cfg, serve)
         ids = ((torch.arange(16, device=dev) * 7 + 11) % cfg.vocab_size
                ).to(torch.int32)[None, :]
-        logits, _ = prefill(params, ids, KVCache.create(cfg, 1, 128, dev), cfg)
-        torch.cuda.synchronize()
-        if logits.shape != (1, 16, cfg.vocab_size) or not torch.isfinite(
-                logits).all():
-            raise AssertionError(f"{qt} prefill logits bad: {logits.shape}")
-        gen = make_generate_fn(cfg, serve)
         for B in batches:
             idsb = ids.repeat(B, 1)
             times, first = [], None
             for it in range(5 + 1):
                 cache = KVCache.create(cfg, B, serve.max_seq_len, dev)
                 before = PAIR_MATMUL.launches
+                before_attn = (0 if attn_kernel is None
+                               else attn_kernel.launches)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -326,36 +630,63 @@ def phase_model(dev, results):
                 if got != per_generate:
                     raise AssertionError(f"K1 launched {got} times in one "
                                          f"generate, expected {per_generate}")
+                if attn_kernel is not None:
+                    got = attn_kernel.launches - before_attn
+                    if got != per_generate_attn:
+                        raise AssertionError(
+                            f"{attn_kernel.name} launched {got} times in one "
+                            f"generate, expected {per_generate_attn}")
                 if toks.shape != (B, serve.max_new_tokens) or int(
                         toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
                     raise AssertionError(f"tokens out of range: {toks.shape}")
                 if first is None:
                     first = toks.cpu()
                 elif not torch.equal(first, toks.cpu()):
-                    raise AssertionError(f"{qt} B={B}: tokens differ between "
-                                         "runs")
+                    raise AssertionError(f"{qt} {attn} B={B}: tokens differ "
+                                         "between runs")
                 if it:                       # the first run is the warm-up
                     times.append(start.elapsed_time(end) / 1e3)
+                del cache
             t = statistics.median(times)
             tps = serve.max_new_tokens * B / t
             lo, hi = (serve.max_new_tokens * B / max(times),
                       serve.max_new_tokens * B / min(times))
-            runs.append(dict(quant_type=qt, batch=B, tok_per_s=tps,
-                             tok_per_s_min=lo, tok_per_s_max=hi,
-                             generate_s=t, generate_s_all=times,
+            runs.append(dict(quant_type=qt, attention=attn, batch=B,
+                             tok_per_s=tps, tok_per_s_min=lo,
+                             tok_per_s_max=hi, generate_s=t,
+                             generate_s_all=times,
                              k1_launches_per_generate=per_generate,
-                             first_tokens=first[0, :8].tolist()))
-            log(f"  {qt} B={B}: {tps:.2f} tok/s, median of {len(times)} "
-                f"(min {lo:.2f}, max {hi:.2f}; {t:.4f} s per generate, "
-                f"K1 launches {per_generate} each)")
-        del params, logits
+                             attn_launches_per_generate=(
+                                 0 if attn_kernel is None
+                                 else per_generate_attn),
+                             first_tokens=first[0, :8].tolist(),
+                             tokens=first.tolist()))
+            log(f"  {qt} {attn} B={B}: {tps:.2f} tok/s, median of "
+                f"{len(times)} (min {lo:.2f}, max {hi:.2f}; {t:.4f} s per "
+                f"generate, K1 launches {per_generate} each"
+                + ("" if attn_kernel is None else
+                   f", {attn_kernel.name} {per_generate_attn}") + ")")
+        if qt == "nf4":
+            del params
+            params = None
         torch.cuda.empty_cache()
+    by = {(r["attention"], r["quant_type"], r["batch"]): r for r in runs}
+    for B in (1, 4, 8):
+        same = by[("flash", "fp4", B)]["tokens"] == by[("einsum", "fp4",
+                                                        B)]["tokens"]
+        n = sum(a == b for x, y in zip(by[("flash+int8", "fp4", B)]["tokens"],
+                                       by[("einsum", "fp4", B)]["tokens"])
+                for a, b in zip(x, y))
+        log(f"  B={B}: flash tokens {'equal' if same else 'differ from'} "
+            f"the einsum path's; flash+int8 agrees on {n} of "
+            f"{B * serve.max_new_tokens}")
     results["launches"] = {k.name: k.launches for k in KERNELS}
     results["generate"] = runs
+    results["decode_logits"] = _decode_logit_check(fp4_params, dev)
     for k in KERNELS:
         if k.launches == 0:
-            raise AssertionError(f"{k.name} was never launched on the main "
-                                 "path")
+            raise AssertionError(f"{k.name} was never launched on the "
+                                 "generate path")
 
     # the CUDA path against the CPU's plain path on the same parameters
     cfg = dataclasses.replace(TINY_LLAMA, quant=QuantConfig(
@@ -377,6 +708,179 @@ def phase_model(dev, results):
         raise AssertionError("TINY_LLAMA CUDA logits disagree with the CPU")
     results["tiny_check"] = dict(max_abs_err=err, max_abs_logit=scale,
                                  top1=top1)
+    # one decode step through K3 / K4 against the CPU's plain attention
+    for knobs in (dict(use_flash_attention=True),
+                  dict(use_flash_attention=True, kv_cache_dtype="int8")):
+        c = dataclasses.replace(cfg, **knobs)
+        outs = []
+        for p_, d in ((p_gpu, dev), (p_cpu, "cpu")):
+            cache = KVCache.create(c, 2, 32, d)
+            prefill(p_, ids.to(d)[:, :11], cache, c)
+            lg, _ = decode_step(p_, ids.to(d)[:, 11:], cache, 11, c)
+            outs.append(lg.cpu())
+        err = (outs[0] - outs[1]).abs().max().item()
+        scale = outs[1].abs().max().item()
+        log(f"  TINY_LLAMA {c.kv_cache_dtype} flash decode step, CUDA vs CPU "
+            f"plain: max|err| {err:.3e} (max|logit| {scale:.3f})")
+        if not err <= 2e-2 * scale:
+            raise AssertionError("TINY_LLAMA flash decode disagrees with the "
+                                 "CPU")
+    return fp4_params
+
+
+def _decode_logit_check(params, dev):
+    """One B = 8 decode step of the FP4 model after the same 16-token
+    prompt, on the einsum path, with flash (K3) and with flash and an int8
+    cache (K4): how far each step's logits are from the einsum path's, and
+    how close the einsum path's own top two candidates sit (random weights
+    give a flat distribution, so greedy streams part at near-ties)."""
+    from quantizations_tpu_torch.config import QuantConfig
+    from quantizations_tpu_torch.models.llama import (LLAMA3_8B, KVCache,
+                                                      decode_step, prefill)
+
+    base = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
+        quantize_embedding=True))
+    ids = torch.randint(0, base.vocab_size, (8, 17),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    out = {}
+    with torch.inference_mode():
+        for name, knobs in (("einsum", {}),
+                            ("flash", dict(use_flash_attention=True)),
+                            ("flash+int8", dict(use_flash_attention=True,
+                                                kv_cache_dtype="int8"))):
+            cfg = dataclasses.replace(base, **knobs)
+            cache = KVCache.create(cfg, 8, 128, dev)
+            prefill(params, ids[:, :16], cache, cfg, last_token_only=True)
+            out[name], _ = decode_step(params, ids[:, 16:], cache, 16, cfg)
+    ref = out["einsum"].float()
+    top2 = ref.topk(2, dim=-1).values
+    margin = ((top2[:, 0] - top2[:, 1]) / ref.abs().amax(-1)).median().item()
+    res = dict(median_top2_margin_over_max=margin)
+    for name in ("flash", "flash+int8"):
+        d = (out[name].float() - ref).abs().max().item()
+        rel = d / ref.abs().max().item()
+        top1 = (out[name].argmax(-1) == ref.argmax(-1)).float().mean().item()
+        res[name] = dict(max_abs_diff=d, max_diff_over_max=rel, top1=top1)
+        log(f"  B=8 decode logits, {name} vs einsum: max|diff| {d:.3e} "
+            f"({rel:.3e} of max|logit|), top-1 agreement {top1:.3f}")
+    log(f"  einsum top-2 margin: median {margin:.3e} of max|logit|")
+    return res
+
+
+def phase_paged(dev, params, results):
+    """The slice's path: ``PagedEngine`` serving 8 greedy requests of 32
+    new tokens on full Llama3-8B FP4 (the model phase's parameters) with
+    a bf16 pool, again on a fresh engine, then with an int8 pool. Counts
+    are zeroed just before each run and read just after it."""
+    from quantizations_tpu_torch.config import QuantConfig
+    from quantizations_tpu_torch.models.llama import LLAMA3_8B
+    from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
+                                             KERNELS, PAIR_MATMUL)
+    from quantizations_tpu_torch.serve.paged import PagedEngine
+
+    base = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
+        quantize_embedding=True))
+    g = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, base.vocab_size, (n,), generator=g).tolist()
+               for n in PAGED_LENS]
+    prompts.append(prompts[3][:512] + torch.randint(
+        1, base.vocab_size, (188,), generator=g).tolist())
+
+    def serve(kv):
+        cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+        eng = PagedEngine(params, cfg, slots=4, max_seq=2048,
+                          prefill_buckets=(64, 256), admit_width=4,
+                          prefix_cache=True, num_pages=40)
+        if eng.page_size != 256:
+            raise AssertionError(f"page size {eng.page_size}, expected 256")
+        # instrumentation: admission wall time, group sizes, prefix hits
+        spent = {"admit_s": 0.0, "groups": [], "hits": {}}
+        admit, group, one, lookup = (eng._admit, eng._admit_group,
+                                     eng._admit_one, eng._prefix_lookup)
+
+        def timed_admit():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            admit()
+            torch.cuda.synchronize()
+            spent["admit_s"] += time.perf_counter() - t
+
+        def counted_group(grp):
+            spent["groups"].append(len(grp))
+            return group(grp)
+
+        def counted_one(slot, r):
+            spent["groups"].append(1)
+            return one(slot, r)
+
+        def seen_lookup(r):
+            cov, shared = lookup(r)
+            spent["hits"][r.uid] = max(spent["hits"].get(r.uid, 0), cov)
+            return cov, shared
+
+        eng._admit, eng._admit_group = timed_admit, counted_group
+        eng._admit_one, eng._prefix_lookup = counted_one, seen_lookup
+        uids = [eng.submit(p, max_new_tokens=PAGED_NEW) for p in prompts]
+        for k in KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while eng.has_work():
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        st = eng.stats()
+        toks = [eng.finished[u].output_ids for u in uids]
+        for u, t in zip(uids, toks):
+            if len(t) != PAGED_NEW or min(t) < 0 or max(t) >= base.vocab_size:
+                raise AssertionError(f"request {u}: {len(t)} tokens, range "
+                                     f"{min(t)}..{max(t)}")
+        attn = FLASH_DECODE_I8 if kv == "int8" else FLASH_DECODE
+        other = FLASH_DECODE if kv == "int8" else FLASH_DECODE_I8
+        layers = base.num_hidden_layers
+        if launches[attn.name] != layers * st["steps"]:
+            raise AssertionError(f"{attn.name} launched "
+                                 f"{launches[attn.name]} times in "
+                                 f"{st['steps']} steps")
+        if launches[other.name] != 0:
+            raise AssertionError(f"{other.name} launched on a {kv} pool")
+        if launches[PAIR_MATMUL.name] < (4 * layers + 1) * st["steps"]:
+            raise AssertionError(f"K1 launched {launches[PAIR_MATMUL.name]} "
+                                 f"times in {st['steps']} steps")
+        usable = eng.alloc.num_usable
+        if (st["pages_free"] != usable - st["prefix_cache_pages"]
+                or st["live_tokens"] != 0 or st["finished"] != len(prompts)):
+            raise AssertionError(f"pool not returned: {st}")
+        if spent["hits"].get(uids[-1], 0) != 512:
+            raise AssertionError(f"the eighth request hit "
+                                 f"{spent['hits'].get(uids[-1])} prefix "
+                                 "positions, expected 512")
+        new = PAGED_NEW * len(prompts)
+        run = dict(kv_cache_dtype=kv, wall_s=wall, new_tokens=new,
+                   tok_per_s=new / wall, admit_s=spent["admit_s"],
+                   decode_s=wall - spent["admit_s"], steps=st["steps"],
+                   admissions=spent["groups"], launches=launches, stats=st,
+                   tokens=toks)
+        log(f"  {kv} pool: {new} new tokens in {wall:.3f} s = "
+            f"{new / wall:.2f} tok/s aggregate; {st['steps']} steps; "
+            f"admission {spent['admit_s']:.3f} s (groups {spent['groups']}),"
+            f" decode {wall - spent['admit_s']:.3f} s; launches {launches}; "
+            f"pages free {st['pages_free']} of {usable} "
+            f"({st['prefix_cache_pages']} pinned by the prefix cache)")
+        return run
+
+    runs = [serve("bf16"), serve("bf16")]
+    if runs[1]["tokens"] != runs[0]["tokens"]:
+        raise AssertionError("a fresh engine gave other tokens")
+    runs.append(serve("int8"))
+    agree = sum(a == b for x, y in zip(runs[2]["tokens"], runs[0]["tokens"])
+                for a, b in zip(x, y))
+    log(f"  int8 pool agrees with the bf16 pool on {agree} of "
+        f"{PAGED_NEW * len(prompts)} tokens")
+    results["paged"] = dict(runs=runs, int8_agree=agree)
+    results["launches_paged"] = runs[0]["launches"]
+    results["launches_paged_int8"] = runs[2]["launches"]
 
 
 def phase_profile(dev, results):
@@ -465,24 +969,34 @@ def main() -> int:
     results["build_s"] = time.perf_counter() - t0
     log(f"[build] {len(KERNELS)} kernels built and loaded in "
         f"{results['build_s']:.2f} s")
+    held = {}
     for ph, fn in (("k2", lambda: phase_k2(dev, gen, results)),
                    ("k1", lambda: phase_k1(dev, gen, results)),
-                   ("time", lambda: phase_time(dev, gen, results)),
-                   ("model", lambda: phase_model(dev, results)),
+                   ("attn", lambda: phase_attn(dev, gen, results)),
+                   ("time", lambda: (phase_time(dev, gen, results),
+                                     phase_attn_time(dev, gen, results))),
+                   ("model", lambda: held.update(
+                       params=phase_model(dev, results))),
+                   ("paged", lambda: phase_paged(dev, held.pop("params"),
+                                                 results)),
                    ("profile", lambda: phase_profile(dev, results))):
         t0 = time.perf_counter()
         log(f"[{ph}]")
         fn()
-        log(f"[{ph}] done in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        results.setdefault("phase_s", {})[ph] = time.perf_counter() - t0
+        log(f"[{ph}] done in {results['phase_s'][ph]:.1f} s")
 
     kernels = []
     launches = results.get("launches", {})
+    paged_launches = results.get("launches_paged", {})
     for k in KERNELS:
         entry = dict(name=k.name, route="cuda", source=k.source,
-                     replaces=k.replaces, launches=launches.get(k.name, 0))
+                     replaces=k.replaces)
         if k.name == "pair_matmul":
             f1 = results.get("k1_time", {}).get("per_forward", {}).get(1, {})
             entry.update(
+                launches=launches.get(k.name, 0),
                 max_abs_err=results.get("k1_err", {}).get("max_abs_err"),
                 max_err_over_max_y=results.get("k1_err", {}).get(
                     "max_rel_err"),
@@ -490,17 +1004,44 @@ def main() -> int:
                 bound_ms=f1.get("bound_ms"), bound_by="bytes",
                 library_ms=f1.get("library_ms"),
                 unit="one decode forward at T=1: the K1 launches of "
-                     f"{LAYERS} layers x 4 projections + the lm_head",
+                     f"{LAYERS} layers x 4 projections + the lm_head; "
+                     "launches: the generate path",
                 by_shape=results.get("k1_time", {}).get("rows"))
-        else:
+        elif k.name == "quantize_4bit":
             k2 = results.get("k2", {})
-            entry.update(max_abs_err=k2.get("max_abs_err"), ms=k2.get("ms"),
+            entry.update(launches=launches.get(k.name, 0),
+                         max_abs_err=k2.get("max_abs_err"), ms=k2.get("ms"),
                          plain_ms=k2.get("plain_ms"),
                          bound_ms=k2.get("bound_ms"), bound_by="bytes",
                          library_ms=None,
                          unit="one Llama3-8B model build: "
                               f"{sum(K2_SHAPES.values())} fp32 quantizes",
                          by_shape=k2.get("shapes"))
+        else:
+            n = (results.get("launches_paged_int8", {}) if "i8" in k.name
+                 else paged_launches).get(k.name, 0)
+            rows = [r for r in results.get("attn_time", [])
+                    if r["kernel"] == k.name]
+            main = next((r for r in rows if r["form"] == "paged"
+                         and r["B"] == 4 and r["ctx"] == 1900), {})
+            err = results.get("attn_err", {}).get(k.name, {})
+            entry.update(launches=n, max_abs_err=err.get("max_abs_err"),
+                         max_err_over_max_out=err.get(
+                             "max_err_over_max_out"),
+                         ms=main.get("ms"), plain_ms=main.get("plain_ms"),
+                         bound_ms=main.get("bound_ms"),
+                         bound_by=main.get("bound_by", "bytes"),
+                         library_ms=main.get("library_ms"),
+                         unit="one launch over the paged pool (page 256) at "
+                              "B=4, 1900 live tokens per row; library_ms: "
+                              "scaled_dot_product_attention(enable_gqa) "
+                              "over the same keys laid out contiguously"
+                              + (" (none for int8)" if "i8" in k.name
+                                 else "")
+                              + "; launches: the paged engine's "
+                              + ("int8" if "i8" in k.name else "first bf16")
+                              + " run",
+                         by_shape=rows)
         kernels.append(entry)
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_all

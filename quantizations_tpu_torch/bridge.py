@@ -8,7 +8,9 @@ The JAX side is a flat dict of numpy arrays keyed by pytree path, dotted
 leaf passed through ``np.asarray``. Fields that are None have no leaves
 and no keys. The storage is the same on both sides: pair words
 ``int32 [L, M/2, K/4]``, scales fp32, bf16 or ``int32 [L, M/2, K/64]``,
-norms and biases bf16, the cache bf16 ``[L, B, KV, S, D]``. bf16 arrays
+norms and biases bf16, the cache bf16 ``[L, B, KV, S, D]`` or int8 with
+bf16 steps ``[L, B, KV, S]``, the paged pool ``[L, P, KV, page, D]``
+(steps ``[L, P, KV, page]``). bf16 arrays
 arrive as numpy's ``bfloat16`` extension dtype and are moved by bits.
 """
 
@@ -29,11 +31,14 @@ from .models.llama import (
     QLinear,
     named_tensors,
 )
+from .serve.paged import PagedKVCache
 
 __all__ = ["params_from_numpy", "params_to_numpy", "cache_from_numpy",
-           "cache_to_numpy"]
+           "cache_to_numpy", "paged_from_numpy", "paged_to_numpy"]
 
 Tree = Dict[str, np.ndarray]
+_CACHE_KEYS = ("k", "v", "k_scale", "v_scale")
+_PAGED_KEYS = ("pages_k", "pages_v", "k_scale", "v_scale")
 
 
 def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -99,17 +104,29 @@ def params_to_numpy(params: LlamaParams) -> Tree:
 
 def cache_from_numpy(tree: Tree,
                      device: Union[str, torch.device] = "cuda") -> KVCache:
-    """The JAX package's bf16 ``KVCache`` (``{"k": ..., "v": ...}``) ->
-    the port's :class:`KVCache`."""
-    if "k_scale" in tree or "v_scale" in tree:
-        raise NotImplementedError(
-            "int8 KV caches need the int8 attention kernel "
-            "(quantizations_tpu/ops/attention.py:303 "
-            "flash_decode_attention_stacked_i8), which is not ported")
+    """The JAX package's ``KVCache`` (``{"k", "v"}``, plus ``"k_scale"``
+    and ``"v_scale"`` for an int8 cache) -> the port's
+    :class:`KVCache`."""
     dev = resolve_device(device)
-    return KVCache(k=_tensor(tree["k"], dev), v=_tensor(tree["v"], dev))
+    return KVCache(**{k: _tensor(tree[k], dev) for k in _CACHE_KEYS
+                      if k in tree})
 
 
 def cache_to_numpy(cache: KVCache) -> Tree:
     """Inverse of :func:`cache_from_numpy`."""
-    return {"k": _array(cache.k), "v": _array(cache.v)}
+    return {k: _array(t) for k, t in named_tensors(cache)}
+
+
+def paged_from_numpy(tree: Tree, device: Union[str, torch.device] = "cuda"
+                     ) -> PagedKVCache:
+    """The JAX package's ``PagedKVCache`` (``{"pages_k", "pages_v"}``,
+    plus ``"k_scale"``/``"v_scale"`` for an int8 pool) -> the port's
+    :class:`~quantizations_tpu_torch.serve.paged.PagedKVCache`."""
+    dev = resolve_device(device)
+    return PagedKVCache(**{k: _tensor(tree[k], dev) for k in _PAGED_KEYS
+                           if k in tree})
+
+
+def paged_to_numpy(pages: PagedKVCache) -> Tree:
+    """Inverse of :func:`paged_from_numpy`."""
+    return {k: _array(t) for k, t in named_tensors(pages)}

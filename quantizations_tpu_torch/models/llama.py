@@ -1,5 +1,5 @@
 """Llama3 in PyTorch with 4-bit quantized projections (counterpart of
-``quantizations_tpu/models/llama.py``, einsum-attention path).
+``quantizations_tpu/models/llama.py``).
 
 Architecture: RMSNorm, rotary embeddings (HF non-interleaved
 convention), grouped-query attention, SwiGLU MLP, with the family knobs
@@ -11,6 +11,11 @@ Layer parameters are stacked ``[L, ...]`` as in the JAX package. The
 scan over layers is a Python loop: the layer index is a Python int, so
 ``wp2[idx]`` is a view into the contiguous stack and the pair kernel
 reads the layer in place, as scalar prefetch does on the TPU.
+
+Attention is the einsum path, or at ``T == 1`` with
+``use_flash_attention`` the flash-decode kernels (K3, or K4 over an
+int8 cache). ``kv_cache_dtype="int8"`` stores codes with a bf16 step per
+cached row (:func:`quantize_kv_i8`).
 """
 
 from __future__ import annotations
@@ -18,13 +23,17 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Any, Iterator, Optional, Tuple, Union
+from typing import Any, Callable, Iterator, Optional, Tuple, Union
 
 import torch
 
 from ..config import QuantConfig
 from ..device import resolve_device
 from ..nn.linear import apply_4bit, kernel_activation, pair_max_tokens
+from ..ops.attention import (
+    flash_decode_attention_stacked,
+    flash_decode_attention_stacked_i8,
+)
 from ..ops.gemv import _SHIFTS, pack_i32_rows
 from ..ops.qmatmul import (
     _unblockmajor,
@@ -55,6 +64,10 @@ __all__ = [
     "apply_rope",
     "embed_lookup",
     "layer_window",
+    "layer_params",
+    "embed_tokens",
+    "lm_head_logits",
+    "quantize_kv_i8",
     "prefill",
     "decode_step",
     "named_tensors",
@@ -198,7 +211,11 @@ class LlamaParams:
 
 @dataclasses.dataclass
 class KVCache:
-    """Preallocated bf16 KV cache ``[L, B, kv_heads, max_seq, head_dim]``.
+    """Preallocated KV cache ``[L, B, kv_heads, max_seq, head_dim]``: bf16
+    (any ``kv_cache_dtype`` but ``"int8"``, as in the JAX package), or
+    int8 codes with a bf16 dequant step
+    per cached row in ``k_scale``/``v_scale`` ``[L, B, kv_heads,
+    max_seq]``.
 
     Updated IN PLACE: each layer writes its new rows with one indexed
     assignment into the stacked tensors (the JAX package threads a
@@ -207,18 +224,22 @@ class KVCache:
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_seq: int,
                device: Union[str, torch.device] = "cuda") -> "KVCache":
-        if cfg.kv_cache_dtype != "bf16":
-            raise NotImplementedError(
-                f"kv_cache_dtype={cfg.kv_cache_dtype!r} needs the int8 "
-                "attention kernels (quantizations_tpu/ops/attention.py:303 "
-                "flash_decode_attention_stacked_i8), which are not ported")
         dev = resolve_device(device)
         shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
                  max_seq, cfg.head_dim)
+        if cfg.kv_cache_dtype == "int8":
+            return cls(k=torch.zeros(shape, dtype=torch.int8, device=dev),
+                       v=torch.zeros(shape, dtype=torch.int8, device=dev),
+                       k_scale=torch.zeros(shape[:4], dtype=torch.bfloat16,
+                                           device=dev),
+                       v_scale=torch.zeros(shape[:4], dtype=torch.bfloat16,
+                                           device=dev))
         return cls(k=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
                    v=torch.zeros(shape, dtype=torch.bfloat16, device=dev))
 
@@ -517,18 +538,20 @@ def layer_window(cfg: LlamaConfig, i: int) -> Tuple[Optional[bool], Optional[int
     return use_win, (cfg.sliding_window if use_win else 2 ** 30)
 
 
+def quantize_kv_i8(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 quantize-on-write of KV rows: one absmax step per row over the
+    trailing ``D`` axis, rounded to its bf16 storage before the codes are
+    computed (so write and read use the same step), codes rounded half to
+    even and clipped to +-127. Returns (int8 codes, bf16 steps ``[...]``),
+    bit-exact with the JAX package."""
+    tf = t.float()
+    step = (tf.abs().amax(dim=-1) * (1.0 / 127.0)).to(torch.bfloat16)
+    codes = torch.round(tf / torch.clamp(step.float(), min=1e-12)[..., None])
+    return codes.clamp(-127, 127).to(torch.int8), step
+
+
 def _check_ported(cfg: LlamaConfig, axis_name: Optional[str]) -> None:
     """Raise for configuration values whose path needs an unported kernel."""
-    if cfg.use_flash_attention:
-        raise NotImplementedError(
-            "use_flash_attention=True needs the flash-decode kernel "
-            "(quantizations_tpu/ops/attention.py:224 "
-            "flash_decode_attention_stacked), which is not ported")
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r} needs the int8 attention "
-            "kernel (quantizations_tpu/ops/attention.py:303 "
-            "flash_decode_attention_stacked_i8), which is not ported")
     if cfg.quant.pair_pipeline == "manual":
         raise NotImplementedError(
             "pair_pipeline='manual' needs the manual-pipeline pair kernel "
@@ -549,17 +572,17 @@ def _check_ported(cfg: LlamaConfig, axis_name: Optional[str]) -> None:
             "ported")
 
 
-def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cache: KVCache,
-                   positions: torch.Tensor, cos: torch.Tensor,
-                   sin: torch.Tensor, mask: torch.Tensor, cfg: LlamaConfig,
-                   idx: int, attend_len: Optional[int] = None
-                   ) -> torch.Tensor:
-    """One decoder layer on ``x [B, T, hidden]`` (bf16). Writes this
-    layer's new K/V rows into ``cache`` in place at ``positions [B, T]``,
-    then attends over ``cache[idx][:, :, :attend_len]``.
+# attend(q [B, T, n_q, D], k, v [B, T, n_kv, D]) -> attention [B*T, n_q*D]:
+# writes this layer's new K/V rows to its cache, then attends over it.
+Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
-    Attention operands are fp32 on the CPU and the cache dtype (bf16) on
-    the GPU, with fp32 products, sums and softmax on both."""
+
+def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cos: torch.Tensor,
+                   sin: torch.Tensor, cfg: LlamaConfig, idx: int,
+                   attend: Attend) -> torch.Tensor:
+    """One decoder layer on ``x [B, T, hidden]`` (bf16): projections,
+    q/k norms and rope, then ``attend`` (which owns the cache: slot or
+    paged), the o projection and the MLP."""
     B, T, h = x.shape
     D = cfg.head_dim
     if layer.qkv is not None:
@@ -569,7 +592,6 @@ def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cache: KVCache,
     else:
         n_q = layer.q.out_features // D
         n_kv = layer.k.out_features // D
-    G = n_q // n_kv
     qcfg = cfg.quant
 
     # -- attention --
@@ -597,26 +619,7 @@ def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cache: KVCache,
         k = rms_norm(k, layer.k_norm, cfg.rms_norm_eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-
-    cache_k, cache_v = cache.k[idx], cache.v[idx]     # views [B, KV, S, D]
-    bi = torch.arange(B, device=x.device)[:, None].expand(B, T)
-    cache_k[bi, :, positions] = k.to(cache_k.dtype)
-    cache_v[bi, :, positions] = v.to(cache_v.dtype)
-
-    S_att = attend_len or cache_k.shape[2]
-    adt = cache_k.dtype if x.is_cuda else torch.float32
-    kf = cache_k[:, :, :S_att].to(adt).float()
-    vf = cache_v[:, :, :S_att].to(adt).float()
-    qg = q.reshape(B, T, n_kv, G, D).to(adt).float()
-    scores = torch.einsum("btkgd,bksd->btkgs", qg, kf) * (
-        (cfg.query_scale or D) ** -0.5)
-    if cfg.attn_logit_softcap is not None:
-        cap = cfg.attn_logit_softcap
-        scores = cap * torch.tanh(scores / cap)
-    scores = scores.masked_fill(~mask[:, :, None, None, :], -1e30)
-    w = torch.softmax(scores, dim=-1)
-    attn = torch.einsum("btkgs,bksd->btkgd", w.to(adt).float(), vf)
-    attn = attn.reshape(B * T, n_q * D)
+    attn = attend(q, k, v)
 
     o = _ql(attn, layer.o, qcfg, idx)
     ob = o.reshape(B, T, h)
@@ -642,26 +645,136 @@ def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cache: KVCache,
     return x + db.to(x.dtype)
 
 
+def _kv_rows(k: torch.Tensor, v: torch.Tensor, int8: bool, dtype):
+    """New K/V rows in the cache's storage: (k, v, k_step, v_step), the
+    steps None for a bf16 cache."""
+    if int8:
+        kq, ks = quantize_kv_i8(k)
+        vq, vs = quantize_kv_i8(v)
+        return kq, vq, ks, vs
+    return k.to(dtype), v.to(dtype), None, None
+
+
+def _slot_attend(cache: KVCache, idx: int, positions: torch.Tensor,
+                 mask: torch.Tensor, cfg: LlamaConfig,
+                 attend_len: Optional[int], win_eff: Optional[int]) -> Attend:
+    """Attention over layer ``idx`` of the slot cache: write the new rows
+    at ``positions [B, T]``, then the flash-decode kernel (``T == 1`` with
+    ``use_flash_attention``, gated as in the JAX package) or the einsum
+    path over ``cache[idx][:, :, :attend_len]`` under ``mask``.
+
+    Einsum operands are fp32 on the CPU and the cache dtype (bf16; bf16
+    ``code * step`` for int8) on the GPU, with fp32 products, sums and
+    softmax on both."""
+    int8 = cache.k_scale is not None
+
+    def attend(q, k, v):
+        B, T, n_q, D = q.shape
+        n_kv = k.shape[2]
+        G = n_q // n_kv
+        kn, vn, ks, vs = _kv_rows(k, v, int8, cache.k.dtype)
+        bi = torch.arange(B, device=q.device)[:, None].expand(B, T)
+        cache.k[idx][bi, :, positions] = kn
+        cache.v[idx][bi, :, positions] = vn
+        if int8:
+            cache.k_scale[idx][bi, :, positions] = ks
+            cache.v_scale[idx][bi, :, positions] = vs
+
+        S_att = attend_len or cache.max_seq
+        scale = (cfg.query_scale or D) ** -0.5
+        if (cfg.use_flash_attention and T == 1
+                and (cfg.sliding_window is None or win_eff is not None)):
+            qg = q[:, 0].reshape(B, n_kv, G, D)
+            lengths = (positions[:, 0] + 1).to(torch.int32)
+            common = dict(attend_len=S_att, scale=scale,
+                          softcap=cfg.attn_logit_softcap, window=win_eff)
+            if int8:
+                attn = flash_decode_attention_stacked_i8(
+                    qg, cache.k, cache.v, cache.k_scale, cache.v_scale, idx,
+                    lengths, **common)
+            else:
+                attn = flash_decode_attention_stacked(
+                    qg, cache.k, cache.v, idx, lengths, **common)
+            return attn.reshape(B * T, n_q * D)
+
+        adt = torch.bfloat16 if q.is_cuda else torch.float32
+        kf = cache.k[idx][:, :, :S_att].to(adt)
+        vf = cache.v[idx][:, :, :S_att].to(adt)
+        if int8:
+            kf = kf * cache.k_scale[idx][:, :, :S_att, None].to(adt)
+            vf = vf * cache.v_scale[idx][:, :, :S_att, None].to(adt)
+        qg = q.reshape(B, T, n_kv, G, D).to(adt).float()
+        scores = torch.einsum("btkgd,bksd->btkgs", qg, kf.float()) * scale
+        if cfg.attn_logit_softcap is not None:
+            cap = cfg.attn_logit_softcap
+            scores = cap * torch.tanh(scores / cap)
+        scores = scores.masked_fill(~mask[:, :, None, None, :], -1e30)
+        w = torch.softmax(scores, dim=-1)
+        attn = torch.einsum("btkgs,bksd->btkgd", w.to(adt).float(),
+                            vf.float())
+        return attn.reshape(B * T, n_q * D)
+
+    return attend
+
+
 _PER_LAYER = ("attn_norm", "mlp_norm", "q_bias", "k_bias", "v_bias",
               "post_attn_norm", "post_mlp_norm", "q_norm", "k_norm",
               "qkv_bias")
 
 
-def _forward(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
-             pos: Union[int, torch.Tensor], cfg: LlamaConfig,
-             axis_name: Optional[str] = None, last_token_only: bool = False,
-             attend_len: Optional[int] = None
-             ) -> Tuple[torch.Tensor, KVCache]:
-    """Shared prefill/decode forward: embeds ``T`` tokens written at cache
-    positions ``pos .. pos+T`` (``pos`` an int or per-row ``[B]``) and
-    returns logits ``[B, T, vocab]`` (``T = 1`` with ``last_token_only``)
-    and the cache, updated in place."""
-    _check_ported(cfg, axis_name)
-    B, T = token_ids.shape
-    dev = token_ids.device
+def layer_params(st: LlamaLayer, i: int) -> LlamaLayer:
+    """Layer ``i``'s view of the stacked parameters: the weights stay
+    stacked (the kernel reads layer ``i`` in place); only the small
+    per-layer vectors are sliced."""
+    return dataclasses.replace(st, **{
+        n: getattr(st, n)[i] for n in _PER_LAYER
+        if getattr(st, n) is not None})
+
+
+def embed_tokens(params: LlamaParams, token_ids: torch.Tensor,
+                 cfg: LlamaConfig) -> torch.Tensor:
+    """The embedding rows of ``token_ids``, times sqrt(hidden) when the
+    config has the Gemma normalizer."""
     x = embed_lookup(params.embed, token_ids, cfg.quant.quant_type)
     if cfg.embed_normalizer:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
+    return x
+
+
+def lm_head_logits(params: LlamaParams, x: torch.Tensor,
+                   cfg: LlamaConfig) -> torch.Tensor:
+    """Final norm, lm_head and final softcap: ``x [B, T, hidden]`` ->
+    fp32 logits ``[B, T, vocab]``."""
+    B, T, _ = x.shape
+    x = _norm(x, params.final_norm, cfg)
+    if isinstance(params.lm_head, QLinear):
+        logits = _ql(x.to(cfg.quant.compute_dtype).reshape(B * T, -1),
+                     params.lm_head, cfg.quant).reshape(B, T, -1)
+    else:
+        logits = torch.einsum("bth,vh->btv", x.to(torch.bfloat16).float(),
+                              params.lm_head.float())
+    if cfg.final_logit_softcap is not None:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
+def _forward(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
+             pos: Union[int, torch.Tensor], cfg: LlamaConfig,
+             axis_name: Optional[str] = None, last_token_only: bool = False,
+             attend_len: Optional[int] = None,
+             logits_at: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, KVCache]:
+    """Shared prefill/decode forward: embeds ``T`` tokens written at cache
+    positions ``pos .. pos+T`` (``pos`` an int or per-row ``[B]``) and
+    returns logits ``[B, T, vocab]`` and the cache, updated in place.
+    ``last_token_only`` computes the logits of the last token only, and
+    ``logits_at [B]`` those of token ``logits_at[b]`` of each row (both
+    ``T = 1``): the others are never computed."""
+    _check_ported(cfg, axis_name)
+    B, T = token_ids.shape
+    dev = token_ids.device
+    x = embed_tokens(params, token_ids, cfg)
 
     pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
     pos = torch.broadcast_to(pos.reshape(-1), (B,))
@@ -675,43 +788,33 @@ def _forward(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
         mask = mask & (key_pos[None, None, :]
                        > positions[:, :, None] - cfg.sliding_window)
 
-    st = params.layers
     for i in range(cfg.num_hidden_layers):
-        # weights stay stacked (the kernel reads layer i in place); only
-        # the small per-layer vectors are sliced
-        layer = dataclasses.replace(st, **{
-            n: getattr(st, n)[i] for n in _PER_LAYER
-            if getattr(st, n) is not None})
-        use_win, _ = layer_window(cfg, i)
+        use_win, win_eff = layer_window(cfg, i)
         mask_i = mask if use_win is None or use_win else mask_full
-        x = _layer_forward(x, layer, cache, positions, cos, sin, mask_i, cfg,
-                           idx=i, attend_len=attend_len)
+        attend = _slot_attend(cache, i, positions, mask_i, cfg, attend_len,
+                              win_eff)
+        x = _layer_forward(x, layer_params(params.layers, i), cos, sin, cfg,
+                           i, attend)
 
-    if last_token_only:
+    if logits_at is not None:
+        x = x[torch.arange(B, device=dev), logits_at.to(dev).long()][:, None]
+    elif last_token_only:
         x = x[:, -1:, :]
-        T = 1
-    x = _norm(x, params.final_norm, cfg)
-    if isinstance(params.lm_head, QLinear):
-        logits = _ql(x.to(cfg.quant.compute_dtype).reshape(B * T, -1),
-                     params.lm_head, cfg.quant).reshape(B, T, -1)
-    else:
-        logits = torch.einsum("bth,vh->btv", x.to(torch.bfloat16).float(),
-                              params.lm_head.float())
-    if cfg.final_logit_softcap is not None:
-        cap = cfg.final_logit_softcap
-        logits = cap * torch.tanh(logits / cap)
-    return logits, cache
+    return lm_head_logits(params, x, cfg), cache
 
 
 def prefill(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
             cfg: LlamaConfig, pos: Union[int, torch.Tensor, None] = None,
             axis_name: Optional[str] = None, last_token_only: bool = False,
-            attend_len: Optional[int] = None
+            attend_len: Optional[int] = None,
+            logits_at: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, KVCache]:
-    """Process a prompt chunk; returns (logits [B, T, vocab], cache)."""
+    """Process a prompt chunk; returns (logits [B, T, vocab], cache), or
+    the logits of one token per row with ``last_token_only`` or
+    ``logits_at``."""
     return _forward(params, token_ids, cache, 0 if pos is None else pos, cfg,
                     axis_name=axis_name, last_token_only=last_token_only,
-                    attend_len=attend_len)
+                    attend_len=attend_len, logits_at=logits_at)
 
 
 def decode_step(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,

@@ -1,7 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
-Each ``csrc/*.cu`` source is one kernel with a plain C interface. It is
-compiled by its own ``nvcc`` call for ``sm_90a`` into a shared library
+Each ``csrc/*.cu`` source holds one or more kernels with a plain C
+interface (``flash_decode.cu`` holds K3 and K4, each with its own
+:class:`Kernel` record and launch counter). A source is compiled by its
+own ``nvcc`` call for ``sm_90a`` into a shared library
 under ``quantizations_tpu_torch/build/`` (named by a hash of the source,
 so an edited source rebuilds) and loaded with ``ctypes``. :func:`build`
 starts every missing build at once and waits for all of them; a launch
@@ -24,8 +26,9 @@ from typing import Dict, Sequence
 
 import torch
 
-__all__ = ["Kernel", "PAIR_MATMUL", "QUANTIZE_4BIT", "KERNELS", "build",
-           "launch", "nvcc_path", "NVCC_FLAGS"]
+__all__ = ["Kernel", "PAIR_MATMUL", "QUANTIZE_4BIT", "FLASH_DECODE",
+           "FLASH_DECODE_I8", "KERNELS", "build", "launch", "nvcc_path",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 @dataclasses.dataclass
@@ -76,7 +80,23 @@ QUANTIZE_4BIT = Kernel(
     "quantizations_tpu/ops/quantize.py:93 _quantize_kernel "
     "(quantize_4bit_pallas :142)",
     {"qt_quantize_4bit": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P]})
-KERNELS = (PAIR_MATMUL, QUANTIZE_4BIT)
+# (q, q_f32, k, v, [ks, vs,] table, lengths, out, B, KVH, QG, G, D, page,
+#  max_pages, n_pos, has_win, win, scale, has_cap, cap, inv_cap, stream)
+_DECODE_TAIL = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                _F, _F, _P]
+FLASH_DECODE = Kernel(
+    "flash_decode", "quantizations_tpu_torch/csrc/flash_decode.cu",
+    "quantizations_tpu/ops/attention.py:38 _kernel "
+    "(flash_decode_attention :171, flash_decode_attention_stacked :224, "
+    "ops/paged_attention.py:47 paged_flash_decode_attention)",
+    {"qt_flash_decode_bf16": [_P, _I, _P, _P] + _DECODE_TAIL})
+FLASH_DECODE_I8 = Kernel(
+    "flash_decode_i8", "quantizations_tpu_torch/csrc/flash_decode.cu",
+    "quantizations_tpu/ops/attention.py:108 _kernel_i8 "
+    "(flash_decode_attention_stacked_i8 :303, "
+    "ops/paged_attention.py:141 paged_flash_decode_attention_i8)",
+    {"qt_flash_decode_i8": [_P, _I, _P, _P, _P, _P] + _DECODE_TAIL})
+KERNELS = (PAIR_MATMUL, QUANTIZE_4BIT, FLASH_DECODE, FLASH_DECODE_I8)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -100,11 +120,12 @@ def build(kernels: Sequence[Kernel] = KERNELS) -> None:
     them all."""
     with _lock:
         BUILD.mkdir(parents=True, exist_ok=True)
-        jobs = []
+        jobs, started = [], set()
         for k in kernels:
             so = k.so_path()
-            if so.exists() or k.name in _libs:
+            if so.exists() or k.name in _libs or so in started:
                 continue
+            started.add(so)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
             os.close(fd)
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(k.path)]

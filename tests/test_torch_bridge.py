@@ -1,5 +1,6 @@
 """The bridge between the JAX package and the port: JAX -> numpy -> port ->
-numpy round-trips ``LlamaParams`` and ``KVCache`` bit for bit, with the
+numpy round-trips ``LlamaParams``, ``KVCache`` (bf16 and int8) and the
+paged pool ``PagedKVCache`` bit for bit, with the
 same storage (dtype and shape) on both sides and nothing repacked.
 """
 
@@ -13,10 +14,13 @@ import torch
 
 from quantizations_tpu.config import QuantConfig as JQuantConfig
 from quantizations_tpu.models import llama as jl
+from quantizations_tpu.serve import paged as jp
 from quantizations_tpu_torch.bridge import (cache_from_numpy, cache_to_numpy,
+                                            paged_from_numpy, paged_to_numpy,
                                             params_from_numpy,
                                             params_to_numpy)
 from quantizations_tpu_torch.models import llama as tl
+from quantizations_tpu_torch.serve import paged as tpg
 
 torch.set_num_threads(1)
 
@@ -89,7 +93,51 @@ def test_cache_roundtrip_bit_exact(rng):
     _assert_same(cache_to_numpy(tc), ref)
 
 
-def test_int8_cache_is_refused():
+def test_int8_cache_roundtrip_bit_exact(rng):
     cfg = dataclasses.replace(SMALL, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cache_from_numpy(_tree(jl.KVCache.create(cfg, 1, 8)), device="cpu")
+    cache = jl.KVCache.create(cfg, 2, 16)
+    filled = jl.KVCache(
+        k=jnp.asarray(rng.integers(-127, 128, cache.k.shape), jnp.int8),
+        v=jnp.asarray(rng.integers(-127, 128, cache.v.shape), jnp.int8),
+        k_scale=jnp.asarray(rng.random(cache.k_scale.shape), jnp.bfloat16),
+        v_scale=jnp.asarray(rng.random(cache.v_scale.shape), jnp.bfloat16))
+    ref = _tree(filled)
+    assert set(ref) == {"k", "v", "k_scale", "v_scale"}
+    tc = cache_from_numpy(ref, device="cpu")
+    assert tc.k.dtype == torch.int8 and tc.k_scale.dtype == torch.bfloat16
+    _assert_same(cache_to_numpy(tc), ref)
+    # the port's own int8 cache has the JAX package's storage
+    mine = tl.KVCache.create(dataclasses.replace(
+        tl.TINY_LLAMA, kv_cache_dtype="int8"), 2, 16, device="cpu")
+    assert mine.k.dtype == torch.int8 and mine.k_scale.shape == mine.k.shape[:4]
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_paged_pool_roundtrip_bit_exact(rng, kv_dtype):
+    cfg = dataclasses.replace(SMALL, kv_cache_dtype=kv_dtype)
+    pool = jp.PagedKVCache.create(cfg, num_pages=5, page_size=8)
+    if kv_dtype == "int8":
+        filled = pool.replace(
+            pages_k=jnp.asarray(rng.integers(-127, 128, pool.pages_k.shape),
+                                jnp.int8),
+            pages_v=jnp.asarray(rng.integers(-127, 128, pool.pages_v.shape),
+                                jnp.int8),
+            k_scale=jnp.asarray(rng.random(pool.k_scale.shape), jnp.bfloat16),
+            v_scale=jnp.asarray(rng.random(pool.v_scale.shape), jnp.bfloat16))
+    else:
+        filled = pool.replace(
+            pages_k=jnp.asarray(rng.standard_normal(pool.pages_k.shape),
+                                jnp.bfloat16),
+            pages_v=jnp.asarray(rng.standard_normal(pool.pages_v.shape),
+                                jnp.bfloat16))
+    ref = _tree(filled)
+    tp = paged_from_numpy(ref, device="cpu")
+    assert tp.page_size == 8 and tp.num_pages == 5
+    _assert_same(paged_to_numpy(tp), ref)
+    mine = tpg.PagedKVCache.create(dataclasses.replace(
+        tl.TINY_LLAMA, num_hidden_layers=SMALL.num_hidden_layers,
+        num_key_value_heads=SMALL.num_key_value_heads,
+        head_dim=SMALL.head_dim, kv_cache_dtype=kv_dtype), 5, 8, device="cpu")
+    for (k, t), (k2, v) in zip(sorted(paged_to_numpy(mine).items()),
+                               sorted(ref.items())):
+        assert k == k2 and t.shape == v.shape and t.dtype == v.dtype

@@ -5,8 +5,9 @@
 - Entry points run on CUDA unless they are given ``device="cpu"``: with
   no card they raise rather than fall back to the CPU.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card.
-- Tests marked ``cuda`` hold each kernel against its plain version on
-  the card; they skip where ``torch.cuda.is_available()`` is False.
+- Tests marked ``cuda`` hold each kernel (K1 to K4) against its plain
+  version on the card; they skip where ``torch.cuda.is_available()`` is
+  False.
 """
 
 import ast
@@ -22,8 +23,12 @@ import torch
 from quantizations_tpu_torch import QuantConfig
 from quantizations_tpu_torch.bridge import cache_from_numpy, params_from_numpy
 from quantizations_tpu_torch.models import llama as tl
+from quantizations_tpu_torch.ops import FLASH_DECODE, FLASH_DECODE_I8
+from quantizations_tpu_torch.ops import attention as tat
+from quantizations_tpu_torch.ops import paged_attention as tpa
 from quantizations_tpu_torch.ops import qmatmul as tqm
 from quantizations_tpu_torch.ops import quantize as tqz
+from quantizations_tpu_torch.serve import paged as tpg
 
 torch.set_num_threads(1)
 
@@ -68,7 +73,8 @@ def test_entry_points_need_a_card(monkeypatch):
                  lambda: tl.KVCache.create(cfg, 1, 8),
                  lambda: params_from_numpy({}, cfg),
                  lambda: cache_from_numpy({"k": np.zeros(1),
-                                           "v": np.zeros(1)})):
+                                           "v": np.zeros(1)}),
+                 lambda: tpg.PagedKVCache.create(cfg, 4, 8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert tl.KVCache.create(cfg, 1, 8, device="cpu").k.device.type == "cpu"
@@ -167,3 +173,136 @@ def test_tiny_model_on_card_matches_cpu(cuda):
     lc, _ = tl.prefill(pc, ids, tl.KVCache.create(cfg, 2, 32, "cpu"), cfg)
     # bf16 attention operands on the card, fp32 on the CPU
     assert (lg.cpu() - lc).abs().max() <= 2e-2 * lc.abs().max()
+
+
+def _decode_operands(rng, int8, blocks, KVH, page, D):
+    shape = (3, blocks, KVH, page, D)
+    if int8:
+        k = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+        v = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+        ks = torch.from_numpy(rng.uniform(0.005, 0.05, shape[:4]).astype(
+            np.float32)).to(torch.bfloat16)
+        vs = torch.from_numpy(rng.uniform(0.005, 0.05, shape[:4]).astype(
+            np.float32)).to(torch.bfloat16)
+        return k, v, ks, vs
+    k = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16)
+    return k, v, None, None
+
+
+def _agree(got, ref):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # both read the same values in fp32: summation order only
+    assert (got.cpu() - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("q_span,G,window,softcap", [
+    (1, 4, None, None), (1, 1, 7, 50.0), (3, 2, 2 ** 30, None),
+    (4, 8, 20, 30.0)])
+def test_k3_k4_paged_match_plain_on_card(cuda, rng, int8, D, q_span, G,
+                                         window, softcap):
+    B, KVH, P, page, mp = 3, 2, 9, 32, 4
+    k, v, ks, vs = _decode_operands(rng, int8, P, KVH, page, D)
+    table = torch.zeros((B, mp), dtype=torch.int32)
+    perm = torch.from_numpy(rng.permutation(np.arange(1, P)).astype(np.int32))
+    table[0, :1], table[1, :2], table[2, :4] = perm[:1], perm[1:3], perm[3:7]
+    lengths = torch.tensor([1, 40, 128 - q_span + 1], dtype=torch.int32)
+    q = torch.from_numpy(rng.standard_normal((B, KVH, q_span * G, D)).astype(
+        np.float32))
+    kw = dict(softcap=softcap, window=window, q_span=q_span,
+              pages_per_step=2)
+    on = [t.to(cuda) for t in (q, k, v)]
+    if int8:
+        ref = tpa.paged_flash_decode_attention_i8(q, k, v, ks, vs, table, 2,
+                                                  lengths, **kw)
+        got = tpa.paged_flash_decode_attention_i8(
+            *on, ks.to(cuda), vs.to(cuda), table.to(cuda), 2,
+            lengths.to(cuda), **kw)
+    else:
+        ref = tpa.paged_flash_decode_attention(q, k, v, table, 2, lengths,
+                                               **kw)
+        got = tpa.paged_flash_decode_attention(*on, table.to(cuda), 2,
+                                               lengths.to(cuda), **kw)
+    _agree(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("attend_len,window,softcap", [
+    (None, None, None), (96, 7, 50.0), (300, 2 ** 30, None)])
+def test_k3_k4_slot_match_plain_on_card(cuda, rng, int8, attend_len, window,
+                                        softcap):
+    B, KVH, G, D, S = 3, 2, 4, 128, 320
+    k, v, ks, vs = _decode_operands(rng, int8, B, KVH, S, D)
+    n = attend_len or S
+    lengths = torch.tensor([1, 33, n], dtype=torch.int32)
+    q = torch.from_numpy(rng.standard_normal((B, KVH, G, D)).astype(
+        np.float32)).to(torch.bfloat16)
+    kw = dict(attend_len=attend_len, softcap=softcap, window=window)
+    on = [t.to(cuda) for t in (q, k, v)]
+    if int8:
+        ref = tat.flash_decode_attention_stacked_i8(q, k, v, ks, vs, 1,
+                                                    lengths, **kw)
+        got = tat.flash_decode_attention_stacked_i8(
+            *on, ks.to(cuda), vs.to(cuda), 1, lengths.to(cuda), **kw)
+    else:
+        ref = tat.flash_decode_attention_stacked(q, k, v, 1, lengths, **kw)
+        got = tat.flash_decode_attention_stacked(*on, 1, lengths.to(cuda),
+                                                 **kw)
+        # the unstacked form is the stacked one at L = 1
+        ref1 = tat.flash_decode_attention(q, k[1], v[1], lengths,
+                                          softcap=softcap, window=window)
+        got1 = tat.flash_decode_attention(on[0], on[1][1].contiguous(),
+                                          on[2][1].contiguous(),
+                                          lengths.to(cuda), softcap=softcap,
+                                          window=window)
+        _agree(got1, ref1)
+    _agree(got, ref)
+
+
+@pytest.mark.cuda
+def test_k3_refuses_what_it_cannot_take_on_card(cuda):
+    q = torch.zeros((1, 2, 4, 96), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 2, 16, 96), dtype=torch.bfloat16, device=cuda)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tat.flash_decode_attention(q, k, k, lengths)
+    with pytest.raises(ValueError, match="int32"):
+        tat.flash_decode_attention(q[..., :64].contiguous(),
+                                   k[..., :64].contiguous(),
+                                   k[..., :64].contiguous(), lengths.long())
+
+
+@pytest.mark.cuda
+def test_flash_and_int8_generate_on_card(cuda):
+    """The tiny model generates through K3/K4 on the card: tokens in the
+    vocabulary, and each kernel launched once per layer per decode
+    step."""
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.serve.generate import make_generate_fn
+
+    for knobs in (dict(use_flash_attention=True),
+                  dict(use_flash_attention=True, kv_cache_dtype="int8")):
+        cfg = dataclasses.replace(tl.TINY_LLAMA, quant=QuantConfig(
+            quantize_embedding=True), **knobs)
+        p = tl.fuse_projections(tl.init_llama_params(cfg, seed=1,
+                                                     device=cuda))
+        ids = torch.randint(0, cfg.vocab_size, (2, 6),
+                            generator=torch.Generator().manual_seed(0))
+        gen = make_generate_fn(cfg, ServeConfig(max_seq_len=32,
+                                                max_new_tokens=6))
+        kern = (FLASH_DECODE_I8 if "kv_cache_dtype" in knobs
+                else FLASH_DECODE)
+        before = kern.launches
+        toks, _ = gen(p, ids.to(cuda), tl.KVCache.create(cfg, 2, 32, cuda),
+                      None)
+        torch.cuda.synchronize()
+        assert kern.launches - before == 5 * cfg.num_hidden_layers
+        assert toks.shape == (2, 6)
+        assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size

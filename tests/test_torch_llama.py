@@ -300,7 +300,6 @@ def test_eos_freezes_rows(models):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(use_flash_attention=True), dict(kv_cache_dtype="int8"),
     dict(quant=QuantConfig(pair_pipeline="manual")),
     dict(quant=QuantConfig(dense_twin=True)), "axis_name", "QT_PREFILL_PAIR"])
 def test_unported_knobs_raise(models, monkeypatch, knob):
@@ -317,6 +316,3 @@ def test_unported_knobs_raise(models, monkeypatch, knob):
     with pytest.raises(NotImplementedError, match="not ported"):
         tl.prefill(tp, torch.zeros((1, 2), dtype=torch.int32), cache, cfg,
                    **kwargs)
-    if knob == dict(kv_cache_dtype="int8"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tl.KVCache.create(cfg, 1, MAX_SEQ, device="cpu")
