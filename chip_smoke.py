@@ -50,7 +50,28 @@ Phases, each raising on failure:
    timed runs after a warm-up, printed with their min and max. A tiny
    model then checks the CUDA path against the CPU's plain path on the
    same parameters (prefill, and a flash decode step, bf16 and int8);
-8. ``paged``: the slice's path. ``PagedEngine(slots=4, max_seq=2048,
+8. ``planar``: the planar layout. K5 (planar dequant-matmul) and K6
+   (planar fp32 GEMV) within 1e-5 * max|y| of their plain versions and
+   K7 (dequantize) bit-exact at every planar Llama3-8B shape and an odd
+   row count, FP4 and NF4, fp32 and bf16 scales, K5 at T in {1, 2, 4, 8,
+   16, 48, 64}, K6 at T in {1, 3, 5, 6, 7, 8}. Then the planar twin of
+   the model phase's FP4 model (every pair weight repacked to planar
+   words, the same codes and scales) generates 60 tokens at B = 1, 3, 8
+   with exact launch counts (B = 1: 7740 K5; B = 3: 128 K5 on the 48-row
+   prefill and 7612 K6; B = 8: 128 K7 on the 128-row prefill's dense band
+   and 7612 K5; no K1), the same tokens on every run, tok/s the median of
+   5; each projection of the twin against K1 on the pair words it came
+   from (K5 within 1e-5 * max|y|: one rounding class; K6 within 1e-2:
+   fp32 class against bf16), one decode step's logits against the pair
+   model's on the same cache (a layout check, 0.25 * max|logit|: 32
+   random layers amplify rounding differences) and where the greedy
+   streams part. ``Linear4bit.create`` on a [14336, 4096]
+   weight runs T = 1, 3, 64, 256 against the plain path and round-trips
+   through the bnb flat tensors bit-identically. Last the kernels' times
+   against their bounds (K5 and K6 per decode forward, K5 at T = 48, K7
+   at [14336, 4096] and the lm_head), the plain versions and dense bf16
+   ``torch.matmul``;
+9. ``paged``: the paged engine. ``PagedEngine(slots=4, max_seq=2048,
    prefill_buckets=(64, 256), admit_width=4, prefix_cache=True,
    num_pages=40)`` (page 256) over the FP4 model serves 8 greedy
    requests of 32 new tokens: prompts of 16, 100, 300, 700, 1100, 1500
@@ -63,12 +84,13 @@ Phases, each raising on failure:
    tokens and return every page but the prefix cache's pins. Printed:
    aggregate new tokens per second, steps, admission group sizes, and
    the wall time split into admission and decode;
-9. ``profile``: one FP4 batch-1 generate of 8 new tokens under
+10. ``profile``: one FP4 batch-1 generate of 8 new tokens under
    ``torch.profiler``: device kernel time by name, kernels per forward,
    the device's busy share of the wall time, the host's enqueue time.
 
-Then one JSON line of kernel results, the ``nvidia-smi`` line again, and
-last ``{"ok": true, "device": {...}}``. Details go to
+Then one JSON line of kernel results (without the per-shape detail),
+the ``nvidia-smi`` line again, and last ``{"ok": true, "device":
+{...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Exits non-zero with no result when no
 CUDA device is present.
 """
@@ -88,6 +110,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+FP32_FLOP_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 L2_BYTES = 50 * 2**20
 
 K1_SHAPES = (("qkv", 6144, 4096), ("o", 4096, 4096),
@@ -110,6 +133,13 @@ ATTN_TIMED_CTX = (128, 512, 1900)
 PAGED_LENS = (16, 100, 300, 700, 1100, 1500, 1900)
 PAGED_NEW = 32
 LAYERS = 32
+# the planar phase: every planar Llama3-8B shape and one odd row count
+PLANAR_SHAPES = K1_SHAPES + (("odd", 6143, 4096),)
+K5_TOKENS = (1, 2, 4, 8, 16, 48, 64)
+K6_TOKENS = (1, 3, 5, 6, 7, 8)
+PLANAR_BATCHES = (1, 3, 8)
+PLANAR_NEW = 60
+MODULE_SHAPE = (14336, 4096)   # the Linear4bit of the planar phase
 # (M, K) -> K2 launches in one Llama3-8B model build: per layer q and o,
 # k and v, gate and up, down; then the embedding and the lm_head. The
 # fused gate|up shape is checked too but never quantized whole.
@@ -133,24 +163,35 @@ def smi_line() -> str:
 def device_ms(fn, n: int, warmup: int = 3) -> float:
     """Device time of one ``fn(i)`` in ms: CUDA events around ``n`` calls,
     queued behind a sleep kernel so that host launch overhead stays out
-    of the measurement."""
+    of the measurement. If the sleep ran out before the host had queued
+    every call (the start event already complete), the device may have
+    waited for the host: measure again behind a sleep four times longer
+    (at most twice)."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2e5 * n + 2e6))
-    start.record()
-    for i in range(n):
-        fn(i)
-    end.record()
-    end.synchronize()
+    cycles = 2e5 * n + 2e6
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(cycles))
+        start.record()
+        for i in range(n):
+            fn(i)
+        end.record()
+        starved = start.query()
+        end.synchronize()
+        if not starved:
+            break
+        cycles *= 4
     return start.elapsed_time(end) / n
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by) on an H100 SXM."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
+    """(bound_ms, bound_by) on an H100 SXM: bytes over 3.35 TB/s or
+    operations over ``flop_rate`` (bf16 tensor cores by default),
+    whichever is longer."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -560,7 +601,8 @@ def phase_model(dev, results):
         LLAMA3_8B, TINY_LLAMA, KVCache, decode_step, fuse_projections,
         init_llama_params, map_tensors, named_tensors, prefill)
     from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
-                                             KERNELS, PAIR_MATMUL)
+                                             KERNELS, PAIR_MATMUL,
+                                             QUANTIZE_4BIT)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
 
     serve = ServeConfig(max_seq_len=128, max_new_tokens=60, temperature=0.0)
@@ -683,7 +725,7 @@ def phase_model(dev, results):
     results["launches"] = {k.name: k.launches for k in KERNELS}
     results["generate"] = runs
     results["decode_logits"] = _decode_logit_check(fp4_params, dev)
-    for k in KERNELS:
+    for k in (PAIR_MATMUL, QUANTIZE_4BIT, FLASH_DECODE, FLASH_DECODE_I8):
         if k.launches == 0:
             raise AssertionError(f"{k.name} was never launched on the "
                                  "generate path")
@@ -765,6 +807,455 @@ def _decode_logit_check(params, dev):
             f"({rel:.3e} of max|logit|), top-1 agreement {top1:.3f}")
     log(f"  einsum top-2 margin: median {margin:.3e} of max|logit|")
     return res
+
+
+def _planar_operands(M, K, L, dev, gen):
+    wp = torch.randint(-2**31, 2**31, (L, M, K // 8), generator=gen,
+                       device=dev, dtype=torch.int64).to(torch.int32)
+    scales = torch.rand(L, M, K // 64, generator=gen, device=dev) * 0.05 + 0.01
+    return wp, scales
+
+
+def phase_planar_check(dev, gen, results):
+    """K5 and K6 within 1e-5 * max|y| of their plain versions, K7
+    bit-exact, at every planar Llama3-8B shape and an odd row count, FP4
+    and NF4, fp32 and bf16 scales: K5 at T in K5_TOKENS, K6 at
+    K6_TOKENS (bf16 activations, as the model passes them), K7 to fp32
+    and bf16. The layer shapes are stacked and read at layer 1."""
+    from quantizations_tpu_torch.ops import gemv as gv
+    from quantizations_tpu_torch.ops import qmatmul as qm
+    from quantizations_tpu_torch.ops import quantize as qz
+
+    worst = {n: [0.0, 0.0, 0] for n in ("planar_matmul", "gemv_4bit",
+                                        "dequantize_4bit")}
+
+    def check(name, what, got, ref, exact=False):
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {what}: bad output")
+        if exact:
+            if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
+                raise AssertionError(f"{name} {what}: not bit-exact")
+            worst[name][2] += 1
+            return
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"{name} {what}: max|err| {err:.3e} > tol "
+                                 f"{1e-5 * scale:.3e}")
+        w = worst[name]
+        w[0], w[1], w[2] = max(w[0], err), max(w[1], err / scale), w[2] + 1
+
+    for name, M, K in PLANAR_SHAPES:
+        stacked = name not in ("lm_head", "odd")
+        wp, s32 = _planar_operands(M, K, 2 if stacked else 1, dev, gen)
+        x = torch.randn(max(K5_TOKENS), K, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        for qt in ("fp4", "nf4"):
+            for sk, s in (("fp32", s32), ("bf16", s32.to(torch.bfloat16))):
+                for kname, tokens, fn, fn_stacked, fs in (
+                        ("planar_matmul", K5_TOKENS, qm.matmul_4bit_planar,
+                         qm.matmul_4bit_planar_stacked,
+                         qm.matmul_4bit_planar_plain),
+                        ("gemv_4bit", K6_TOKENS, gv.gemv_4bit,
+                         gv.gemv_4bit_stacked, gv.gemv_4bit_plain)):
+                    for T in tokens:
+                        xt = x[:T]
+                        got = (fn_stacked(wp, s, xt, 1, qt) if stacked
+                               else fn(wp[0], s[0], xt, qt))
+                        check(kname, f"{name} [{M},{K}] {qt} {sk} T={T}",
+                              got, fs(wp[-1], s[-1], xt, qt))
+                for dt in (torch.float32, torch.bfloat16):
+                    check("dequantize_4bit", f"{name} {qt} {sk} {dt}",
+                          qz.dequantize_4bit_kernel(wp[-1], s[-1], qt, dt),
+                          qz.dequantize_4bit_kernel_plain(wp[-1], s[-1], qt,
+                                                          dt), exact=True)
+        log(f"  {name} [{M}, {K}]: K5 and K6 within 1e-5 * max|y|, K7 "
+            f"bit-exact ({sum(w[2] for w in worst.values())} cases so far)")
+        del wp, s32, x
+        torch.cuda.empty_cache()
+    results["planar_err"] = {n: dict(max_abs_err=w[0], max_err_over_max_y=w[1],
+                                     cases=w[2]) for n, w in worst.items()}
+    for n, w in worst.items():
+        log(f"  {n}: {w[2]} cases, worst max|err| {w[0]:.3e}, worst "
+            f"max|err| / max|y| {w[1]:.3e}")
+
+
+def planar_twin(params):
+    """The planar twin of pair-layout parameters: every pair QLinear
+    repacked to planar words (``pair_to_planar``) with per-row scales
+    (``unpack_scale_pairs`` where packed), as tensor-parallel row shards
+    are: the same codes and the same scales."""
+    from quantizations_tpu_torch.models.llama import QLinear
+    from quantizations_tpu_torch.ops import pair_to_planar, unpack_scale_pairs
+
+    def conv(obj):
+        if isinstance(obj, QLinear):
+            if obj.layout != "pair":
+                return obj
+            s = (unpack_scale_pairs(obj.scales) if obj.scales_packed
+                 else obj.scales)
+            return QLinear(wp=pair_to_planar(obj.wp), scales=s)
+        if dataclasses.is_dataclass(obj):
+            return dataclasses.replace(obj, **{
+                f.name: conv(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)
+                if getattr(obj, f.name) is not None})
+        return obj
+
+    return conv(params)
+
+
+def _planar_launches(B, layers):
+    """(K5, K6, K7) launches of one planar generate of PLANAR_NEW tokens
+    after a PROMPT_LEN-token prompt at batch B (4 projections a layer and
+    the lm_head a forward; the prefill's lm_head runs at T = B)."""
+    per = 4 * layers
+    steps = PLANAR_NEW - 1
+    T = B * PROMPT_LEN
+    k5 = k6 = k7 = 0
+    for t, n in ((T, per), (B, 1), (B, steps * (per + 1))):
+        if t <= 64 and (t in (1, 2, 4) or t % 8 == 0):
+            k5 += n
+        elif t <= 8:
+            k6 += n
+        else:
+            k7 += n
+    return k5, k6, k7
+
+
+def phase_planar_model(dev, params, results):
+    """The planar path end to end: the planar twin of the model phase's
+    FP4 Llama3-8B generates 60 tokens greedily at B = 1, 3 and 8 (K5
+    only; K5 on the 48-row prefill and K6 on every decode step; K7's
+    dense band on the 128-row prefill and K5 on decode), with exact launch
+    counts, the same tokens on every run and tok/s the median of 5. Then
+    one decode step's logits against the pair model's on the same cache,
+    and where the greedy streams part."""
+    from quantizations_tpu_torch.config import QuantConfig, ServeConfig
+    from quantizations_tpu_torch.models.llama import (LLAMA3_8B, KVCache,
+                                                      decode_step,
+                                                      named_tensors, prefill)
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT, GEMV_4BIT,
+                                             KERNELS, PAIR_MATMUL,
+                                             PLANAR_MATMUL)
+    from quantizations_tpu_torch.serve.generate import make_generate_fn
+
+    cfg = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
+        quantize_embedding=True))
+    serve = ServeConfig(max_seq_len=128, max_new_tokens=PLANAR_NEW,
+                        temperature=0.0)
+    layers = cfg.num_hidden_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    planar = planar_twin(params)
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size()
+                 for _, t in named_tensors(planar))
+    log(f"  planar twin built in {time.perf_counter() - t0:.2f} s, "
+        f"{wbytes / 1e9:.3f} GB of weights")
+    if planar.layers.qkv.layout != "planar" or planar.lm_head.layout != \
+            "planar":
+        raise AssertionError("the twin is not planar")
+    gen = make_generate_fn(cfg, serve)
+    ids = ((torch.arange(PROMPT_LEN, device=dev) * 7 + 11) % cfg.vocab_size
+           ).to(torch.int32)[None, :]
+    pair_tokens = {r["batch"]: r["tokens"] for r in results.get("generate", [])
+                   if r["quant_type"] == "fp4" and r["attention"] == "einsum"}
+    for B in PLANAR_BATCHES:
+        if B not in pair_tokens:                 # the pair model at B = 3
+            toks, _ = gen(params, ids.repeat(B, 1),
+                          KVCache.create(cfg, B, serve.max_seq_len, dev), None)
+            pair_tokens[B] = toks.cpu().tolist()
+    kerns = (PLANAR_MATMUL, GEMV_4BIT, DEQUANTIZE_4BIT)
+    runs = []
+    for k in KERNELS:
+        k.launches = 0
+    for B in PLANAR_BATCHES:
+        want = _planar_launches(B, layers)
+        idsb = ids.repeat(B, 1)
+        times, first = [], None
+        for it in range(5 + 1):
+            cache = KVCache.create(cfg, B, serve.max_seq_len, dev)
+            before = [k.launches for k in kerns + (PAIR_MATMUL,)]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            toks, _ = gen(planar, idsb, cache, None)
+            end.record()
+            end.synchronize()
+            got = tuple(k.launches - b for k, b in
+                        zip(kerns + (PAIR_MATMUL,), before))
+            if got != want + (0,):
+                raise AssertionError(f"planar B={B}: (K5, K6, K7, K1) "
+                                     f"launched {got}, expected {want + (0,)}")
+            if toks.shape != (B, PLANAR_NEW) or int(toks.min()) < 0 or int(
+                    toks.max()) >= cfg.vocab_size:
+                raise AssertionError(f"planar tokens out of range: "
+                                     f"{toks.shape}")
+            if first is None:
+                first = toks.cpu()
+            elif not torch.equal(first, toks.cpu()):
+                raise AssertionError(f"planar B={B}: tokens differ between "
+                                     "runs")
+            if it:
+                times.append(start.elapsed_time(end) / 1e3)
+            del cache
+        t = statistics.median(times)
+        ref = pair_tokens[B][0]
+        part = next((i for i, (a, b) in enumerate(zip(first[0].tolist(), ref))
+                     if a != b), None)
+        runs.append(dict(batch=B, tok_per_s=PLANAR_NEW * B / t,
+                         tok_per_s_min=PLANAR_NEW * B / max(times),
+                         tok_per_s_max=PLANAR_NEW * B / min(times),
+                         generate_s=t, generate_s_all=times,
+                         launches_per_generate=dict(zip(
+                             ("planar_matmul", "gemv_4bit",
+                              "dequantize_4bit"), want)),
+                         first_part_from_pair=part, tokens=first.tolist()))
+        r = runs[-1]
+        log(f"  planar B={B}: {r['tok_per_s']:.2f} tok/s, median of 5 (min "
+            f"{r['tok_per_s_min']:.2f}, max {r['tok_per_s_max']:.2f}); "
+            f"K5/K6/K7 launches {want} each; the stream "
+            + ("equals the pair model's" if part is None else
+               f"parts from the pair model's at token {part}"))
+    results["launches_planar"] = {k.name: k.launches for k in KERNELS}
+    results["planar_generate"] = runs
+
+    # the rounding classes, one projection at a time: the twin's planar
+    # words against the pair words they came from (layer 1, the lm_head)
+    # under K5 and K1 (one class: the fp32 summation order only) and K6
+    # (fp32 class: 2^-9 from K1's bf16 weights)
+    from quantizations_tpu_torch.ops import (gemv_4bit, gemv_4bit_stacked,
+                                             matmul_4bit_pair,
+                                             matmul_4bit_pair_stacked,
+                                             matmul_4bit_planar,
+                                             matmul_4bit_planar_stacked)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    cls = {}
+    for name in ("qkv", "o", "gate_up", "down", "lm_head"):
+        lp = (params.lm_head if name == "lm_head"
+              else getattr(params.layers, name))
+        lq = (planar.lm_head if name == "lm_head"
+              else getattr(planar.layers, name))
+        K = lq.wp.shape[-1] * 8
+        for T, kern in ((1, "planar_matmul"), (3, "gemv_4bit"),
+                        (8, "planar_matmul")):
+            x = torch.randn(T, K, generator=g, device=dev).to(torch.bfloat16)
+            if name == "lm_head":
+                yp = matmul_4bit_pair(lp.wp, lp.scales, x)
+                yq = (gemv_4bit if T == 3 else matmul_4bit_planar)(
+                    lq.wp, lq.scales, x)
+            else:
+                yp = matmul_4bit_pair_stacked(lp.wp, lp.scales, x, 1)
+                yq = (gemv_4bit_stacked if T == 3
+                      else matmul_4bit_planar_stacked)(lq.wp, lq.scales, x, 1)
+            rel = ((yq - yp).abs().max() / yp.abs().max()).item()
+            cls[f"{name} T={T}"] = dict(kernel=kern, max_diff_over_max=rel)
+            if not rel <= (1e-2 if T == 3 else 1e-5):
+                raise AssertionError(f"{kern} {name} T={T}: {rel:.3e} of "
+                                     "max|y| from K1 on the same codes")
+    worst = {k: max(v["max_diff_over_max"] for v in cls.values()
+                    if v["kernel"] == k) for k in ("planar_matmul",
+                                                   "gemv_4bit")}
+    log(f"  the twin's projections against K1 on the pair words: K5 within "
+        f"{worst['planar_matmul']:.3e} of max|y| (gate 1e-5), K6 within "
+        f"{worst['gemv_4bit']:.3e} (gate 1e-2)")
+    results["planar_vs_pair_projections"] = cls
+
+    # one decode step of the whole model on the same cache (filled by the
+    # pair model's prefill): 32 random layers amplify the fp32 order and
+    # rounding differences above (the flash vs einsum step of the model
+    # phase differs by ~5%), so this gate only catches a wrong layout
+    logit = {}
+    with torch.inference_mode():
+        for B in PLANAR_BATCHES:
+            ids2 = torch.randint(0, cfg.vocab_size, (B, PROMPT_LEN + 1),
+                                 generator=torch.Generator().manual_seed(1)
+                                 ).to(dev)
+            cache = KVCache.create(cfg, B, 128, dev)
+            prefill(params, ids2[:, :PROMPT_LEN], cache, cfg,
+                    last_token_only=True)
+            twin = KVCache(k=cache.k.clone(), v=cache.v.clone())
+            lp, _ = decode_step(params, ids2[:, PROMPT_LEN:], cache,
+                                PROMPT_LEN, cfg)
+            lq, _ = decode_step(planar, ids2[:, PROMPT_LEN:], twin,
+                                PROMPT_LEN, cfg)
+            rel = ((lq - lp).abs().max() / lp.abs().max()).item()
+            top1 = (lq.argmax(-1) == lp.argmax(-1)).float().mean().item()
+            logit[B] = dict(max_diff_over_max=rel, top1=top1)
+            log(f"  B={B} decode logits, planar vs pair on one cache: "
+                f"max|diff| {rel:.3e} of max|logit|, top-1 agreement "
+                f"{top1:.3f}")
+            if not rel <= 0.25:
+                raise AssertionError(f"planar B={B} decode logits differ from "
+                                     f"the pair model's by {rel:.3e}")
+            del cache, twin
+    results["planar_decode_logits"] = logit
+    return planar
+
+
+def phase_planar_module(dev, gen, results):
+    """``Linear4bit.create`` on a [14336, 4096] weight on the card: its
+    forward at T = 1, 3, 64 (K5, K6, K5) and 256 (K7 + matmul) against
+    the band's plain version, one launch of the band's kernel each; then
+    a round trip through the bnb flat tensors and ``load_bnb_linear4bit``,
+    which must give bit-identical outputs."""
+    from quantizations_tpu_torch.nn.linear import Linear4bit
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT, GEMV_4BIT,
+                                             PLANAR_MATMUL,
+                                             dequantize_4bit_kernel_plain,
+                                             gemv_4bit_plain,
+                                             matmul_4bit_planar_plain)
+    from quantizations_tpu_torch.quant.bnb_io import (bnb_flat_tensors,
+                                                      load_bnb_linear4bit)
+
+    M, K = MODULE_SHAPE
+    W = torch.randn(M, K, generator=gen, device=dev) * 0.02
+    bias = torch.randn(M, generator=gen, device=dev) * 0.02
+    lin = Linear4bit.create(W, bias=bias, device=dev)
+    prefix = "model.layers.0.mlp.gate_proj"
+    flat = bnb_flat_tensors(prefix, lin.weight.packed_u8(), lin.quant_state)
+    flat[f"{prefix}.bias"] = bias.cpu().numpy()
+    loaded = load_bnb_linear4bit(flat.__getitem__, set(flat), prefix,
+                                 device=dev)
+    wp, s = lin.weight.wp, lin.weight.scales
+    out = []
+    for T, kern in ((1, PLANAR_MATMUL), (3, GEMV_4BIT), (64, PLANAR_MATMUL),
+                    (256, DEQUANTIZE_4BIT)):
+        x = torch.randn(T, K, generator=gen, device=dev)
+        before = kern.launches
+        y = lin(x)
+        torch.cuda.synchronize()
+        if kern.launches != before + 1:
+            raise AssertionError(f"Linear4bit T={T} did not launch "
+                                 f"{kern.name} once")
+        xb = x.to(torch.bfloat16)
+        if T == 3:
+            ref = gemv_4bit_plain(wp, s, xb)
+        elif T == 256:
+            ref = xb.float() @ dequantize_4bit_kernel_plain(
+                wp, s, "fp4", torch.bfloat16).float().T
+        else:
+            ref = matmul_4bit_planar_plain(wp, s, xb)
+        ref = ref + bias
+        err = (y - ref).abs().max().item() / ref.abs().max().item()
+        if not err <= 1e-5:
+            raise AssertionError(f"Linear4bit T={T}: {err:.3e} of max|y| "
+                                 "from the plain path")
+        if not torch.equal(loaded(x), y):
+            raise AssertionError(f"bnb round trip T={T}: outputs differ")
+        out.append(dict(T=T, kernel=kern.name, max_err_over_max_y=err))
+        log(f"  Linear4bit [{M}, {K}] T={T}: {kern.name}, {err:.3e} of "
+            "max|y| from the plain path; the bnb round trip bit-identical")
+    results["planar_module"] = dict(cases=out, bnb_keys=sorted(flat))
+    del W, lin, loaded, flat
+
+
+def _forward_sum(rows, T, key, head_t):
+    """A forward's sum of ``key`` over K1_SHAPES: 32 layers x the four
+    projections at T, plus the lm_head at ``head_t`` (None: without it)."""
+    tot = 0.0
+    for r in rows:
+        if r["shape"] == "lm_head" and r["T"] == head_t:
+            tot += r[key]
+        elif r["shape"] != "lm_head" and r["T"] == T:
+            tot += LAYERS * r[key]
+    return tot
+
+
+def phase_planar_time(dev, gen, results):
+    """K5 at T = 1, 8 (decode at B = 1, 8) and 48 (the B = 3 prefill) and
+    K6 at T = 3 (decode at B = 3), per shape and summed over one forward;
+    K7 at [14336, 4096] and the lm_head, to fp32 and bf16. Weights rotate
+    over enough layers to exceed the 50 MB L2 four times; beside each,
+    the bound (K5: bf16 tensor-core rate; K6, K7: fp32 rate), the plain
+    version and, for K5/K6, a dense bf16 ``torch.matmul`` over the same
+    shapes (the port never calls it)."""
+    from quantizations_tpu_torch.ops import (dequantize_4bit_kernel,
+                                             dequantize_4bit_kernel_plain,
+                                             gemv_4bit, gemv_4bit_plain,
+                                             matmul_4bit_planar,
+                                             matmul_4bit_planar_plain)
+
+    rows, k7 = [], []
+    for name, M, K in K1_SHAPES:
+        layer_bytes = M * K // 2 + M * (K // 64) * 4
+        L = max(2, math.ceil(4 * L2_BYTES / layer_bytes))
+        wp, s = _planar_operands(M, K, L, dev, gen)
+        R = max(2, math.ceil(4 * L2_BYTES / (M * K * 2)))
+        Wd = torch.randn(R, M, K, generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn(48, K, generator=gen, device=dev).to(torch.bfloat16)
+        for kname, T, fn, plain, rate in (
+                ("planar_matmul", 1, matmul_4bit_planar,
+                 matmul_4bit_planar_plain, BF16_FLOP_PER_S),
+                ("gemv_4bit", 3, gemv_4bit, gemv_4bit_plain, FP32_FLOP_PER_S),
+                ("planar_matmul", 8, matmul_4bit_planar,
+                 matmul_4bit_planar_plain, BF16_FLOP_PER_S),
+                ("planar_matmul", 48, matmul_4bit_planar,
+                 matmul_4bit_planar_plain, BF16_FLOP_PER_S)):
+            xt = x[:T].contiguous()
+            ms = device_ms(lambda i: fn(wp[i % L], s[i % L], xt), 64)
+            pms = device_ms(lambda i: plain(wp[0], s[0], xt), 3, warmup=1)
+            lms = device_ms(lambda i: torch.matmul(xt, Wd[i % R].T), 64)
+            nbytes = layer_bytes + T * K * 2 + T * M * 4
+            bms, by = bound(nbytes, 2 * T * M * K, rate)
+            rows.append(dict(kernel=kname, shape=name, M=M, K=K, T=T, ms=ms,
+                             plain_ms=pms, library_ms=lms, bound_ms=bms,
+                             bound_by=by, bytes_ms=nbytes / HBM_BYTES_PER_S
+                             * 1e3, ops_ms=2 * T * M * K / rate * 1e3,
+                             layers_rotated=L))
+            log(f"  {kname:13s} {name:8s} T={T:2d}: {ms * 1e3:9.2f} us  "
+                f"bound {bms * 1e3:8.2f} us ({by})  plain {pms * 1e3:9.1f} "
+                f"us  torch.matmul bf16 {lms * 1e3:8.2f} us")
+        if name in ("gate_up", "lm_head"):
+            # one of the two halves of gate_up ([14336, 4096]), the head
+            Mq = M // 2 if name == "gate_up" else M
+            for dt in (torch.float32, torch.bfloat16):
+                ms = device_ms(lambda i: dequantize_4bit_kernel(
+                    wp[i % L][:Mq], s[i % L][:Mq], "fp4", dt), 20)
+                pms = device_ms(lambda i: dequantize_4bit_kernel_plain(
+                    wp[0][:Mq], s[0][:Mq], "fp4", dt), 3, warmup=1)
+                nbytes = (Mq * K // 2 + Mq * (K // 64) * 4
+                          + Mq * K * (4 if dt == torch.float32 else 2))
+                bms, by = bound(nbytes, Mq * K, FP32_FLOP_PER_S)
+                k7.append(dict(M=Mq, K=K, dtype=str(dt), ms=ms, plain_ms=pms,
+                               bound_ms=bms, bound_by=by, library_ms=None))
+                log(f"  dequantize_4bit [{Mq}, {K}] -> {dt}: {ms * 1e3:9.2f}"
+                    f" us  bound {bms * 1e3:8.2f} us ({by})  plain "
+                    f"{pms * 1e3:9.1f} us")
+        del wp, s, Wd, x
+        torch.cuda.empty_cache()
+    per = {}
+    # decode forwards (the lm_head at T = B), and the B = 3 prefill's 128
+    # projections at T = 48 (its lm_head runs K6 at T = 3)
+    for kname, T, head_t in (("planar_matmul", 1, 1), ("planar_matmul", 8, 8),
+                             ("gemv_4bit", 3, 3), ("planar_matmul", 48, None)):
+        sel = [r for r in rows if r["kernel"] == kname]
+        f = {k: _forward_sum(sel, T, k, head_t)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                       "ops_ms")}
+        f["bound_by"] = ("bytes" if f["bytes_ms"] >= f["ops_ms"]
+                         else "operations")
+        f["launches"] = 4 * LAYERS + (head_t is not None)
+        per[f"{kname} T={T}"] = f
+        log(f"  {kname} per forward at T={T} ({f['launches']} launches): "
+            f"{f['ms']:.3f} ms, bound {f['bound_ms']:.3f} ms "
+            f"({f['bound_by']}), plain {f['plain_ms']:.1f} ms, torch.matmul "
+            f"bf16 {f['library_ms']:.3f} ms")
+    results["planar_time"] = dict(rows=rows, per_forward=per, k7=k7)
+
+
+def phase_planar(dev, gen, results, params):
+    """The planar slice: kernels, model, module and bnb, times. The planar
+    twin is freed at the end, before the paged phase."""
+    phase_planar_check(dev, gen, results)
+    planar = phase_planar_model(dev, params, results)
+    del planar
+    torch.cuda.empty_cache()
+    phase_planar_module(dev, gen, results)
+    phase_planar_time(dev, gen, results)
 
 
 def phase_paged(dev, params, results):
@@ -944,6 +1435,105 @@ def phase_profile(dev, results):
     del params
 
 
+def kernel_entries(results, kernels_seq):
+    """The ``kernels`` line: one entry per kernel record with its
+    launches on the main path, its error against the plain version, and
+    its time, bound, plain and library times from this run."""
+    kernels = []
+    launches = results.get("launches", {})
+    paged_launches = results.get("launches_paged", {})
+    planar_launches = results.get("launches_planar", {})
+    for k in kernels_seq:
+        entry = dict(name=k.name, route="cuda", source=k.source,
+                     replaces=k.replaces)
+        if k.name == "pair_matmul":
+            f1 = results.get("k1_time", {}).get("per_forward", {}).get(1, {})
+            entry.update(
+                launches=launches.get(k.name, 0),
+                max_abs_err=results.get("k1_err", {}).get("max_abs_err"),
+                max_err_over_max_y=results.get("k1_err", {}).get(
+                    "max_rel_err"),
+                ms=f1.get("ms"), plain_ms=f1.get("plain_ms"),
+                bound_ms=f1.get("bound_ms"), bound_by="bytes",
+                library_ms=f1.get("library_ms"),
+                unit="one decode forward at T=1: the K1 launches of "
+                     f"{LAYERS} layers x 4 projections + the lm_head; "
+                     "launches: the generate path",
+                by_shape=results.get("k1_time", {}).get("rows"))
+        elif k.name == "quantize_4bit":
+            k2 = results.get("k2", {})
+            entry.update(launches=launches.get(k.name, 0),
+                         max_abs_err=k2.get("max_abs_err"), ms=k2.get("ms"),
+                         plain_ms=k2.get("plain_ms"),
+                         bound_ms=k2.get("bound_ms"), bound_by="bytes",
+                         library_ms=None,
+                         unit="one Llama3-8B model build: "
+                              f"{sum(K2_SHAPES.values())} fp32 quantizes",
+                         by_shape=k2.get("shapes"))
+        elif k.name in ("planar_matmul", "gemv_4bit"):
+            pt = results.get("planar_time", {}).get("per_forward", {})
+            f = pt.get("planar_matmul T=1" if k.name == "planar_matmul"
+                       else "gemv_4bit T=3", {})
+            err = results.get("planar_err", {}).get(k.name, {})
+            entry.update(
+                launches=planar_launches.get(k.name, 0),
+                max_abs_err=err.get("max_abs_err"),
+                max_err_over_max_y=err.get("max_err_over_max_y"),
+                ms=f.get("ms"), plain_ms=f.get("plain_ms"),
+                bound_ms=f.get("bound_ms"), bound_by=f.get("bound_by"),
+                library_ms=f.get("library_ms"),
+                unit=("one decode forward at T=" + (
+                    "1" if k.name == "planar_matmul" else "3")
+                      + f": {LAYERS} layers x 4 projections + the lm_head; "
+                      "library_ms: dense bf16 torch.matmul over the same "
+                      "shapes; launches: the planar generates (B = 1, 3, 8, "
+                      "6 runs each)"),
+                per_forward=pt,
+                by_shape=[r for r in results.get("planar_time", {}).get(
+                    "rows", []) if r["kernel"] == k.name])
+        elif k.name == "dequantize_4bit":
+            rows = results.get("planar_time", {}).get("k7", [])
+            main = next((r for r in rows if r["M"] == 14336
+                         and "float32" in r["dtype"]), {})
+            err = results.get("planar_err", {}).get(k.name, {})
+            entry.update(
+                launches=planar_launches.get(k.name, 0),
+                max_abs_err=err.get("max_abs_err"), ms=main.get("ms"),
+                plain_ms=main.get("plain_ms"), bound_ms=main.get("bound_ms"),
+                bound_by=main.get("bound_by", "bytes"), library_ms=None,
+                unit="one launch at [14336, 4096] to fp32; launches: the "
+                     "planar generates (the dense band of the B = 8 "
+                     "prefill)",
+                by_shape=rows)
+        else:
+            n = (results.get("launches_paged_int8", {}) if "i8" in k.name
+                 else paged_launches).get(k.name, 0)
+            rows = [r for r in results.get("attn_time", [])
+                    if r["kernel"] == k.name]
+            main = next((r for r in rows if r["form"] == "paged"
+                         and r["B"] == 4 and r["ctx"] == 1900), {})
+            err = results.get("attn_err", {}).get(k.name, {})
+            entry.update(launches=n, max_abs_err=err.get("max_abs_err"),
+                         max_err_over_max_out=err.get(
+                             "max_err_over_max_out"),
+                         ms=main.get("ms"), plain_ms=main.get("plain_ms"),
+                         bound_ms=main.get("bound_ms"),
+                         bound_by=main.get("bound_by", "bytes"),
+                         library_ms=main.get("library_ms"),
+                         unit="one launch over the paged pool (page 256) at "
+                              "B=4, 1900 live tokens per row; library_ms: "
+                              "scaled_dot_product_attention(enable_gqa) "
+                              "over the same keys laid out contiguously"
+                              + (" (none for int8)" if "i8" in k.name
+                                 else "")
+                              + "; launches: the paged engine's "
+                              + ("int8" if "i8" in k.name else "first bf16")
+                              + " run",
+                         by_shape=rows)
+        kernels.append(entry)
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
@@ -977,6 +1567,8 @@ def main() -> int:
                                      phase_attn_time(dev, gen, results))),
                    ("model", lambda: held.update(
                        params=phase_model(dev, results))),
+                   ("planar", lambda: phase_planar(dev, gen, results,
+                                                   held["params"])),
                    ("paged", lambda: phase_paged(dev, held.pop("params"),
                                                  results)),
                    ("profile", lambda: phase_profile(dev, results))):
@@ -987,69 +1579,17 @@ def main() -> int:
         results.setdefault("phase_s", {})[ph] = time.perf_counter() - t0
         log(f"[{ph}] done in {results['phase_s'][ph]:.1f} s")
 
-    kernels = []
-    launches = results.get("launches", {})
-    paged_launches = results.get("launches_paged", {})
-    for k in KERNELS:
-        entry = dict(name=k.name, route="cuda", source=k.source,
-                     replaces=k.replaces)
-        if k.name == "pair_matmul":
-            f1 = results.get("k1_time", {}).get("per_forward", {}).get(1, {})
-            entry.update(
-                launches=launches.get(k.name, 0),
-                max_abs_err=results.get("k1_err", {}).get("max_abs_err"),
-                max_err_over_max_y=results.get("k1_err", {}).get(
-                    "max_rel_err"),
-                ms=f1.get("ms"), plain_ms=f1.get("plain_ms"),
-                bound_ms=f1.get("bound_ms"), bound_by="bytes",
-                library_ms=f1.get("library_ms"),
-                unit="one decode forward at T=1: the K1 launches of "
-                     f"{LAYERS} layers x 4 projections + the lm_head; "
-                     "launches: the generate path",
-                by_shape=results.get("k1_time", {}).get("rows"))
-        elif k.name == "quantize_4bit":
-            k2 = results.get("k2", {})
-            entry.update(launches=launches.get(k.name, 0),
-                         max_abs_err=k2.get("max_abs_err"), ms=k2.get("ms"),
-                         plain_ms=k2.get("plain_ms"),
-                         bound_ms=k2.get("bound_ms"), bound_by="bytes",
-                         library_ms=None,
-                         unit="one Llama3-8B model build: "
-                              f"{sum(K2_SHAPES.values())} fp32 quantizes",
-                         by_shape=k2.get("shapes"))
-        else:
-            n = (results.get("launches_paged_int8", {}) if "i8" in k.name
-                 else paged_launches).get(k.name, 0)
-            rows = [r for r in results.get("attn_time", [])
-                    if r["kernel"] == k.name]
-            main = next((r for r in rows if r["form"] == "paged"
-                         and r["B"] == 4 and r["ctx"] == 1900), {})
-            err = results.get("attn_err", {}).get(k.name, {})
-            entry.update(launches=n, max_abs_err=err.get("max_abs_err"),
-                         max_err_over_max_out=err.get(
-                             "max_err_over_max_out"),
-                         ms=main.get("ms"), plain_ms=main.get("plain_ms"),
-                         bound_ms=main.get("bound_ms"),
-                         bound_by=main.get("bound_by", "bytes"),
-                         library_ms=main.get("library_ms"),
-                         unit="one launch over the paged pool (page 256) at "
-                              "B=4, 1900 live tokens per row; library_ms: "
-                              "scaled_dot_product_attention(enable_gqa) "
-                              "over the same keys laid out contiguously"
-                              + (" (none for int8)" if "i8" in k.name
-                                 else "")
-                              + "; launches: the paged engine's "
-                              + ("int8" if "i8" in k.name else "first bf16")
-                              + " run",
-                         by_shape=rows)
-        kernels.append(entry)
+    kernels = kernel_entries(results, KERNELS)
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_all
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
     log(f"total {results['total_s']:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    # the per-shape detail stays in the file: the line stays short
+    print(json.dumps({"kernels": [
+        {k: v for k, v in e.items() if k not in ("by_shape", "per_forward")}
+        for e in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,14 +10,22 @@ and no keys. The storage is the same on both sides: pair words
 ``int32 [L, M/2, K/4]``, scales fp32, bf16 or ``int32 [L, M/2, K/64]``,
 norms and biases bf16, the cache bf16 ``[L, B, KV, S, D]`` or int8 with
 bf16 steps ``[L, B, KV, S]``, the paged pool ``[L, P, KV, page, D]``
-(steps ``[L, P, KV, page]``). bf16 arrays
+(steps ``[L, P, KV, page]``). Planar weights (``wp [L, M, K/8]``, fp32
+or bf16 scales ``[L, M, K/64]``) cross the same way. bf16 arrays
 arrive as numpy's ``bfloat16`` extension dtype and are moved by bits.
+
+A ``Linear4bit`` crosses as its leaves (``weight.wp``, ``weight.scales``,
+``weight.quant_state.absmax`` and ``.code``, and for double
+quantization ``.offset``, ``.state2.absmax`` and ``.state2.code``, then
+``bias``) plus the bnb metadata dict of ``QuantState.as_dict()``
+(``quant_type``, ``blocksize``, ``dtype``, ``shape``, and
+``nested_blocksize`` / ``nested_dtype`` when nested).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,10 +39,13 @@ from .models.llama import (
     QLinear,
     named_tensors,
 )
+from .nn.linear import Linear4bit, Params4bit
+from .quant.state import QuantState, dtype_from_name
 from .serve.paged import PagedKVCache
 
 __all__ = ["params_from_numpy", "params_to_numpy", "cache_from_numpy",
-           "cache_to_numpy", "paged_from_numpy", "paged_to_numpy"]
+           "cache_to_numpy", "paged_from_numpy", "paged_to_numpy",
+           "linear4bit_from_numpy", "linear4bit_to_numpy"]
 
 Tree = Dict[str, np.ndarray]
 _CACHE_KEYS = ("k", "v", "k_scale", "v_scale")
@@ -130,3 +141,55 @@ def paged_from_numpy(tree: Tree, device: Union[str, torch.device] = "cuda"
 def paged_to_numpy(pages: PagedKVCache) -> Tree:
     """Inverse of :func:`paged_from_numpy`."""
     return {k: _array(t) for k, t in named_tensors(pages)}
+
+
+_QS = "weight.quant_state"
+
+
+def linear4bit_from_numpy(tree: Tree, meta: Dict[str, Any],
+                          compute_dtype: Any = torch.bfloat16,
+                          device: Union[str, torch.device] = "cuda"
+                          ) -> Linear4bit:
+    """The JAX package's ``Linear4bit`` (its leaves as a dotted-path numpy
+    dict, and ``meta`` = ``quant_state.as_dict()["quant_state"]``) ->
+    the port's :class:`~quantizations_tpu_torch.nn.linear.Linear4bit` on
+    ``device``. The words and scales are taken as they are (planar or
+    pair)."""
+    dev = resolve_device(device)
+    state2 = None
+    if f"{_QS}.state2.absmax" in tree:
+        state2 = QuantState(
+            absmax=_tensor(tree[f"{_QS}.state2.absmax"], dev),
+            code=_tensor(tree[f"{_QS}.state2.code"], dev),
+            blocksize=int(meta["nested_blocksize"]),
+            quant_type="dynamic8bit",
+            dtype=dtype_from_name(meta["nested_dtype"]),
+            shape=tuple(tree[f"{_QS}.absmax"].shape))
+    state = QuantState(
+        absmax=_tensor(tree[f"{_QS}.absmax"], dev),
+        code=_tensor(tree[f"{_QS}.code"], dev),
+        offset=(_tensor(tree[f"{_QS}.offset"], dev) if state2 is not None
+                else None),
+        state2=state2, blocksize=int(meta["blocksize"]),
+        quant_type=meta["quant_type"], dtype=dtype_from_name(meta["dtype"]),
+        shape=tuple(meta["shape"]))
+    weight = Params4bit(wp=_tensor(tree["weight.wp"], dev),
+                        scales=_tensor(tree["weight.scales"], dev),
+                        quant_state=state)
+    bias = _tensor(tree["bias"], dev) if "bias" in tree else None
+    return Linear4bit(weight, bias=bias, compute_dtype=compute_dtype)
+
+
+def linear4bit_to_numpy(lin: Linear4bit) -> Tuple[Tree, Dict[str, Any]]:
+    """Inverse of :func:`linear4bit_from_numpy`: ``(tree, meta)``."""
+    st = lin.quant_state
+    tree = {"weight.wp": lin.weight.wp, "weight.scales": lin.weight.scales,
+            f"{_QS}.absmax": st.absmax, f"{_QS}.code": st.code}
+    if st.nested:
+        tree.update({f"{_QS}.offset": st.offset,
+                     f"{_QS}.state2.absmax": st.state2.absmax,
+                     f"{_QS}.state2.code": st.state2.code})
+    if lin.bias is not None:
+        tree["bias"] = lin.bias
+    return ({k: _array(t) for k, t in tree.items()},
+            st.as_dict()["quant_state"])

@@ -29,15 +29,24 @@ import torch
 
 from ..config import QuantConfig
 from ..device import resolve_device
-from ..nn.linear import apply_4bit, kernel_activation, pair_max_tokens
+from ..nn.linear import (
+    GEMV_MAX_TOKENS,
+    QMATMUL_MAX_TOKENS,
+    apply_4bit,
+    gemv_activation,
+    kernel_activation,
+    pair_max_tokens,
+    qmm_ok,
+)
 from ..ops.attention import (
     flash_decode_attention_stacked,
     flash_decode_attention_stacked_i8,
 )
-from ..ops.gemv import _SHIFTS, pack_i32_rows
+from ..ops.gemv import _SHIFTS, gemv_4bit_stacked, pack_i32_rows
 from ..ops.qmatmul import (
     _unblockmajor,
     matmul_4bit_pair_stacked,
+    matmul_4bit_planar_stacked,
     pack_scale_pairs,
     planar_to_pair,
 )
@@ -512,14 +521,26 @@ def embed_lookup(embed: Union[torch.Tensor, QLinear], token_ids: torch.Tensor,
 
 def _ql(x2: torch.Tensor, lin: QLinear, qcfg: QuantConfig,
         idx: Optional[int] = None) -> torch.Tensor:
-    """Apply a (possibly layer-stacked) QLinear. A stacked pair weight in
-    the kernel band goes through K1 on layer ``idx`` in place."""
+    """Apply a (possibly layer-stacked) QLinear. A stacked weight in a
+    kernel band goes through its kernel on layer ``idx`` in place: K1 for
+    pair words; K5, then K6, for planar words (the bands of
+    :func:`~quantizations_tpu_torch.nn.linear.apply_4bit`)."""
     if lin.wp.dim() == 3:
         tokens = x2.shape[0]
-        if lin.layout == "pair" and tokens <= pair_max_tokens():
-            return matmul_4bit_pair_stacked(
-                lin.wp, lin.scales, kernel_activation(x2, qcfg.compute_dtype),
-                idx, quant_type=qcfg.quant_type)
+        cd, qt = qcfg.compute_dtype, qcfg.quant_type
+        if lin.layout == "pair":
+            if tokens <= pair_max_tokens():
+                return matmul_4bit_pair_stacked(
+                    lin.wp, lin.scales, kernel_activation(x2, cd), idx,
+                    quant_type=qt)
+        elif tokens <= QMATMUL_MAX_TOKENS and qmm_ok(tokens):
+            return matmul_4bit_planar_stacked(
+                lin.wp, lin.scales, kernel_activation(x2, cd), idx,
+                quant_type=qt)
+        elif tokens <= GEMV_MAX_TOKENS:
+            return gemv_4bit_stacked(lin.wp, lin.scales,
+                                     gemv_activation(x2, cd), idx,
+                                     quant_type=qt)
         lin = QLinear(wp=lin.wp[idx], scales=lin.scales[idx])
     return apply_4bit(x2, lin.wp, lin.scales, qcfg.quant_type,
                       compute_dtype=qcfg.compute_dtype)

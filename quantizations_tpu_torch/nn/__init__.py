@@ -1,6 +1,9 @@
-"""Module layer: the 4-bit matmul dispatch."""
+"""Module layer: the 4-bit matmul dispatch, ``Params4bit`` and the
+bnb-compatible ``Linear4bit``."""
 
 from .linear import (
+    Linear4bit,
+    Params4bit,
     apply_4bit,
     dense_matmul_pair,
     dense_weight,
@@ -9,5 +12,6 @@ from .linear import (
     permute_cols,
 )
 
-__all__ = ["apply_4bit", "dense_matmul_pair", "dense_weight",
-           "dequantize_permuted", "pair_max_tokens", "permute_cols"]
+__all__ = ["Linear4bit", "Params4bit", "apply_4bit", "dense_matmul_pair",
+           "dense_weight", "dequantize_permuted", "pair_max_tokens",
+           "permute_cols"]

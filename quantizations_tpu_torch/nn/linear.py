@@ -1,33 +1,52 @@
-"""The 4-bit matmul dispatch of the module layer (counterpart of
-``quantizations_tpu/nn/linear.py``; ``Params4bit``/``Linear4bit`` are not
-ported yet).
+"""The module layer (counterpart of ``quantizations_tpu/nn/linear.py``):
+the 4-bit matmul dispatch :func:`apply_4bit`, :class:`Params4bit` and the
+bnb-compatible :class:`Linear4bit`.
 
 Pair-layout weights take kernel K1 (``ops/qmatmul.py``) up to
-:func:`pair_max_tokens` token rows and the dense pair matmul above it,
-as in the JAX package. Planar weights have no ported kernel: on the CPU
-they take the plain dequant + matmul path, on the GPU they raise.
+:func:`pair_max_tokens` token rows and the dense pair matmul above it.
+Planar weights follow the JAX package's bands: K5 (``ops/qmatmul.py``)
+up to :data:`QMATMUL_MAX_TOKENS` rows when the row count is one the TPU
+kernel tiles (``qmm_ok``), else K6 (``ops/gemv.py``) up to
+:data:`GEMV_MAX_TOKENS` rows, else K7 (``ops/quantize.py``) dequantizes
+the weight and ``torch.matmul`` multiplies. On CPU tensors each kernel's
+plain version runs in its band.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Any
+from typing import Any, Optional, Union
 
+import numpy as np
 import torch
 
-from ..ops.gemv import _SHIFTS
+from ..device import resolve_device
+from ..ops.gemv import _SHIFTS, gemv_4bit, pack_i32_rows
 from ..ops.lut import lut_fp4_bits, lut_tree
+from ..ops.quantize import dequantize_4bit_kernel
 from ..ops.qmatmul import (
     matmul_4bit_pair,
+    matmul_4bit_planar,
     pair_permute_activation,
     pair_to_planar,
+    planar_to_pair,
     unpack_scale_pairs,
 )
 from ..quant.codebooks import get_4bit_code
+from ..quant.functional import dequantize_absmax, quantize_4bit
+from ..quant.state import QuantState
 
 __all__ = ["apply_4bit", "dense_matmul_pair", "dequantize_permuted",
            "permute_cols", "dense_weight", "kernel_activation",
-           "pair_max_tokens", "PAIR_QMATMUL_MAX_TOKENS"]
+           "pair_max_tokens", "qmm_ok", "gemv_activation", "Params4bit",
+           "Linear4bit", "PAIR_QMATMUL_MAX_TOKENS", "QMATMUL_MAX_TOKENS",
+           "GEMV_MAX_TOKENS"]
+
+# Planar bands: K6 (the fp32 GEMV) takes at most this many token rows...
+GEMV_MAX_TOKENS = 8
+# ... and K5 (the bf16 dequant-matmul) at most this many.
+QMATMUL_MAX_TOKENS = 64
 
 # Default upper token count of the fused pair kernel band.
 PAIR_QMATMUL_MAX_TOKENS = 256
@@ -54,6 +73,24 @@ def kernel_activation(x2: torch.Tensor, compute_dtype: Any) -> torch.Tensor:
     JAX package casts before the call), then to bf16 (as its kernel casts
     inside), contiguous."""
     return x2.to(compute_dtype).to(torch.bfloat16).contiguous()
+
+
+def qmm_ok(tokens: int) -> bool:
+    """Whether the JAX package's planar matmul kernel tiles ``tokens``
+    rows (1, 2, 4 or a multiple of 8). K5 takes any row count; the rule
+    is kept because it decides which rounding class a row count gets:
+    the others in the GEMV band take K6."""
+    return tokens in (1, 2, 4) or tokens % 8 == 0
+
+
+def gemv_activation(x2: torch.Tensor, compute_dtype: Any) -> torch.Tensor:
+    """The activation K6 reads: ``x2`` cast to ``compute_dtype``, widened
+    to fp32 unless it is bf16 or fp32 (the kernel widens those itself),
+    contiguous."""
+    x = x2.to(compute_dtype)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.float()
+    return x.contiguous()
 
 
 def _decode(codes: torch.Tensor, quant_type: str) -> torch.Tensor:
@@ -126,8 +163,11 @@ def apply_4bit(x2: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
 
     Pair weights: K1 for ``T <= pair_max_tokens()`` token rows (any T;
     the TPU kernels' tiling rule ``pair_tokens_ok`` does not bind K1),
-    else :func:`dense_matmul_pair`. Planar weights: plain dequant +
-    matmul on the CPU; not ported to the GPU."""
+    else :func:`dense_matmul_pair`. Planar weights: K5 for
+    ``T <= QMATMUL_MAX_TOKENS`` with :func:`qmm_ok`, else K6 for
+    ``T <= GEMV_MAX_TOKENS``, else the dense path: K7 dequantizes to
+    ``compute_dtype`` (fp32 decode x fp32 scale, the values of the JAX
+    package's XLA dequant) and one fp32 ``torch.matmul`` follows."""
     tokens = x2.shape[0]
     spacked = scales.dtype == torch.int32
     pair = spacked or wp.shape[-2] != scales.shape[-2]
@@ -138,11 +178,126 @@ def apply_4bit(x2: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
                                     quant_type)
         return dense_matmul_pair(x2, wp, scales, quant_type,
                                  compute_dtype=compute_dtype)
-    if x2.is_cuda:
-        raise NotImplementedError(
-            "planar-layout 4-bit weights need the planar matmul kernel "
-            "(quantizations_tpu/ops/qmatmul.py:93 matmul_4bit_pallas / "
-            "ops/gemv.py:296 gemv_4bit_pallas), which is not ported")
-    W = dequantize_permuted(wp, scales, quant_type, dtype=compute_dtype)
-    xp = permute_cols(x2.to(compute_dtype))
-    return xp.float() @ W.float().T
+    if tokens <= QMATMUL_MAX_TOKENS and qmm_ok(tokens):
+        return matmul_4bit_planar(wp, scales,
+                                  kernel_activation(x2, compute_dtype),
+                                  quant_type)
+    if tokens <= GEMV_MAX_TOKENS:
+        return gemv_4bit(wp, scales, gemv_activation(x2, compute_dtype),
+                         quant_type)
+    W = dequantize_4bit_kernel(wp, scales, quant_type, dtype=compute_dtype)
+    return x2.to(compute_dtype).float() @ W.float().T
+
+
+@dataclasses.dataclass
+class Params4bit:
+    """A quantized parameter: packed words, resolved scales and the
+    bnb-serializable :class:`~quantizations_tpu_torch.quant.state.QuantState`.
+
+    ``wp`` is the int32 view of bnb's packed bytes (planar ``[out, in/8]``)
+    or the pair layout ``[out/2, in/4]``; ``scales`` are the per-64 fp32
+    absmax with double quantization already inverted; ``quant_state``
+    keeps the bnb form (uint8 nested absmax and so on)."""
+
+    wp: torch.Tensor
+    scales: torch.Tensor
+    quant_state: QuantState
+
+    @property
+    def shape(self) -> tuple:
+        return self.quant_state.shape
+
+    @property
+    def layout(self) -> str:
+        return ("planar" if self.wp.shape[-2] == self.scales.shape[-2]
+                else "pair")
+
+    @classmethod
+    def quantize(cls, W: torch.Tensor, blocksize: int = 64,
+                 quant_type: str = "fp4", compress_statistics: bool = True,
+                 layout: str = "planar") -> "Params4bit":
+        """Quantize a ``[out, in]`` weight on its device. ``blocksize``
+        is a multiple of 64; the scales are expanded to per-64 blocks,
+        the granularity the kernels read. ``layout="pair"`` stores K1's
+        row-pair words (even ``out`` only)."""
+        out_f, in_f = W.shape
+        if blocksize % 64 or in_f % blocksize:
+            raise ValueError(
+                f"blocksize {blocksize} must be a multiple of 64 dividing "
+                f"in_features={in_f}")
+        if layout not in ("planar", "pair"):
+            raise ValueError(f"layout {layout!r} not in ('planar', 'pair')")
+        if layout == "pair" and out_f % 2:
+            raise ValueError(
+                f"pair layout requires even out_features (got {out_f})")
+        packed, state = quantize_4bit(W, blocksize=blocksize,
+                                      quant_type=quant_type,
+                                      compress_statistics=compress_statistics)
+        wp = pack_i32_rows(packed, out_f, in_f)
+        scales = dequantize_absmax(state).reshape(out_f, in_f // blocksize)
+        if blocksize != 64:
+            scales = scales.repeat_interleave(blocksize // 64, dim=1)
+        if layout == "pair":
+            wp = planar_to_pair(wp)
+        return cls(wp=wp, scales=scales, quant_state=state)
+
+    def packed_u8(self) -> torch.Tensor:
+        """bnb byte-layout view ``[n/2, 1]`` of the packed codes."""
+        wp = pair_to_planar(self.wp) if self.layout == "pair" else self.wp
+        return wp.contiguous().view(torch.uint8).reshape(-1, 1)
+
+
+class Linear4bit(torch.nn.Module):
+    """bnb-compatible 4-bit linear layer. Build with :meth:`create` (it
+    quantizes a full-precision weight) or from loaded parts
+    (:func:`~quantizations_tpu_torch.quant.bnb_io.load_bnb_linear4bit`).
+    Callable on ``[..., in_features]``."""
+
+    def __init__(self, weight: Params4bit, bias: Optional[torch.Tensor] = None,
+                 compute_dtype: Any = torch.bfloat16):
+        super().__init__()
+        self.weight = weight
+        self.bias = bias
+        self.compute_dtype = compute_dtype
+
+    @property
+    def in_features(self) -> int:
+        return self.weight.shape[1]
+
+    @property
+    def out_features(self) -> int:
+        return self.weight.shape[0]
+
+    @property
+    def quant_state(self) -> QuantState:
+        return self.weight.quant_state
+
+    @classmethod
+    def create(cls, W: Union[torch.Tensor, np.ndarray],
+               bias: Union[torch.Tensor, np.ndarray, None] = None,
+               compute_dtype: Any = torch.bfloat16,
+               compress_statistics: bool = True, quant_type: str = "fp4",
+               blocksize: int = 64, layout: str = "planar",
+               device: Union[str, torch.device] = "cuda") -> "Linear4bit":
+        """Quantize ``W [out, in]`` on ``device`` into a layer."""
+        dev = resolve_device(device)
+        params = Params4bit.quantize(
+            torch.as_tensor(W, device=dev), blocksize=blocksize,
+            quant_type=quant_type, compress_statistics=compress_statistics,
+            layout=layout)
+        if bias is not None:
+            bias = torch.as_tensor(bias, device=dev)
+        return cls(params, bias=bias, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [..., in] -> [..., out]``: cast to ``compute_dtype``, the
+        4-bit matmul of :func:`apply_4bit` in fp32, the bias, and back to
+        ``x``'s dtype."""
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        out = apply_4bit(x2, self.weight.wp, self.weight.scales,
+                         self.quant_state.quant_type,
+                         compute_dtype=self.compute_dtype)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out.reshape(*lead, self.out_features).to(x.dtype)

@@ -1,8 +1,8 @@
 """Build, load and count the port's CUDA kernels.
 
 Each ``csrc/*.cu`` source holds one or more kernels with a plain C
-interface (``flash_decode.cu`` holds K3 and K4, each with its own
-:class:`Kernel` record and launch counter). A source is compiled by its
+interface (``flash_decode.cu`` holds K3 and K4, ``planar_matmul.cu`` K5
+and K6, each with its own :class:`Kernel` record and launch counter). A source is compiled by its
 own ``nvcc`` call for ``sm_90a`` into a shared library
 under ``quantizations_tpu_torch/build/`` (named by a hash of the source,
 so an edited source rebuilds) and loaded with ``ctypes``. :func:`build`
@@ -27,7 +27,8 @@ from typing import Dict, Sequence
 import torch
 
 __all__ = ["Kernel", "PAIR_MATMUL", "QUANTIZE_4BIT", "FLASH_DECODE",
-           "FLASH_DECODE_I8", "KERNELS", "build", "launch", "nvcc_path",
+           "FLASH_DECODE_I8", "PLANAR_MATMUL", "GEMV_4BIT",
+           "DEQUANTIZE_4BIT", "KERNELS", "build", "launch", "nvcc_path",
            "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -96,7 +97,27 @@ FLASH_DECODE_I8 = Kernel(
     "(flash_decode_attention_stacked_i8 :303, "
     "ops/paged_attention.py:141 paged_flash_decode_attention_i8)",
     {"qt_flash_decode_i8": [_P, _I, _P, _P, _P, _P] + _DECODE_TAIL})
-KERNELS = (PAIR_MATMUL, QUANTIZE_4BIT, FLASH_DECODE, FLASH_DECODE_I8)
+PLANAR_MATMUL = Kernel(
+    "planar_matmul", "quantizations_tpu_torch/csrc/planar_matmul.cu",
+    "quantizations_tpu/ops/qmatmul.py:43 _kernel "
+    "(matmul_4bit_pallas :93, matmul_4bit_pallas_stacked :154)",
+    # (wp, scales, scale_kind, table, x, y, T, M, K8, has_factor, factor)
+    {"qt_planar_matmul": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P]})
+GEMV_4BIT = Kernel(
+    "gemv_4bit", "quantizations_tpu_torch/csrc/planar_matmul.cu",
+    "quantizations_tpu/ops/gemv.py:150 _gemv_kernel "
+    "(gemv_4bit_pallas :296, gemv_4bit_pallas_stacked :353)",
+    # (wp, scales, scale_kind, table, x, x_kind, y, B, M, K8, has_factor,
+    #  factor)
+    {"qt_gemv_4bit": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P]})
+DEQUANTIZE_4BIT = Kernel(
+    "dequantize_4bit", "quantizations_tpu_torch/csrc/dequantize.cu",
+    "quantizations_tpu/ops/quantize.py:128 _dequantize_kernel "
+    "(dequantize_4bit_pallas :192)",
+    # (wp, scales, scale_kind, table, out, out_kind, M, K8)
+    {"qt_dequantize_4bit": [_P, _P, _I, _P, _P, _I, _I, _I, _P]})
+KERNELS = (PAIR_MATMUL, QUANTIZE_4BIT, FLASH_DECODE, FLASH_DECODE_I8,
+           PLANAR_MATMUL, GEMV_4BIT, DEQUANTIZE_4BIT)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

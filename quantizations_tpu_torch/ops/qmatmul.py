@@ -1,6 +1,14 @@
-"""Pair-layout ("SWAR row-pair") 4-bit weights and the fused dequant +
-matmul kernel K1 (counterpart of the pair half of
+"""The fused 4-bit dequant + matmul kernels: K1 over pair-layout ("SWAR
+row-pair") weights and K5 over planar words (counterpart of
 ``quantizations_tpu/ops/qmatmul.py``).
+
+K5 (``csrc/planar_matmul.cu``, entry ``qt_planar_matmul``) is the TPU
+planar kernel's bf16 class, the class K1 reproduces too: the block scale
+rounded to bf16 (times bf16(1/12) in bf16 for FP4), each weight
+``bf16(decoded * scale)``, bf16 activations, fp32 products and sums. Its
+decode is the fp32 table of :func:`~quantizations_tpu_torch.ops.gemv.planar_table`:
+for NF4 the fp32 codebook, where K1's pair decode takes the bf16
+codebook, as the two TPU kernels do.
 
 Layout of ``wp2 [M/2, K/4]`` (same bytes as planar ``[M, K/8]``): the
 word axis is block-major, ``w = r*NB + b`` with ``b`` the 64-element quant
@@ -26,7 +34,8 @@ from typing import Tuple
 import torch
 
 from ..quant.codebooks import FP4_CODE, get_4bit_code
-from .cuda import PAIR_MATMUL, launch
+from .cuda import PAIR_MATMUL, PLANAR_MATMUL, launch
+from .gemv import _SHIFTS, check_planar_args, device_planar_table, planar_table
 
 __all__ = [
     "pair_tokens_ok",
@@ -41,6 +50,10 @@ __all__ = [
     "matmul_4bit_pair_stacked",
     "matmul_4bit_pair_plain",
     "matmul_4bit_pair_stacked_plain",
+    "matmul_4bit_planar",
+    "matmul_4bit_planar_stacked",
+    "matmul_4bit_planar_plain",
+    "matmul_4bit_planar_stacked_plain",
 ]
 
 
@@ -264,3 +277,73 @@ def matmul_4bit_pair_stacked(wp2: torch.Tensor, scales: torch.Tensor,
     if wp2.dim() != 3 or scales.dim() != 3:
         raise ValueError("pair_matmul stacked: wp2/scales must be [L, ...]")
     return _launch_pair(wp2[layer_idx], scales[layer_idx], x, quant_type)
+
+
+# --------------------------------------------------------------------------
+# Planar words: K5
+# --------------------------------------------------------------------------
+
+def matmul_4bit_planar_plain(wp: torch.Tensor, scales: torch.Tensor,
+                             x: torch.Tensor, quant_type: str = "fp4"
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of K5: ``x [T, K] -> y [T, M]`` fp32 over
+    planar words ``wp [M, K/8]`` and fp32/bf16 ``scales [M, K/64]``, with
+    the kernel's arithmetic."""
+    M, K8 = wp.shape
+    table, out_factor = planar_table(quant_type)
+    table = table.to(wp.device)
+    s = _bf16_scales(scales, out_factor).float().repeat_interleave(8, dim=1)
+    planes = [(table[((wp >> sh) & 15).long()] * s).to(torch.bfloat16)
+              for sh in _SHIFTS]                          # 8 x [M, K8]
+    W = torch.stack(planes, dim=-1).reshape(M, 8 * K8).float()
+    return x.to(torch.bfloat16).float() @ W.T
+
+
+def matmul_4bit_planar_stacked_plain(wp: torch.Tensor, scales: torch.Tensor,
+                                     x: torch.Tensor, layer_idx: int,
+                                     quant_type: str = "fp4") -> torch.Tensor:
+    """Plain version of the stacked form: layer ``layer_idx`` of
+    ``[L, M, K/8]``."""
+    return matmul_4bit_planar_plain(wp[layer_idx], scales[layer_idx], x,
+                                    quant_type)
+
+
+def _launch_planar(wp, scales, x, quant_type):
+    check_planar_args("planar_matmul", wp, scales, x, (torch.bfloat16,))
+    M, K8 = wp.shape
+    T = x.shape[0]
+    y = torch.empty((T, M), dtype=torch.float32, device=x.device)
+    if T == 0 or M == 0:
+        return y
+    _, out_factor = planar_table(quant_type)
+    launch(PLANAR_MATMUL, "qt_planar_matmul", x.device, wp.data_ptr(),
+           scales.data_ptr(), int(scales.dtype == torch.bfloat16),
+           device_planar_table(quant_type, x.device).data_ptr(),
+           x.data_ptr(), y.data_ptr(), T, M, K8, int(out_factor != 1.0),
+           out_factor)
+    return y
+
+
+def matmul_4bit_planar(wp: torch.Tensor, scales: torch.Tensor,
+                       x: torch.Tensor, quant_type: str = "fp4"
+                       ) -> torch.Tensor:
+    """Fused 4-bit dequant + matmul over planar words: ``y [T, M] =
+    x [T, K] @ dequant(wp [M, K/8], scales [M, K/64]).T`` in fp32, any
+    ``M`` and ``T``. CUDA tensors launch K5 (``x`` must be bf16); CPU
+    tensors run the plain version."""
+    if x.device.type == "cpu":
+        return matmul_4bit_planar_plain(wp, scales, x, quant_type)
+    return _launch_planar(wp, scales, x, quant_type)
+
+
+def matmul_4bit_planar_stacked(wp: torch.Tensor, scales: torch.Tensor,
+                               x: torch.Tensor, layer_idx: int,
+                               quant_type: str = "fp4") -> torch.Tensor:
+    """:func:`matmul_4bit_planar` on layer ``layer_idx`` of stacked
+    ``[L, M, K/8]`` weights, read in place."""
+    if x.device.type == "cpu":
+        return matmul_4bit_planar_stacked_plain(wp, scales, x, layer_idx,
+                                                quant_type)
+    if wp.dim() != 3 or scales.dim() != 3:
+        raise ValueError("planar_matmul stacked: wp/scales must be [L, ...]")
+    return _launch_planar(wp[layer_idx], scales[layer_idx], x, quant_type)

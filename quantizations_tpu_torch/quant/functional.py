@@ -1,5 +1,5 @@
 """Functional quantization core in plain PyTorch (counterpart of
-``quantizations_tpu/quant/functional.py``, the part model build needs).
+``quantizations_tpu/quant/functional.py``).
 
 These reproduce the JAX package's quantization decisions bit for bit:
 
@@ -37,6 +37,8 @@ __all__ = [
     "dequantize_absmax",
     "pack_4bit",
     "unpack_4bit",
+    "gemv_4bit",
+    "matmul_4bit",
 ]
 
 
@@ -217,3 +219,44 @@ def dequantize_4bit(
     vals = vals.reshape(nblocks, state.blocksize) * absmax[:, None]
     out = vals.reshape(-1)[:n].reshape(state.shape)
     return out.to(dtype or state.dtype)
+
+
+# --------------------------------------------------------------------------
+# Matmul / GEMV (plain path; the fused kernels live in ops/)
+# --------------------------------------------------------------------------
+
+def _dequant_with_scales(packed: torch.Tensor, state: QuantState,
+                         absmax_f32: torch.Tensor) -> torch.Tensor:
+    """``state.shape`` fp32 values: codebook x resolved fp32 scale."""
+    codes = unpack_4bit(packed.reshape(-1))
+    n = int(np.prod(state.shape))
+    vals = state.code.to(codes.device)[codes[:n].long()]
+    nblocks = absmax_f32.shape[0]
+    vals = vals.reshape(nblocks, state.blocksize) * absmax_f32[:, None]
+    return vals.reshape(state.shape)
+
+
+def gemv_4bit(x: torch.Tensor, packed: torch.Tensor, state: QuantState,
+              absmax_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode matvec ``x @ W^T`` with W stored 4-bit: fp32 weights and
+    activations, the result cast to ``x.dtype``. ``absmax_f32`` takes
+    scales resolved beforehand (double quantization inverted once)."""
+    if absmax_f32 is None:
+        absmax_f32 = dequantize_absmax(state)
+    W = _dequant_with_scales(packed, state, absmax_f32)
+    return (x.float() @ W.T).to(x.dtype)
+
+
+def matmul_4bit(x: torch.Tensor, packed: torch.Tensor, state: QuantState,
+                bias: Optional[torch.Tensor] = None,
+                absmax_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ W^T (+ bias)`` with 4-bit W: weights and activations cast to
+    ``state.dtype``, products and sums in fp32, the result cast to
+    ``x.dtype``."""
+    if absmax_f32 is None:
+        absmax_f32 = dequantize_absmax(state)
+    W = _dequant_with_scales(packed, state, absmax_f32)
+    out = x.to(state.dtype).float() @ W.to(state.dtype).float().T
+    if bias is not None:
+        out = out + bias
+    return out.to(x.dtype)

@@ -5,7 +5,7 @@
 - Entry points run on CUDA unless they are given ``device="cpu"``: with
   no card they raise rather than fall back to the CPU.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card.
-- Tests marked ``cuda`` hold each kernel (K1 to K4) against its plain
+- Tests marked ``cuda`` hold each kernel (K1 to K7) against its plain
   version on the card; they skip where ``torch.cuda.is_available()`` is
   False.
 """
@@ -21,13 +21,18 @@ import pytest
 import torch
 
 from quantizations_tpu_torch import QuantConfig
-from quantizations_tpu_torch.bridge import cache_from_numpy, params_from_numpy
+from quantizations_tpu_torch.bridge import (cache_from_numpy,
+                                            linear4bit_from_numpy,
+                                            params_from_numpy)
 from quantizations_tpu_torch.models import llama as tl
+from quantizations_tpu_torch.nn.linear import Linear4bit
 from quantizations_tpu_torch.ops import FLASH_DECODE, FLASH_DECODE_I8
 from quantizations_tpu_torch.ops import attention as tat
+from quantizations_tpu_torch.ops import gemv as tgv
 from quantizations_tpu_torch.ops import paged_attention as tpa
 from quantizations_tpu_torch.ops import qmatmul as tqm
 from quantizations_tpu_torch.ops import quantize as tqz
+from quantizations_tpu_torch.quant import bnb_io as tbnb
 from quantizations_tpu_torch.serve import paged as tpg
 
 torch.set_num_threads(1)
@@ -55,6 +60,17 @@ def test_port_imports_no_jax(path):
     assert not _imported_roots(path) & FORBIDDEN
 
 
+def test_import_guard_covers_every_module():
+    """The guard walks the whole package: the planar slice's modules and
+    the bnb loader are among the files it reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("quant/bnb_io.py", "quant/state.py", "quant/functional.py",
+                "nn/linear.py", "ops/gemv.py", "ops/qmatmul.py",
+                "ops/quantize.py", "ops/cuda.py", "bridge.py",
+                "models/llama.py"):
+        assert f"quantizations_tpu_torch/{mod}" in names, mod
+
+
 def test_import_guard_sees_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\n"
@@ -69,12 +85,21 @@ def test_entry_points_need_a_card(monkeypatch):
     ``device="cpu"`` is the only way onto the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dataclasses.replace(tl.TINY_LLAMA, num_hidden_layers=1)
+    lin = Linear4bit.create(torch.ones(8, 64), device="cpu")
+    state = lin.quant_state
+    flat = tbnb.bnb_flat_tensors("p", lin.weight.packed_u8(), state)
     for call in (lambda: tl.init_llama_params(cfg),
                  lambda: tl.KVCache.create(cfg, 1, 8),
                  lambda: params_from_numpy({}, cfg),
                  lambda: cache_from_numpy({"k": np.zeros(1),
                                            "v": np.zeros(1)}),
-                 lambda: tpg.PagedKVCache.create(cfg, 4, 8)):
+                 lambda: tpg.PagedKVCache.create(cfg, 4, 8),
+                 lambda: Linear4bit.create(torch.ones(8, 64)),
+                 lambda: linear4bit_from_numpy({}, {}),
+                 lambda: tbnb.qlinear_arrays_from_bnb(
+                     np.zeros((256, 1), np.uint8), state),
+                 lambda: tbnb.load_bnb_linear4bit(flat.__getitem__,
+                                                  set(flat), "p")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert tl.KVCache.create(cfg, 1, 8, device="cpu").k.device.type == "cpu"
@@ -145,19 +170,90 @@ def test_k2_bit_exact_on_card(cuda, rng, quant_type, dtype):
         assert torch.equal(g.cpu(), r)
 
 
-@pytest.mark.cuda
-def test_planar_weights_raise_on_card(cuda, rng):
-    """Planar 4-bit weights have no ported kernel: on the card they raise
-    instead of running a plain path."""
-    from quantizations_tpu_torch.nn.linear import apply_4bit
-
-    wp = torch.from_numpy(rng.integers(-2**31, 2**31, (64, 512 // 8),
+def _planar_operands(rng, M, K, L=3, scale_kind="fp32"):
+    wp = torch.from_numpy(rng.integers(-2**31, 2**31, (L, M, K // 8),
                                        dtype=np.int64).astype(np.int32))
-    scales = torch.ones(64, 512 // 64)
-    x = torch.ones(2, 512, dtype=torch.bfloat16)
-    assert apply_4bit(x, wp, scales, "fp4").shape == (2, 64)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        apply_4bit(x.to(cuda), wp.to(cuda), scales.to(cuda), "fp4")
+    scales = torch.from_numpy(
+        (rng.random((L, M, K // 64)) * 0.05 + 0.01).astype(np.float32))
+    if scale_kind == "bf16":
+        scales = scales.to(torch.bfloat16)
+    return wp, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+@pytest.mark.parametrize("scale_kind", ["fp32", "bf16"])
+@pytest.mark.parametrize("T", [1, 2, 5, 8, 16, 40])
+@pytest.mark.parametrize("M", [256, 33])
+def test_k5_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T, M):
+    K = 512
+    wp, scales = _planar_operands(rng, M, K, scale_kind=scale_kind)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(
+        np.float32)).to(torch.bfloat16)
+    ref = tqm.matmul_4bit_planar_stacked(wp, scales, x, 1, quant_type)
+    got = tqm.matmul_4bit_planar_stacked(wp.to(cuda), scales.to(cuda),
+                                         x.to(cuda), 1, quant_type)
+    # the same bf16 rounding on both sides: fp32 summation order only
+    _agree(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+@pytest.mark.parametrize("scale_kind", ["fp32", "bf16"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3, 6, 8])
+def test_k6_matches_plain_on_card(cuda, rng, quant_type, scale_kind, x_dtype,
+                                  B):
+    M, K = 33 if B == 3 else 256, 1024
+    wp, scales = _planar_operands(rng, M, K, scale_kind=scale_kind)
+    x = torch.from_numpy(rng.standard_normal((B, K)).astype(
+        np.float32)).to(x_dtype)
+    ref = tgv.gemv_4bit_stacked(wp, scales, x, 2, quant_type)
+    got = tgv.gemv_4bit_stacked(wp.to(cuda), scales.to(cuda), x.to(cuda), 2,
+                                quant_type)
+    # fp32 throughout on both sides: summation order only
+    _agree(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+@pytest.mark.parametrize("scale_kind", ["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_k7_bit_exact_on_card(cuda, rng, quant_type, scale_kind, dtype):
+    wp, scales = _planar_operands(rng, 33, 512, L=1, scale_kind=scale_kind)
+    ref = tqz.dequantize_4bit_kernel(wp[0], scales[0], quant_type, dtype)
+    got = tqz.dequantize_4bit_kernel(wp[0].to(cuda), scales[0].to(cuda),
+                                     quant_type, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_planar_bands_launch_their_kernels_on_card(cuda, rng):
+    """A planar weight on the card reaches K5 or K6 through apply_4bit,
+    Linear4bit and the bnb loader, and never a CPU path."""
+    from quantizations_tpu_torch.nn.linear import Linear4bit
+    from quantizations_tpu_torch.ops import GEMV_4BIT, PLANAR_MATMUL
+    from quantizations_tpu_torch.quant.bnb_io import (bnb_flat_tensors,
+                                                      load_bnb_linear4bit)
+
+    W = torch.from_numpy((rng.standard_normal((96, 512)) * 0.1).astype(
+        np.float32))
+    lin = Linear4bit.create(W, bias=torch.ones(96), device=cuda)
+    flat = bnb_flat_tensors("l", lin.weight.packed_u8(), lin.quant_state)
+    flat["l.bias"] = np.ones(96, np.float32)
+    loaded = load_bnb_linear4bit(flat.__getitem__, set(flat), "l",
+                                 device=cuda)
+    for T, kern in ((1, PLANAR_MATMUL), (3, GEMV_4BIT), (16, PLANAR_MATMUL)):
+        x = torch.from_numpy(rng.standard_normal((T, 512)).astype(
+            np.float32)).to(cuda)
+        before = kern.launches
+        y = lin(x)
+        assert kern.launches == before + 1 and y.is_cuda
+        assert torch.equal(loaded(x), y)
+    y = lin(torch.zeros((100, 512), device=cuda))      # the dense band
+    assert y.shape == (100, 96) and torch.isfinite(y).all()
 
 
 @pytest.mark.cuda
