@@ -71,7 +71,25 @@ Phases, each raising on failure:
    against their bounds (K5 and K6 per decode forward, K5 at T = 48, K7
    at [14336, 4096] and the lm_head), the plain versions and dense bf16
    ``torch.matmul``;
-9. ``paged``: the paged engine. ``PagedEngine(slots=4, max_seq=2048,
+9. ``pair_variants``: the pair kernel's two variants. K8 (the
+   decode-once prefill pair kernel, tensor cores) within K8_GATE *
+   max|y| of its plain version and of K1, and K9 (the manual-pipeline
+   pair kernel) bit-identical to K1, at every Llama3-8B pair shape, FP4
+   and NF4, fp32, bf16 and ``bf16x2`` scales, stacked at layer 1 and
+   unstacked: K8 at T in {8, 200, 256, 512}, K9 at T in {1, 4, 8, 16, 64,
+   128}. Their times: K9 per T = 1 decode forward over the projections it
+   takes (qkv, o, down x 32), K8 per 512-row prefill forward (all 128
+   projections), beside K1, the plain versions, dense bf16
+   ``torch.matmul`` and (K8) the dense pair path. Then the knobs end to
+   end on the model phase's parameters: ``pair_pipeline="manual"``
+   generates at B = 1, 4, 8 with exact K9/K1 counts (MANUAL_LAUNCHES) and
+   the model phase's tokens; ``QT_PREFILL_PAIR=1`` generates after a
+   1024-token prompt with exactly 256 K8 and 7612 K1 launches, and its
+   prefill forward is timed beside the dense pair path's; a
+   ``PagedEngine`` run without and with ``QT_PREFILL_PAIR`` (K8 launched
+   128 x ceil(rows / 512) times per admission forward above the K1 band
+   with a row count divisible by 8);
+10. ``paged``: the paged engine. ``PagedEngine(slots=4, max_seq=2048,
    prefill_buckets=(64, 256), admit_width=4, prefix_cache=True,
    num_pages=40)`` (page 256) over the FP4 model serves 8 greedy
    requests of 32 new tokens: prompts of 16, 100, 300, 700, 1100, 1500
@@ -84,7 +102,7 @@ Phases, each raising on failure:
    tokens and return every page but the prefix cache's pins. Printed:
    aggregate new tokens per second, steps, admission group sizes, and
    the wall time split into admission and decode;
-10. ``profile``: one FP4 batch-1 generate of 8 new tokens under
+11. ``profile``: one FP4 batch-1 generate of 8 new tokens under
    ``torch.profiler``: device kernel time by name, kernels per forward,
    the device's busy share of the wall time, the host's enqueue time.
 
@@ -140,6 +158,19 @@ K6_TOKENS = (1, 3, 5, 6, 7, 8)
 PLANAR_BATCHES = (1, 3, 8)
 PLANAR_NEW = 60
 MODULE_SHAPE = (14336, 4096)   # the Linear4bit of the planar phase
+# the pair_variants phase: K8 (prefill pair) and K9 (manual pair)
+K8_TOKENS = (8, 200, 256, 512)
+K9_TOKENS = (1, 4, 8, 16, 64, 128)
+K8_TIMED_T = 512               # one chunk of a prefill forward
+K8_GATE = 1e-5                 # max|K8 - plain| / max|plain|, and to K1
+K9_SHAPES = ("qkv", "o", "down")   # the decode projections K9 takes
+PV_BATCHES = (1, 4, 8)
+# (K9, K1) launches per manual generate (60 tokens, a 16-token prompt):
+# K9 takes qkv and o up to 128 rows and down up to 16 (manual_vmem_ok),
+# K1 gate_up and the lm_head. B = 1: 60 forwards x (96 K9 + 33 K1); at
+# B = 4 and 8 the 64- and 128-row prefill's down goes to K1.
+MANUAL_LAUNCHES = {1: (5760, 1980), 4: (5728, 2012), 8: (5728, 2012)}
+LONG_PROMPT = 1024             # the QT_PREFILL_PAIR generate
 # (M, K) -> K2 launches in one Llama3-8B model build: per layer q and o,
 # k and v, gate and up, down; then the embedding and the lm_head. The
 # fused gate|up shape is checked too but never quantized whole.
@@ -1258,6 +1289,495 @@ def phase_planar(dev, gen, results, params):
     phase_planar_time(dev, gen, results)
 
 
+def phase_pair_variants_check(dev, gen, results):
+    """K8 within K8_GATE * max|y| of its plain version and of K1 at
+    K8_TOKENS, and K9 equal to K1 bit for bit at K9_TOKENS (and within
+    1e-5 * max|y| of its plain version), at every Llama3-8B pair shape,
+    FP4 and NF4, fp32, bf16 and ``bf16x2`` scales; the layer shapes
+    stacked and read at layer 1, the lm_head unstacked."""
+    from quantizations_tpu_torch.ops import pack_scale_pairs
+    from quantizations_tpu_torch.ops import qmatmul as qm
+
+    k8 = dict(max_abs_err=0.0, max_err_over_max_y=0.0,
+              max_diff_from_k1_over_max=0.0, cases=0, worst_case=None,
+              by_shape={})
+    k9 = dict(max_abs_err=0.0, max_err_over_max_y=0.0, bit_identical=0)
+    for name, M, K in K1_SHAPES:
+        stacked = name != "lm_head"
+        lay = 1 if stacked else 0
+        wp2, s32 = _pair_operands(M, K, 2 if stacked else 1, dev, gen)
+        x = torch.randn(max(K8_TOKENS), K, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        for qt in ("fp4", "nf4"):
+            for sk, s in (("fp32", s32), ("bf16", s32.to(torch.bfloat16)),
+                          ("bf16x2", pack_scale_pairs(s32))):
+                def run(fn, fn_stacked, xt):
+                    if stacked:
+                        return fn_stacked(wp2, s, xt, lay, qt)
+                    return fn(wp2[0], s[0], xt, qt)
+
+                what = f"{name} [{M},{K}] {qt} {sk}"
+                plain8 = qm.matmul_4bit_pair_prefill_plain(wp2[lay], s[lay],
+                                                           x, qt)
+                for T in K8_TOKENS:
+                    xt = x[:T]
+                    y8 = run(qm.matmul_4bit_pair_prefill,
+                             qm.matmul_4bit_pair_prefill_stacked, xt)
+                    y1 = run(qm.matmul_4bit_pair, qm.matmul_4bit_pair_stacked,
+                             xt)
+                    torch.cuda.synchronize()
+                    if y8.shape != (T, M) or not torch.isfinite(y8).all():
+                        raise AssertionError(f"K8 {what} T={T}: bad output")
+                    ref = plain8[:T]
+                    err = (y8 - ref).abs().max().item()
+                    rel = err / ref.abs().max().item()
+                    rel1 = ((y8 - y1).abs().max() / y1.abs().max()).item()
+                    if not (rel <= K8_GATE and rel1 <= K8_GATE):
+                        raise AssertionError(
+                            f"K8 {what} T={T}: {rel:.3e} of max|y| from "
+                            f"the plain version, {rel1:.3e} from K1 (gate "
+                            f"{K8_GATE:.0e})")
+                    if rel > k8["max_err_over_max_y"]:
+                        k8["worst_case"] = f"{what} T={T}"
+                    k8["max_abs_err"] = max(k8["max_abs_err"], err)
+                    k8["max_err_over_max_y"] = max(k8["max_err_over_max_y"],
+                                                   rel)
+                    k8["max_diff_from_k1_over_max"] = max(
+                        k8["max_diff_from_k1_over_max"], rel1)
+                    k8["by_shape"][name] = max(k8["by_shape"].get(name, 0.0),
+                                               rel)
+                    k8["cases"] += 1
+                del plain8
+                plain9 = qm.matmul_4bit_pair_manual_plain(
+                    wp2[lay], s[lay], x[:max(K9_TOKENS)], qt)
+                for T in K9_TOKENS:
+                    xt = x[:T]
+                    y9 = run(qm.matmul_4bit_pair_manual,
+                             qm.matmul_4bit_pair_manual_stacked, xt)
+                    y1 = run(qm.matmul_4bit_pair, qm.matmul_4bit_pair_stacked,
+                             xt)
+                    torch.cuda.synchronize()
+                    if not torch.equal(y9.view(torch.int32),
+                                       y1.view(torch.int32)):
+                        raise AssertionError(f"K9 {what} T={T}: not "
+                                             "bit-identical to K1")
+                    ref = plain9[:T]
+                    err = (y9 - ref).abs().max().item()
+                    rel = err / ref.abs().max().item()
+                    if not rel <= 1e-5:
+                        raise AssertionError(f"K9 {what} T={T}: {rel:.3e} of "
+                                             "max|y| from the plain version")
+                    k9["max_abs_err"] = max(k9["max_abs_err"], err)
+                    k9["max_err_over_max_y"] = max(k9["max_err_over_max_y"],
+                                                   rel)
+                    k9["bit_identical"] += 1
+                del plain9
+        log(f"  {name} [{M}, {K}]: K8 within {K8_GATE:.0e} * max|y| of its "
+            f"plain version (worst {k8['by_shape'][name]:.3e}) and of K1, "
+            f"K9 bit-identical to K1 ({k8['cases']} + "
+            f"{k9['bit_identical']} cases so far)")
+        del wp2, s32, x
+        torch.cuda.empty_cache()
+    results["pair_variants_err"] = dict(pair_prefill=k8, pair_manual=k9)
+    log(f"  K8: {k8['cases']} cases, worst max|err| {k8['max_abs_err']:.3e},"
+        f" worst max|err| / max|y| {k8['max_err_over_max_y']:.3e} "
+        f"({k8['worst_case']}), from K1 "
+        f"{k8['max_diff_from_k1_over_max']:.3e}; K9: {k9['bit_identical']} "
+        f"cases bit-identical to K1, {k9['max_err_over_max_y']:.3e} of "
+        f"max|y| from its plain version")
+
+
+def phase_pair_variants_time(dev, gen, results):
+    """K9 at T = 1 on the projections that take it at decode (qkv, o,
+    down) beside K1 and dense bf16 ``torch.matmul``; K8 at T = 512 on the
+    four layer projections beside K1, the dense pair path (today's route
+    there), dense bf16 ``torch.matmul`` and the plain version. Weights
+    rotate over a 32-layer stack; per-forward sums weight each shape by
+    its 32 launches."""
+    from quantizations_tpu_torch.nn.linear import dense_matmul_pair
+    from quantizations_tpu_torch.ops import qmatmul as qm
+
+    rows = []
+    for name, M, K in K1_SHAPES:
+        if name == "lm_head":
+            continue
+        L = LAYERS
+        wp2, scales = _pair_operands(M, K, L, dev, gen)
+        R = max(2, math.ceil(4 * L2_BYTES / (M * K * 2)))
+        Wd = torch.randn(R, M, K, generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn(K8_TIMED_T, K, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        cases = [("pair_prefill", K8_TIMED_T, qm.matmul_4bit_pair_prefill,
+                  qm.matmul_4bit_pair_prefill_plain)]
+        if name in K9_SHAPES:
+            cases.insert(0, ("pair_manual", 1, qm.matmul_4bit_pair_manual,
+                             qm.matmul_4bit_pair_manual_plain))
+        for kname, T, fn, plain in cases:
+            xt = x[:T].contiguous()
+            slow = T > 256                  # K1 and the dense path at 512
+            ms = device_ms(lambda i: fn(wp2[i % L], scales[i % L], xt,
+                                        "fp4"), 64)
+            k1 = device_ms(lambda i: qm.matmul_4bit_pair(
+                wp2[i % L], scales[i % L], xt, "fp4"), 8 if slow else 64)
+            pms = device_ms(lambda i: plain(wp2[0], scales[0], xt, "fp4"),
+                            2, warmup=1)
+            lms = device_ms(lambda i: torch.matmul(xt, Wd[i % R].T), 64)
+            dense = (device_ms(lambda i: dense_matmul_pair(
+                xt, wp2[i % L], scales[i % L], "fp4"), 4, warmup=1)
+                if slow else None)
+            nbytes = M * K // 2 + M * (K // 64) * 4 + T * K * 2 + T * M * 4
+            bms, by = bound(nbytes, 2 * T * M * K)
+            rows.append(dict(kernel=kname, shape=name, M=M, K=K, T=T, ms=ms,
+                             k1_ms=k1, plain_ms=pms, library_ms=lms,
+                             dense_pair_ms=dense, bound_ms=bms, bound_by=by,
+                             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             ops_ms=2 * T * M * K / BF16_FLOP_PER_S * 1e3))
+            log(f"  {kname:12s} {name:8s} T={T:3d}: {ms * 1e3:9.2f} us  "
+                f"bound {bms * 1e3:8.2f} us ({by})  K1 {k1 * 1e3:9.2f} us  "
+                f"plain {pms * 1e3:9.1f} us  torch.matmul bf16 "
+                f"{lms * 1e3:8.2f} us"
+                + ("" if dense is None else
+                   f"  dense pair path {dense * 1e3:9.2f} us"))
+        del wp2, scales, Wd, x
+        torch.cuda.empty_cache()
+    per = {}
+    for kname in ("pair_manual", "pair_prefill"):
+        sel = [r for r in rows if r["kernel"] == kname]
+        f = {k: LAYERS * sum(r[k] for r in sel)
+             for k in ("ms", "k1_ms", "plain_ms", "library_ms", "bound_ms",
+                       "bytes_ms", "ops_ms")}
+        if kname == "pair_prefill":
+            f["dense_pair_ms"] = LAYERS * sum(r["dense_pair_ms"] for r in sel)
+        f["bound_by"] = ("bytes" if f["bytes_ms"] >= f["ops_ms"]
+                         else "operations")
+        f["launches"] = LAYERS * len(sel)
+        f["T"] = sel[0]["T"]
+        per[kname] = f
+        log(f"  {kname} per forward at T={f['T']} ({f['launches']} "
+            f"launches: {', '.join(r['shape'] for r in sel)} x {LAYERS}): "
+            f"{f['ms']:.3f} ms, bound {f['bound_ms']:.3f} ms "
+            f"({f['bound_by']}; bytes {f['bytes_ms']:.3f}, operations "
+            f"{f['ops_ms']:.3f}), K1 {f['k1_ms']:.3f} ms, plain "
+            f"{f['plain_ms']:.1f} ms, torch.matmul bf16 "
+            f"{f['library_ms']:.3f} ms"
+            + (f", dense pair path {f['dense_pair_ms']:.3f} ms"
+               if "dense_pair_ms" in f else ""))
+    results["pair_variants_time"] = dict(rows=rows, per_forward=per)
+
+
+def _generate_runs(gen, params, ids, cfg, serve, dev, kernels, want, what):
+    """Six greedy generates (a warm-up and 5 timed) that must launch each
+    of ``kernels`` exactly ``want`` times and give the same tokens every
+    time. Returns (tokens, times in s)."""
+    from quantizations_tpu_torch.models.llama import KVCache
+
+    times, first = [], None
+    B = ids.shape[0]
+    for it in range(5 + 1):
+        cache = KVCache.create(cfg, B, serve.max_seq_len, dev)
+        before = [k.launches for k in kernels]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        toks, _ = gen(params, ids, cache, None)
+        end.record()
+        end.synchronize()
+        got = tuple(k.launches - b for k, b in zip(kernels, before))
+        if got != tuple(want):
+            names = ", ".join(k.name for k in kernels)
+            raise AssertionError(f"{what}: ({names}) launched {got}, "
+                                 f"expected {tuple(want)}")
+        if toks.shape != (B, serve.max_new_tokens) or int(
+                toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{what}: tokens out of range")
+        if first is None:
+            first = toks.cpu()
+        elif not torch.equal(first, toks.cpu()):
+            raise AssertionError(f"{what}: tokens differ between runs")
+        if it:
+            times.append(start.elapsed_time(end) / 1e3)
+        del cache
+    return first, times
+
+
+def phase_pair_variants_model(dev, params, results):
+    """The knobs end to end on the model phase's FP4 Llama3-8B:
+    ``pair_pipeline="manual"`` generates at B = 1, 4, 8 with exact K9/K1
+    counts and the model phase's grid tokens; ``QT_PREFILL_PAIR=1``
+    generates after a 1024-token prompt with exactly 256 K8 and 7612 K1
+    launches, and its prefill forward is timed beside the dense pair
+    path's."""
+    from quantizations_tpu_torch.config import QuantConfig, ServeConfig
+    from quantizations_tpu_torch.models.llama import (LLAMA3_8B, KVCache,
+                                                      prefill)
+    from quantizations_tpu_torch.ops import (KERNELS, PAIR_MANUAL,
+                                             PAIR_MATMUL, PAIR_PREFILL)
+    from quantizations_tpu_torch.serve.generate import make_generate_fn
+
+    base = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
+        quantize_embedding=True))
+    manual = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
+        quantize_embedding=True, pair_pipeline="manual"))
+    serve = ServeConfig(max_seq_len=128, max_new_tokens=60, temperature=0.0)
+    grid_tokens = {r["batch"]: r["tokens"] for r in results["generate"]
+                   if r["quant_type"] == "fp4" and r["attention"] == "einsum"}
+    ids = ((torch.arange(PROMPT_LEN, device=dev) * 7 + 11) % base.vocab_size
+           ).to(torch.int32)[None, :]
+    gen = make_generate_fn(manual, serve)
+    runs = []
+    for k in KERNELS:
+        k.launches = 0
+    for B in PV_BATCHES:
+        want = MANUAL_LAUNCHES[B]
+        toks, times = _generate_runs(gen, params, ids.repeat(B, 1), manual,
+                                     serve, dev, (PAIR_MANUAL, PAIR_MATMUL),
+                                     want, f"manual B={B}")
+        if toks.tolist() != grid_tokens[B]:
+            raise AssertionError(f"manual B={B}: tokens differ from the grid "
+                                 "run's")
+        t = statistics.median(times)
+        n = serve.max_new_tokens * B
+        runs.append(dict(batch=B, tok_per_s=n / t, tok_per_s_min=n / max(times),
+                         tok_per_s_max=n / min(times), generate_s=t,
+                         generate_s_all=times, launches_per_generate=dict(
+                             pair_manual=want[0], pair_matmul=want[1])))
+        log(f"  manual B={B}: {n / t:.2f} tok/s, median of 5 (min "
+            f"{n / max(times):.2f}, max {n / min(times):.2f}); K9/K1 "
+            f"launches {want} each; the grid run's tokens")
+    results["launches_pair_manual"] = {k.name: k.launches for k in KERNELS}
+    results["pair_manual_generate"] = runs
+
+    # QT_PREFILL_PAIR: a 1024-token prompt, one 1024-row prefill forward
+    long_serve = ServeConfig(max_seq_len=LONG_PROMPT + 128,
+                             max_new_tokens=60, temperature=0.0)
+    long_ids = torch.randint(1, base.vocab_size, (1, LONG_PROMPT),
+                             generator=torch.Generator().manual_seed(3)
+                             ).to(dev)
+    gen = make_generate_fn(base, long_serve)
+    layers = base.num_hidden_layers
+    want = (4 * layers * math.ceil(LONG_PROMPT / 512),     # K8: 2 chunks
+            60 * (4 * layers + 1) - 4 * layers)            # K1: the rest
+    os.environ["QT_PREFILL_PAIR"] = "1"
+    try:
+        for k in KERNELS:
+            k.launches = 0
+        toks, times = _generate_runs(gen, params, long_ids, base, long_serve,
+                                     dev, (PAIR_PREFILL, PAIR_MATMUL), want,
+                                     "QT_PREFILL_PAIR generate")
+        results["launches_pair_prefill"] = {k.name: k.launches
+                                            for k in KERNELS}
+    finally:
+        del os.environ["QT_PREFILL_PAIR"]
+    t = statistics.median(times)
+    log(f"  QT_PREFILL_PAIR B=1, {LONG_PROMPT}-token prompt: "
+        f"{60 / t:.2f} tok/s, median of 5 (min {60 / max(times):.2f}, max "
+        f"{60 / min(times):.2f}); K8/K1 launches {want} each; the same "
+        "tokens every run")
+
+    # the prefill forward alone, with the knob (K8) and without (the dense
+    # pair path), in turns
+    ms = {"k8": [], "dense": []}
+    first = {}
+    with torch.inference_mode():
+        for route in ("k8", "dense", "dense", "k8", "k8", "dense", "dense",
+                      "k8"):
+            if route == "k8":
+                os.environ["QT_PREFILL_PAIR"] = "1"
+            try:
+                cache = KVCache.create(base, 1, LONG_PROMPT + 128, dev)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                logits, _ = prefill(params, long_ids, cache, base,
+                                    last_token_only=True)
+                end.record()
+                end.synchronize()
+            finally:
+                os.environ.pop("QT_PREFILL_PAIR", None)
+            ms[route].append(start.elapsed_time(end))
+            first.setdefault(route, logits.float().cpu())
+            del cache
+    rel = ((first["k8"] - first["dense"]).abs().max()
+           / first["dense"].abs().max()).item()
+    if not rel <= 0.25:
+        raise AssertionError(f"K8 prefill logits {rel:.3e} of max|logit| "
+                             "from the dense path's")
+    pf = {r: dict(median_ms=statistics.median(v), all_ms=v)
+          for r, v in ms.items()}
+    log(f"  prefill forward of {LONG_PROMPT} rows: K8 route "
+        f"{pf['k8']['median_ms']:.2f} ms, dense pair path "
+        f"{pf['dense']['median_ms']:.2f} ms (medians of 4, in turns); "
+        f"last-token logits {rel:.3e} of max|logit| apart (a layout check: "
+        "the dense path rounds fp32 scales)")
+    results["pair_prefill_generate"] = dict(
+        prompt=LONG_PROMPT, tok_per_s=60 / t, generate_s_all=times,
+        launches_per_generate=dict(pair_prefill=want[0],
+                                   pair_matmul=want[1]),
+        prefill_forward=pf, logits_k8_vs_dense=rel, tokens=toks.tolist())
+
+
+def phase_pair_variants_paged(dev, params, results):
+    """One ``PagedEngine`` run with the paged phase's configuration and
+    requests (bf16 pool) without ``QT_PREFILL_PAIR``, then one with it.
+    K8 must launch 128 x ceil(rows / 512) times for every admission
+    forward of more than ``pair_max_tokens()`` rows that are a multiple
+    of 8, and never without the knob."""
+    from quantizations_tpu_torch.config import QuantConfig
+    from quantizations_tpu_torch.models.llama import LLAMA3_8B
+    from quantizations_tpu_torch.nn.linear import pair_max_tokens
+
+    base = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
+        quantize_embedding=True))
+    prompts = _paged_prompts(base.vocab_size)
+    default = _serve_paged(params, base, prompts, "bf16")
+    os.environ["QT_PREFILL_PAIR"] = "1"
+    try:
+        knob = _serve_paged(params, base, prompts, "bf16")
+    finally:
+        del os.environ["QT_PREFILL_PAIR"]
+    proj = 4 * base.num_hidden_layers
+    band = pair_max_tokens()
+    want = sum(proj * math.ceil(r / 512) for r in knob["admission_rows"]
+               if r > band and r % 8 == 0)
+    got = knob["launches"]["pair_prefill"]
+    if got != want or default["launches"]["pair_prefill"] != 0:
+        raise AssertionError(f"K8 launched {got} times in the paged run with "
+                             f"QT_PREFILL_PAIR, expected {want} (admission "
+                             f"rows {knob['admission_rows']}); "
+                             f"{default['launches']['pair_prefill']} without")
+    agree = sum(a == b for x, y in zip(knob["tokens"], default["tokens"])
+                for a, b in zip(x, y))
+    log(f"  QT_PREFILL_PAIR paged run: K8 launched {got} times (admission "
+        f"forwards of {knob['admission_rows']} rows); admission "
+        f"{knob['admit_s']:.3f} s, decode {knob['decode_s']:.3f} s, against "
+        f"{default['admit_s']:.3f} s and {default['decode_s']:.3f} s "
+        f"without it; {agree} of {PAGED_NEW * len(prompts)} tokens agree")
+    results["pair_prefill_paged"] = dict(default=default, knob=knob,
+                                         k8_launches=got, tokens_agree=agree)
+
+
+def phase_pair_variants(dev, gen, results, params):
+    """The fourth slice: K8 and K9 against their plain versions and K1,
+    their times, the knobs end to end, and the paged engine with
+    ``QT_PREFILL_PAIR``."""
+    phase_pair_variants_check(dev, gen, results)
+    phase_pair_variants_time(dev, gen, results)
+    phase_pair_variants_model(dev, params, results)
+    phase_pair_variants_paged(dev, params, results)
+
+
+def _paged_prompts(vocab_size):
+    """The paged phase's 8 prompts: PAGED_LENS from seed 0 and one that
+    shares the 700-token prompt's first 512 tokens."""
+    g = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, vocab_size, (n,), generator=g).tolist()
+               for n in PAGED_LENS]
+    prompts.append(prompts[3][:512] + torch.randint(
+        1, vocab_size, (188,), generator=g).tolist())
+    return prompts
+
+
+def _serve_paged(params, base, prompts, kv):
+    """One ``PagedEngine`` run over ``prompts`` (the paged phase's
+    configuration) with a ``kv`` pool. Counts are zeroed just before the
+    run and read just after it. Returns the run's record: wall time split
+    into admission and decode, steps, admission group sizes, the rows of
+    every admission forward, launches, stats and tokens."""
+    from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
+                                             KERNELS, PAIR_MATMUL)
+    from quantizations_tpu_torch.serve.paged import PagedEngine
+
+    cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+    eng = PagedEngine(params, cfg, slots=4, max_seq=2048,
+                      prefill_buckets=(64, 256), admit_width=4,
+                      prefix_cache=True, num_pages=40)
+    if eng.page_size != 256:
+        raise AssertionError(f"page size {eng.page_size}, expected 256")
+    # instrumentation: admission wall time, group sizes, forward rows,
+    # prefix hits
+    spent = {"admit_s": 0.0, "groups": [], "hits": {}, "rows": []}
+    admit, group, one, lookup, rnd = (eng._admit, eng._admit_group,
+                                      eng._admit_one, eng._prefix_lookup,
+                                      eng._prefill_round)
+
+    def timed_admit():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        spent["admit_s"] += time.perf_counter() - t
+
+    def counted_group(grp):
+        spent["groups"].append(len(grp))
+        return group(grp)
+
+    def counted_one(slot, r):
+        spent["groups"].append(1)
+        return one(slot, r)
+
+    def seen_lookup(r):
+        cov, shared = lookup(r)
+        spent["hits"][r.uid] = max(spent["hits"].get(r.uid, 0), cov)
+        return cov, shared
+
+    def counted_round(ids, *a):
+        spent["rows"].append(int(ids.shape[0] * ids.shape[1]))
+        return rnd(ids, *a)
+
+    eng._admit, eng._admit_group = timed_admit, counted_group
+    eng._admit_one, eng._prefix_lookup = counted_one, seen_lookup
+    eng._prefill_round = counted_round
+    uids = [eng.submit(p, max_new_tokens=PAGED_NEW) for p in prompts]
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    st = eng.stats()
+    toks = [eng.finished[u].output_ids for u in uids]
+    for u, t in zip(uids, toks):
+        if len(t) != PAGED_NEW or min(t) < 0 or max(t) >= base.vocab_size:
+            raise AssertionError(f"request {u}: {len(t)} tokens, range "
+                                 f"{min(t)}..{max(t)}")
+    attn = FLASH_DECODE_I8 if kv == "int8" else FLASH_DECODE
+    other = FLASH_DECODE if kv == "int8" else FLASH_DECODE_I8
+    layers = base.num_hidden_layers
+    if launches[attn.name] != layers * st["steps"]:
+        raise AssertionError(f"{attn.name} launched "
+                             f"{launches[attn.name]} times in "
+                             f"{st['steps']} steps")
+    if launches[other.name] != 0:
+        raise AssertionError(f"{other.name} launched on a {kv} pool")
+    if launches[PAIR_MATMUL.name] < (4 * layers + 1) * st["steps"]:
+        raise AssertionError(f"K1 launched {launches[PAIR_MATMUL.name]} "
+                             f"times in {st['steps']} steps")
+    usable = eng.alloc.num_usable
+    if (st["pages_free"] != usable - st["prefix_cache_pages"]
+            or st["live_tokens"] != 0 or st["finished"] != len(prompts)):
+        raise AssertionError(f"pool not returned: {st}")
+    if spent["hits"].get(uids[-1], 0) != 512:
+        raise AssertionError(f"the eighth request hit "
+                             f"{spent['hits'].get(uids[-1])} prefix "
+                             "positions, expected 512")
+    new = PAGED_NEW * len(prompts)
+    run = dict(kv_cache_dtype=kv, wall_s=wall, new_tokens=new,
+               tok_per_s=new / wall, admit_s=spent["admit_s"],
+               decode_s=wall - spent["admit_s"], steps=st["steps"],
+               admissions=spent["groups"], admission_rows=spent["rows"],
+               launches=launches, stats=st, tokens=toks)
+    log(f"  {kv} pool: {new} new tokens in {wall:.3f} s = "
+        f"{new / wall:.2f} tok/s aggregate; {st['steps']} steps; "
+        f"admission {spent['admit_s']:.3f} s (groups {spent['groups']}),"
+        f" decode {wall - spent['admit_s']:.3f} s; launches {launches}; "
+        f"pages free {st['pages_free']} of {usable} "
+        f"({st['prefix_cache_pages']} pinned by the prefix cache)")
+    return run
+
+
 def phase_paged(dev, params, results):
     """The slice's path: ``PagedEngine`` serving 8 greedy requests of 32
     new tokens on full Llama3-8B FP4 (the model phase's parameters) with
@@ -1265,106 +1785,15 @@ def phase_paged(dev, params, results):
     are zeroed just before each run and read just after it."""
     from quantizations_tpu_torch.config import QuantConfig
     from quantizations_tpu_torch.models.llama import LLAMA3_8B
-    from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
-                                             KERNELS, PAIR_MATMUL)
-    from quantizations_tpu_torch.serve.paged import PagedEngine
 
     base = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
         quantize_embedding=True))
-    g = torch.Generator().manual_seed(0)
-    prompts = [torch.randint(1, base.vocab_size, (n,), generator=g).tolist()
-               for n in PAGED_LENS]
-    prompts.append(prompts[3][:512] + torch.randint(
-        1, base.vocab_size, (188,), generator=g).tolist())
-
-    def serve(kv):
-        cfg = dataclasses.replace(base, kv_cache_dtype=kv)
-        eng = PagedEngine(params, cfg, slots=4, max_seq=2048,
-                          prefill_buckets=(64, 256), admit_width=4,
-                          prefix_cache=True, num_pages=40)
-        if eng.page_size != 256:
-            raise AssertionError(f"page size {eng.page_size}, expected 256")
-        # instrumentation: admission wall time, group sizes, prefix hits
-        spent = {"admit_s": 0.0, "groups": [], "hits": {}}
-        admit, group, one, lookup = (eng._admit, eng._admit_group,
-                                     eng._admit_one, eng._prefix_lookup)
-
-        def timed_admit():
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            admit()
-            torch.cuda.synchronize()
-            spent["admit_s"] += time.perf_counter() - t
-
-        def counted_group(grp):
-            spent["groups"].append(len(grp))
-            return group(grp)
-
-        def counted_one(slot, r):
-            spent["groups"].append(1)
-            return one(slot, r)
-
-        def seen_lookup(r):
-            cov, shared = lookup(r)
-            spent["hits"][r.uid] = max(spent["hits"].get(r.uid, 0), cov)
-            return cov, shared
-
-        eng._admit, eng._admit_group = timed_admit, counted_group
-        eng._admit_one, eng._prefix_lookup = counted_one, seen_lookup
-        uids = [eng.submit(p, max_new_tokens=PAGED_NEW) for p in prompts]
-        for k in KERNELS:
-            k.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        while eng.has_work():
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in KERNELS}
-        st = eng.stats()
-        toks = [eng.finished[u].output_ids for u in uids]
-        for u, t in zip(uids, toks):
-            if len(t) != PAGED_NEW or min(t) < 0 or max(t) >= base.vocab_size:
-                raise AssertionError(f"request {u}: {len(t)} tokens, range "
-                                     f"{min(t)}..{max(t)}")
-        attn = FLASH_DECODE_I8 if kv == "int8" else FLASH_DECODE
-        other = FLASH_DECODE if kv == "int8" else FLASH_DECODE_I8
-        layers = base.num_hidden_layers
-        if launches[attn.name] != layers * st["steps"]:
-            raise AssertionError(f"{attn.name} launched "
-                                 f"{launches[attn.name]} times in "
-                                 f"{st['steps']} steps")
-        if launches[other.name] != 0:
-            raise AssertionError(f"{other.name} launched on a {kv} pool")
-        if launches[PAIR_MATMUL.name] < (4 * layers + 1) * st["steps"]:
-            raise AssertionError(f"K1 launched {launches[PAIR_MATMUL.name]} "
-                                 f"times in {st['steps']} steps")
-        usable = eng.alloc.num_usable
-        if (st["pages_free"] != usable - st["prefix_cache_pages"]
-                or st["live_tokens"] != 0 or st["finished"] != len(prompts)):
-            raise AssertionError(f"pool not returned: {st}")
-        if spent["hits"].get(uids[-1], 0) != 512:
-            raise AssertionError(f"the eighth request hit "
-                                 f"{spent['hits'].get(uids[-1])} prefix "
-                                 "positions, expected 512")
-        new = PAGED_NEW * len(prompts)
-        run = dict(kv_cache_dtype=kv, wall_s=wall, new_tokens=new,
-                   tok_per_s=new / wall, admit_s=spent["admit_s"],
-                   decode_s=wall - spent["admit_s"], steps=st["steps"],
-                   admissions=spent["groups"], launches=launches, stats=st,
-                   tokens=toks)
-        log(f"  {kv} pool: {new} new tokens in {wall:.3f} s = "
-            f"{new / wall:.2f} tok/s aggregate; {st['steps']} steps; "
-            f"admission {spent['admit_s']:.3f} s (groups {spent['groups']}),"
-            f" decode {wall - spent['admit_s']:.3f} s; launches {launches}; "
-            f"pages free {st['pages_free']} of {usable} "
-            f"({st['prefix_cache_pages']} pinned by the prefix cache)")
-        return run
-
-    runs = [serve("bf16"), serve("bf16")]
+    prompts = _paged_prompts(base.vocab_size)
+    runs = [_serve_paged(params, base, prompts, "bf16"),
+            _serve_paged(params, base, prompts, "bf16")]
     if runs[1]["tokens"] != runs[0]["tokens"]:
         raise AssertionError("a fresh engine gave other tokens")
-    runs.append(serve("int8"))
+    runs.append(_serve_paged(params, base, prompts, "int8"))
     agree = sum(a == b for x, y in zip(runs[2]["tokens"], runs[0]["tokens"])
                 for a, b in zip(x, y))
     log(f"  int8 pool agrees with the bf16 pool on {agree} of "
@@ -1491,6 +1920,32 @@ def kernel_entries(results, kernels_seq):
                 per_forward=pt,
                 by_shape=[r for r in results.get("planar_time", {}).get(
                     "rows", []) if r["kernel"] == k.name])
+        elif k.name in ("pair_prefill", "pair_manual"):
+            pv = results.get("pair_variants_time", {}).get("per_forward", {})
+            f = pv.get(k.name, {})
+            err = results.get("pair_variants_err", {}).get(k.name, {})
+            n = results.get("launches_" + k.name, {}).get(k.name, 0)
+            entry.update(
+                launches=n, max_abs_err=err.get("max_abs_err"),
+                max_err_over_max_y=err.get("max_err_over_max_y"),
+                ms=f.get("ms"), plain_ms=f.get("plain_ms"),
+                bound_ms=f.get("bound_ms"), bound_by=f.get("bound_by"),
+                library_ms=f.get("library_ms"), k1_ms=f.get("k1_ms"),
+                unit=(("one prefill forward at T=512: 32 layers x qkv, o, "
+                       "gate_up, down; dense_pair_ms: the dense pair path "
+                       "there; launches: the QT_PREFILL_PAIR generates (1024-"
+                       "token prompt, 6 runs)") if k.name == "pair_prefill"
+                      else ("one decode forward at T=1 over the projections "
+                            "K9 takes: 32 layers x qkv, o, down; launches: "
+                            "the manual generates (B = 1, 4, 8, 6 runs "
+                            "each)"))
+                + "; library_ms: dense bf16 torch.matmul over the same "
+                  "shapes",
+                per_forward=f,
+                by_shape=[r for r in results.get("pair_variants_time", {})
+                          .get("rows", []) if r["kernel"] == k.name])
+            if k.name == "pair_prefill":
+                entry["dense_pair_ms"] = f.get("dense_pair_ms")
         elif k.name == "dequantize_4bit":
             rows = results.get("planar_time", {}).get("k7", [])
             main = next((r for r in rows if r["M"] == 14336
@@ -1569,6 +2024,8 @@ def main() -> int:
                        params=phase_model(dev, results))),
                    ("planar", lambda: phase_planar(dev, gen, results,
                                                    held["params"])),
+                   ("pair_variants", lambda: phase_pair_variants(
+                       dev, gen, results, held["params"])),
                    ("paged", lambda: phase_paged(dev, held.pop("params"),
                                                  results)),
                    ("profile", lambda: phase_profile(dev, results))):

@@ -19,7 +19,9 @@ A ``Linear4bit`` crosses as its leaves (``weight.wp``, ``weight.scales``,
 quantization ``.offset``, ``.state2.absmax`` and ``.state2.code``, then
 ``bias``) plus the bnb metadata dict of ``QuantState.as_dict()``
 (``quant_type``, ``blocksize``, ``dtype``, ``shape``, and
-``nested_blocksize`` / ``nested_dtype`` when nested).
+``nested_blocksize`` / ``nested_dtype`` when nested). Its static fields
+``compute_dtype``, ``pair_pipeline`` and ``fp4_decode`` are no leaves:
+they are passed as keywords and read back from the layer.
 """
 
 from __future__ import annotations
@@ -148,13 +150,16 @@ _QS = "weight.quant_state"
 
 def linear4bit_from_numpy(tree: Tree, meta: Dict[str, Any],
                           compute_dtype: Any = torch.bfloat16,
+                          pair_pipeline: str = "grid",
+                          fp4_decode: str = "arith",
                           device: Union[str, torch.device] = "cuda"
                           ) -> Linear4bit:
     """The JAX package's ``Linear4bit`` (its leaves as a dotted-path numpy
     dict, and ``meta`` = ``quant_state.as_dict()["quant_state"]``) ->
     the port's :class:`~quantizations_tpu_torch.nn.linear.Linear4bit` on
     ``device``. The words and scales are taken as they are (planar or
-    pair)."""
+    pair); ``pair_pipeline`` and ``fp4_decode`` are the JAX layer's static
+    fields of those names."""
     dev = resolve_device(device)
     state2 = None
     if f"{_QS}.state2.absmax" in tree:
@@ -177,7 +182,8 @@ def linear4bit_from_numpy(tree: Tree, meta: Dict[str, Any],
                         scales=_tensor(tree["weight.scales"], dev),
                         quant_state=state)
     bias = _tensor(tree["bias"], dev) if "bias" in tree else None
-    return Linear4bit(weight, bias=bias, compute_dtype=compute_dtype)
+    return Linear4bit(weight, bias=bias, compute_dtype=compute_dtype,
+                      pair_pipeline=pair_pipeline, fp4_decode=fp4_decode)
 
 
 def linear4bit_to_numpy(lin: Linear4bit) -> Tuple[Tree, Dict[str, Any]]:

@@ -17,10 +17,16 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-__all__ = ["QuantConfig", "ServeConfig", "VALID_BLOCKSIZES"]
+__all__ = ["QuantConfig", "ServeConfig", "VALID_BLOCKSIZES",
+           "PAIR_PIPELINES", "FP4_DECODES", "NF4_DECODES"]
 
 # Blocksizes the blockwise quantizers accept.
 VALID_BLOCKSIZES = (64, 128, 256, 512, 1024, 2048, 4096)
+# The pair kernels' weight streams (K1, K9) and the JAX package's decode
+# strategies (all one table decode here).
+PAIR_PIPELINES = ("grid", "manual")
+FP4_DECODES = ("arith", "arith_sr", "mixg0", "mixg02")
+NF4_DECODES = ("mix", "mix_bt", "mix_g3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,11 +41,13 @@ class QuantConfig:
     - ``quantize_lm_head`` / ``quantize_embedding``: 4-bit those tables.
     - ``scales_dtype``: storage of the resolved scales: ``torch.float32``,
       ``torch.bfloat16`` or ``"bf16x2"``.
-    - ``pair_pipeline``: ``"grid"`` or ``"manual"`` weight streaming; only
-      ``"grid"`` is ported.
+    - ``pair_pipeline``: ``"grid"`` (K1) or ``"manual"`` (K9, the weight
+      words streamed through shared memory; K1's output bit for bit) for
+      the pair kernel band's projections that pass the JAX package's gate.
     - ``fp4_decode`` / ``nf4_decode``: accepted for compatibility; all map
       onto the port's table decode.
-    - ``dense_twin``: dense bf16 twin projections (not ported).
+    - ``dense_twin``: dense bf16 twin projections (each weight
+      dequantized, then ``torch.matmul``).
     """
 
     quant_type: str = "fp4"
@@ -63,18 +71,16 @@ class QuantConfig:
     def __post_init__(self):
         if self.quant_type not in ("fp4", "nf4"):
             raise ValueError(f"quant_type {self.quant_type!r} not supported")
-        if self.pair_pipeline not in ("grid", "manual"):
+        if self.pair_pipeline not in PAIR_PIPELINES:
             raise ValueError(
                 f"pair_pipeline {self.pair_pipeline!r} not in "
-                f"('grid', 'manual')")
-        if self.fp4_decode not in ("arith", "arith_sr", "mixg0", "mixg02"):
+                f"{PAIR_PIPELINES}")
+        if self.fp4_decode not in FP4_DECODES:
             raise ValueError(
-                f"fp4_decode {self.fp4_decode!r} not in "
-                f"('arith', 'arith_sr', 'mixg0', 'mixg02')")
-        if self.nf4_decode not in ("mix", "mix_bt", "mix_g3"):
+                f"fp4_decode {self.fp4_decode!r} not in {FP4_DECODES}")
+        if self.nf4_decode not in NF4_DECODES:
             raise ValueError(
-                f"nf4_decode {self.nf4_decode!r} not in "
-                f"('mix', 'mix_bt', 'mix_g3')")
+                f"nf4_decode {self.nf4_decode!r} not in {NF4_DECODES}")
         if self.scales_dtype != "bf16x2" and self.scales_dtype not in (
                 torch.float32, torch.bfloat16):
             raise ValueError(

@@ -33,8 +33,10 @@ from ..nn.linear import (
     GEMV_MAX_TOKENS,
     QMATMUL_MAX_TOKENS,
     apply_4bit,
+    dense_weight,
     gemv_activation,
     kernel_activation,
+    manual_ok,
     pair_max_tokens,
     qmm_ok,
 )
@@ -44,11 +46,15 @@ from ..ops.attention import (
 )
 from ..ops.gemv import _SHIFTS, gemv_4bit_stacked, pack_i32_rows
 from ..ops.qmatmul import (
+    PREFILL_PAIR_CHUNK_T,
     _unblockmajor,
+    matmul_4bit_pair_manual_stacked,
     matmul_4bit_pair_stacked,
     matmul_4bit_planar_stacked,
     pack_scale_pairs,
+    pair_prefill_matmul,
     planar_to_pair,
+    prefill_pair_ok,
 )
 from ..ops.quantize import quantize_4bit_kernel
 from ..quant.codebooks import get_4bit_code
@@ -81,6 +87,7 @@ __all__ = [
     "decode_step",
     "named_tensors",
     "map_tensors",
+    "prefill_pair_enabled",
     "LLAMA3_8B",
     "TINY_LLAMA",
 ]
@@ -519,20 +526,61 @@ def embed_lookup(embed: Union[torch.Tensor, QLinear], token_ids: torch.Tensor,
     return out.reshape(*g.shape[:-1], g.shape[-1] * 8).to(torch.bfloat16)
 
 
+def prefill_pair_enabled() -> bool:
+    """Whether ``QT_PREFILL_PAIR`` routes prefill-sized pair projections
+    through K8, read at each call (the JAX package reads it once, at
+    import). Unset or ``"0"``: no; another integer: yes; anything else
+    raises ValueError."""
+    raw = os.environ.get("QT_PREFILL_PAIR", "0")
+    try:
+        return int(raw) != 0
+    except ValueError:
+        raise ValueError(
+            f"QT_PREFILL_PAIR={raw!r} must be an integer") from None
+
+
 def _ql(x2: torch.Tensor, lin: QLinear, qcfg: QuantConfig,
         idx: Optional[int] = None) -> torch.Tensor:
-    """Apply a (possibly layer-stacked) QLinear. A stacked weight in a
-    kernel band goes through its kernel on layer ``idx`` in place: K1 for
-    pair words; K5, then K6, for planar words (the bands of
-    :func:`~quantizations_tpu_torch.nn.linear.apply_4bit`)."""
+    """Apply a (possibly layer-stacked) QLinear, in the JAX package's
+    order (``models/llama.py:725-799``):
+
+    - ``dense_twin``: the dense bf16 weight of layer ``idx``, then
+      ``torch.matmul`` (fp32 sums of bf16 values);
+    - stacked pair words in the kernel band: K9 (``pair_pipeline ==
+      "manual"`` and :func:`~quantizations_tpu_torch.nn.linear.manual_ok`)
+      or K1, on layer ``idx`` in place;
+    - stacked pair words above the band with ``QT_PREFILL_PAIR`` set, a
+      row count divisible by 8 and ``prefill_pair_ok``: K8 in chunks of
+      512 rows;
+    - stacked planar words: K5, then K6 (the planar bands);
+    - otherwise :func:`~quantizations_tpu_torch.nn.linear.apply_4bit` on
+      the layer's weights."""
+    cd, qt = qcfg.compute_dtype, qcfg.quant_type
+    if qcfg.dense_twin:
+        if lin.wp.dim() == 3:
+            lin = QLinear(wp=lin.wp[idx], scales=lin.scales[idx])
+        W = dense_weight(lin.wp, lin.scales, qt, lin.layout)
+        return x2.to(torch.bfloat16).float() @ W.float().T
     if lin.wp.dim() == 3:
         tokens = x2.shape[0]
-        cd, qt = qcfg.compute_dtype, qcfg.quant_type
         if lin.layout == "pair":
+            M, K4 = 2 * lin.wp.shape[-2], lin.wp.shape[-1]
             if tokens <= pair_max_tokens():
-                return matmul_4bit_pair_stacked(
-                    lin.wp, lin.scales, kernel_activation(x2, cd), idx,
-                    quant_type=qt)
+                fn = (matmul_4bit_pair_manual_stacked
+                      if qcfg.pair_pipeline == "manual"
+                      and manual_ok(M, 4 * K4, tokens, lin.scales)
+                      else matmul_4bit_pair_stacked)
+                return fn(lin.wp, lin.scales, kernel_activation(x2, cd), idx,
+                          quant_type=qt)
+            # bf16x2 words hold two rows: 2 bytes of scale per row
+            s_item = 2 if lin.scales_packed else lin.scales.element_size()
+            if (tokens % 8 == 0 and prefill_pair_enabled()
+                    and prefill_pair_ok(M, K4,
+                                        min(tokens, PREFILL_PAIR_CHUNK_T),
+                                        s_item)):
+                return pair_prefill_matmul(lin.wp, lin.scales,
+                                           kernel_activation(x2, cd), qt,
+                                           layer_idx=idx)
         elif tokens <= QMATMUL_MAX_TOKENS and qmm_ok(tokens):
             return matmul_4bit_planar_stacked(
                 lin.wp, lin.scales, kernel_activation(x2, cd), idx,
@@ -542,8 +590,9 @@ def _ql(x2: torch.Tensor, lin: QLinear, qcfg: QuantConfig,
                                      gemv_activation(x2, cd), idx,
                                      quant_type=qt)
         lin = QLinear(wp=lin.wp[idx], scales=lin.scales[idx])
-    return apply_4bit(x2, lin.wp, lin.scales, qcfg.quant_type,
-                      compute_dtype=qcfg.compute_dtype)
+    return apply_4bit(x2, lin.wp, lin.scales, qt, compute_dtype=cd,
+                      pair_pipeline=qcfg.pair_pipeline,
+                      fp4_decode=qcfg.pair_decode)
 
 
 def layer_window(cfg: LlamaConfig, i: int) -> Tuple[Optional[bool], Optional[int]]:
@@ -572,21 +621,7 @@ def quantize_kv_i8(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _check_ported(cfg: LlamaConfig, axis_name: Optional[str]) -> None:
-    """Raise for configuration values whose path needs an unported kernel."""
-    if cfg.quant.pair_pipeline == "manual":
-        raise NotImplementedError(
-            "pair_pipeline='manual' needs the manual-pipeline pair kernel "
-            "(quantizations_tpu/ops/qmatmul.py:1163 "
-            "matmul_4bit_pair_manual_stacked), which is not ported")
-    if cfg.quant.dense_twin:
-        raise NotImplementedError(
-            "dense_twin=True (quantizations_tpu/models/llama.py:725 dense "
-            "twin projections) is not ported")
-    if os.environ.get("QT_PREFILL_PAIR", "0") not in ("", "0"):
-        raise NotImplementedError(
-            "QT_PREFILL_PAIR needs the decode-once prefill pair kernel "
-            "(quantizations_tpu/ops/qmatmul.py:891 "
-            "matmul_4bit_pair_prefill_pallas_stacked), which is not ported")
+    """Raise for configuration values whose path is not ported."""
     if axis_name is not None:
         raise NotImplementedError(
             "axis_name (tensor-parallel shards under shard_map) is not "

@@ -3,7 +3,10 @@ the 4-bit matmul dispatch :func:`apply_4bit`, :class:`Params4bit` and the
 bnb-compatible :class:`Linear4bit`.
 
 Pair-layout weights take kernel K1 (``ops/qmatmul.py``) up to
-:func:`pair_max_tokens` token rows and the dense pair matmul above it.
+:func:`pair_max_tokens` token rows and the dense pair matmul above it;
+with ``pair_pipeline="manual"`` the band's projections that pass the JAX
+package's gate (unpacked scales, ``M % 128 == 0``, ``manual_vmem_ok``)
+take K9 instead, K1's function bit for bit.
 Planar weights follow the JAX package's bands: K5 (``ops/qmatmul.py``)
 up to :data:`QMATMUL_MAX_TOKENS` rows when the row count is one the TPU
 kernel tiles (``qmm_ok``), else K6 (``ops/gemv.py``) up to
@@ -21,12 +24,15 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from ..config import FP4_DECODES, PAIR_PIPELINES
 from ..device import resolve_device
 from ..ops.gemv import _SHIFTS, gemv_4bit, pack_i32_rows
 from ..ops.lut import lut_fp4_bits, lut_tree
 from ..ops.quantize import dequantize_4bit_kernel
 from ..ops.qmatmul import (
+    manual_vmem_ok,
     matmul_4bit_pair,
+    matmul_4bit_pair_manual,
     matmul_4bit_planar,
     pair_permute_activation,
     pair_to_planar,
@@ -39,9 +45,9 @@ from ..quant.state import QuantState
 
 __all__ = ["apply_4bit", "dense_matmul_pair", "dequantize_permuted",
            "permute_cols", "dense_weight", "kernel_activation",
-           "pair_max_tokens", "qmm_ok", "gemv_activation", "Params4bit",
-           "Linear4bit", "PAIR_QMATMUL_MAX_TOKENS", "QMATMUL_MAX_TOKENS",
-           "GEMV_MAX_TOKENS"]
+           "pair_max_tokens", "qmm_ok", "gemv_activation", "manual_ok",
+           "Params4bit", "Linear4bit", "PAIR_QMATMUL_MAX_TOKENS",
+           "QMATMUL_MAX_TOKENS", "GEMV_MAX_TOKENS"]
 
 # Planar bands: K6 (the fp32 GEMV) takes at most this many token rows...
 GEMV_MAX_TOKENS = 8
@@ -81,6 +87,14 @@ def qmm_ok(tokens: int) -> bool:
     is kept because it decides which rounding class a row count gets:
     the others in the GEMV band take K6."""
     return tokens in (1, 2, 4) or tokens % 8 == 0
+
+
+def manual_ok(M: int, K: int, tokens: int, scales: torch.Tensor) -> bool:
+    """The JAX package's gate for its manual-pipeline pair kernel:
+    unpacked scales, ``M % 128 == 0`` and :func:`manual_vmem_ok` at the
+    scales' itemsize."""
+    return (scales.dtype != torch.int32 and M % 128 == 0
+            and manual_vmem_ok(M, K, tokens, scales.element_size()))
 
 
 def gemv_activation(x2: torch.Tensor, compute_dtype: Any) -> torch.Tensor:
@@ -157,13 +171,17 @@ def dense_matmul_pair(x2: torch.Tensor, wp2: torch.Tensor,
 
 
 def apply_4bit(x2: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
-               quant_type: str, compute_dtype: Any = torch.bfloat16
+               quant_type: str, compute_dtype: Any = torch.bfloat16,
+               pair_pipeline: str = "grid", fp4_decode: str = "arith"
                ) -> torch.Tensor:
     """``x2 [T, K] @ dequant(wp, scales).T -> [T, M]`` fp32.
 
-    Pair weights: K1 for ``T <= pair_max_tokens()`` token rows (any T;
-    the TPU kernels' tiling rule ``pair_tokens_ok`` does not bind K1),
-    else :func:`dense_matmul_pair`. Planar weights: K5 for
+    Pair weights: for ``T <= pair_max_tokens()`` token rows (any T; the
+    TPU kernels' tiling rule ``pair_tokens_ok`` does not bind the port's
+    kernels) K9 when ``pair_pipeline == "manual"`` and :func:`manual_ok`,
+    else K1; above the band :func:`dense_matmul_pair`. ``fp4_decode``
+    names one of the JAX package's decodes; all are the port's table
+    decode. Planar weights: K5 for
     ``T <= QMATMUL_MAX_TOKENS`` with :func:`qmm_ok`, else K6 for
     ``T <= GEMV_MAX_TOKENS``, else the dense path: K7 dequantizes to
     ``compute_dtype`` (fp32 decode x fp32 scale, the values of the JAX
@@ -173,9 +191,11 @@ def apply_4bit(x2: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
     pair = spacked or wp.shape[-2] != scales.shape[-2]
     if pair:
         if tokens <= pair_max_tokens():
-            return matmul_4bit_pair(wp, scales,
-                                    kernel_activation(x2, compute_dtype),
-                                    quant_type)
+            M, K = 2 * wp.shape[-2], 4 * wp.shape[-1]
+            fn = (matmul_4bit_pair_manual if pair_pipeline == "manual"
+                  and manual_ok(M, K, tokens, scales) else matmul_4bit_pair)
+            return fn(wp, scales, kernel_activation(x2, compute_dtype),
+                      quant_type)
         return dense_matmul_pair(x2, wp, scales, quant_type,
                                  compute_dtype=compute_dtype)
     if tokens <= QMATMUL_MAX_TOKENS and qmm_ok(tokens):
@@ -251,14 +271,24 @@ class Linear4bit(torch.nn.Module):
     """bnb-compatible 4-bit linear layer. Build with :meth:`create` (it
     quantizes a full-precision weight) or from loaded parts
     (:func:`~quantizations_tpu_torch.quant.bnb_io.load_bnb_linear4bit`).
-    Callable on ``[..., in_features]``."""
+    Callable on ``[..., in_features]``. ``pair_pipeline`` (``"grid"`` or
+    ``"manual"``) and ``fp4_decode`` are passed to :func:`apply_4bit`."""
 
     def __init__(self, weight: Params4bit, bias: Optional[torch.Tensor] = None,
-                 compute_dtype: Any = torch.bfloat16):
+                 compute_dtype: Any = torch.bfloat16,
+                 pair_pipeline: str = "grid", fp4_decode: str = "arith"):
         super().__init__()
+        if pair_pipeline not in PAIR_PIPELINES:
+            raise ValueError(f"pair_pipeline {pair_pipeline!r} not in "
+                             f"{PAIR_PIPELINES}")
+        if fp4_decode not in FP4_DECODES:
+            raise ValueError(f"fp4_decode {fp4_decode!r} not in "
+                             f"{FP4_DECODES}")
         self.weight = weight
         self.bias = bias
         self.compute_dtype = compute_dtype
+        self.pair_pipeline = pair_pipeline
+        self.fp4_decode = fp4_decode
 
     @property
     def in_features(self) -> int:
@@ -278,7 +308,9 @@ class Linear4bit(torch.nn.Module):
                compute_dtype: Any = torch.bfloat16,
                compress_statistics: bool = True, quant_type: str = "fp4",
                blocksize: int = 64, layout: str = "planar",
-               device: Union[str, torch.device] = "cuda") -> "Linear4bit":
+               device: Union[str, torch.device] = "cuda",
+               pair_pipeline: str = "grid", fp4_decode: str = "arith"
+               ) -> "Linear4bit":
         """Quantize ``W [out, in]`` on ``device`` into a layer."""
         dev = resolve_device(device)
         params = Params4bit.quantize(
@@ -287,7 +319,8 @@ class Linear4bit(torch.nn.Module):
             layout=layout)
         if bias is not None:
             bias = torch.as_tensor(bias, device=dev)
-        return cls(params, bias=bias, compute_dtype=compute_dtype)
+        return cls(params, bias=bias, compute_dtype=compute_dtype,
+                   pair_pipeline=pair_pipeline, fp4_decode=fp4_decode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x [..., in] -> [..., out]``: cast to ``compute_dtype``, the
@@ -297,7 +330,9 @@ class Linear4bit(torch.nn.Module):
         x2 = x.reshape(-1, x.shape[-1])
         out = apply_4bit(x2, self.weight.wp, self.weight.scales,
                          self.quant_state.quant_type,
-                         compute_dtype=self.compute_dtype)
+                         compute_dtype=self.compute_dtype,
+                         pair_pipeline=self.pair_pipeline,
+                         fp4_decode=self.fp4_decode)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out.reshape(*lead, self.out_features).to(x.dtype)

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` source holds one or more kernels with a plain C
 interface (``flash_decode.cu`` holds K3 and K4, ``planar_matmul.cu`` K5
-and K6, each with its own :class:`Kernel` record and launch counter). A source is compiled by its
+and K6, ``pair_matmul.cu`` K1 and K9, each with its own :class:`Kernel`
+record and launch counter). A source is compiled by its
 own ``nvcc`` call for ``sm_90a`` into a shared library
 under ``quantizations_tpu_torch/build/`` (named by a hash of the source,
 so an edited source rebuilds) and loaded with ``ctypes``. :func:`build`
@@ -28,8 +29,8 @@ import torch
 
 __all__ = ["Kernel", "PAIR_MATMUL", "QUANTIZE_4BIT", "FLASH_DECODE",
            "FLASH_DECODE_I8", "PLANAR_MATMUL", "GEMV_4BIT",
-           "DEQUANTIZE_4BIT", "KERNELS", "build", "launch", "nvcc_path",
-           "NVCC_FLAGS"]
+           "DEQUANTIZE_4BIT", "PAIR_PREFILL", "PAIR_MANUAL", "KERNELS",
+           "build", "launch", "nvcc_path", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -70,12 +71,13 @@ class Kernel:
         return BUILD / f"lib{self.path.stem}_{digest}.so"
 
 
+# (wp2, scales, scale_kind, table, x, y, T, M2, K4, has_factor, factor)
+_PAIR_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P]
 PAIR_MATMUL = Kernel(
     "pair_matmul", "quantizations_tpu_torch/csrc/pair_matmul.cu",
     "quantizations_tpu/ops/qmatmul.py:481 _pair_kernel "
     "(matmul_4bit_pair_pallas_stacked :662, matmul_4bit_pair_pallas :588)",
-    {"qt_pair_matmul": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                        ctypes.c_float, _P]})
+    {"qt_pair_matmul": _PAIR_ARGS})
 QUANTIZE_4BIT = Kernel(
     "quantize_4bit", "quantizations_tpu_torch/csrc/quantize.cu",
     "quantizations_tpu/ops/quantize.py:93 _quantize_kernel "
@@ -116,8 +118,20 @@ DEQUANTIZE_4BIT = Kernel(
     "(dequantize_4bit_pallas :192)",
     # (wp, scales, scale_kind, table, out, out_kind, M, K8)
     {"qt_dequantize_4bit": [_P, _P, _I, _P, _P, _I, _I, _I, _P]})
+PAIR_PREFILL = Kernel(
+    "pair_prefill", "quantizations_tpu_torch/csrc/pair_prefill.cu",
+    "quantizations_tpu/ops/qmatmul.py:755 _pair_prefill_kernel "
+    "(matmul_4bit_pair_prefill_pallas :837, "
+    "matmul_4bit_pair_prefill_pallas_stacked :891)",
+    {"qt_pair_prefill": _PAIR_ARGS})
+PAIR_MANUAL = Kernel(
+    "pair_manual", "quantizations_tpu_torch/csrc/pair_matmul.cu",
+    "quantizations_tpu/ops/qmatmul.py:1048 _manual_kernel_body "
+    "(matmul_4bit_pair_manual :1103, matmul_4bit_pair_manual_stacked :1163)",
+    {"qt_pair_manual": _PAIR_ARGS})
 KERNELS = (PAIR_MATMUL, QUANTIZE_4BIT, FLASH_DECODE, FLASH_DECODE_I8,
-           PLANAR_MATMUL, GEMV_4BIT, DEQUANTIZE_4BIT)
+           PLANAR_MATMUL, GEMV_4BIT, DEQUANTIZE_4BIT, PAIR_PREFILL,
+           PAIR_MANUAL)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -24,20 +24,49 @@ K1 (``csrc/pair_matmul.cu``) serves both the stacked form (a layer of
 and the unstacked one (the lm_head). The wrappers launch it for CUDA
 tensors and run the plain version, which repeats its arithmetic, for
 CPU tensors.
+
+Two more kernels compute K1's function over the same words, in K1's
+rounding class:
+
+- K9 (``csrc/pair_matmul.cu``, entry ``qt_pair_manual``), the
+  manual-pipeline pair kernel: K1's work partition and summation order
+  with the weight words streamed through a two-stage ``cp.async`` ring
+  in shared memory, so its output is K1's bit for bit.
+- K8 (``csrc/pair_prefill.cu``, entry ``qt_pair_prefill``), the
+  decode-once prefill pair kernel: each weight tile decoded to bf16 in
+  shared memory once per token tile and multiplied on the tensor cores
+  (``mma.sync`` bf16 -> fp32), within 1e-5 * max|y| of its plain version.
+
+Which projections take them is the JAX package's rule, copied here as
+pure integer functions: :func:`manual_vmem_ok` and
+:func:`prefill_pair_ok` are TPU VMEM budgets, kept so that the same
+projections take the same kernel as on the reference.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..quant.codebooks import FP4_CODE, get_4bit_code
-from .cuda import PAIR_MATMUL, PLANAR_MATMUL, launch
+from .cuda import PAIR_MANUAL, PAIR_MATMUL, PAIR_PREFILL, PLANAR_MATMUL, launch
 from .gemv import _SHIFTS, check_planar_args, device_planar_table, planar_table
 
 __all__ = [
+    "PREFILL_PAIR_CHUNK_T",
+    "prefill_pair_ok",
+    "manual_vmem_ok",
+    "matmul_4bit_pair_prefill",
+    "matmul_4bit_pair_prefill_stacked",
+    "matmul_4bit_pair_prefill_plain",
+    "matmul_4bit_pair_prefill_stacked_plain",
+    "pair_prefill_matmul",
+    "matmul_4bit_pair_manual",
+    "matmul_4bit_pair_manual_stacked",
+    "matmul_4bit_pair_manual_plain",
+    "matmul_4bit_pair_manual_stacked_plain",
     "pair_tokens_ok",
     "nibble_swap",
     "planar_to_pair",
@@ -169,14 +198,12 @@ def _bf16_scales(scales: torch.Tensor, out_factor: float) -> torch.Tensor:
     return s
 
 
-def matmul_4bit_pair_plain(wp2: torch.Tensor, scales: torch.Tensor,
-                           x: torch.Tensor, quant_type: str = "fp4"
-                           ) -> torch.Tensor:
-    """Plain PyTorch version of K1: ``x [T, K] -> y [T, M]`` fp32, with
-    the kernel's arithmetic (table decode, bf16 scale and weight
-    rounding, fp32 products and sums)."""
+def _pair_weight(wp2: torch.Tensor, scales: torch.Tensor,
+                 quant_type: str) -> torch.Tensor:
+    """The kernels' bf16 weights ``[M, K]`` in pair column order (that of
+    :func:`pair_permute_activation`): table decode times the bf16 scale,
+    rounded to bf16."""
     M2, K4 = wp2.shape
-    NB = K4 // 16
     table, out_factor = pair_table(quant_type)
     table = table.to(wp2.device).float()
     s = _bf16_scales(scales, out_factor).float()          # [M, NB]
@@ -186,10 +213,19 @@ def matmul_4bit_pair_plain(wp2: torch.Tensor, scales: torch.Tensor,
         planes = [table[((wp2 >> (16 * h + 4 * p)) & 15).long()]
                   for p in range(4)]                      # 4 x [M2, K4]
         W = torch.stack(planes, dim=1) * srep[:, h, None, :]
-        halves.append(W.to(torch.bfloat16).float())       # [M2, 4, K4]
-    W = torch.stack(halves, dim=1).reshape(2 * M2, 4 * K4)
+        halves.append(W.to(torch.bfloat16))               # [M2, 4, K4]
+    return torch.stack(halves, dim=1).reshape(2 * M2, 4 * K4)
+
+
+def matmul_4bit_pair_plain(wp2: torch.Tensor, scales: torch.Tensor,
+                           x: torch.Tensor, quant_type: str = "fp4"
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of K1: ``x [T, K] -> y [T, M]`` fp32, with
+    the kernel's arithmetic (table decode, bf16 scale and weight
+    rounding, fp32 products and sums)."""
+    W = _pair_weight(wp2, scales, quant_type).float()
     xp = pair_permute_activation(x.to(torch.bfloat16)).reshape(
-        x.shape[0], 4 * K4).float()
+        x.shape[0], W.shape[1]).float()
     return xp @ W.T
 
 
@@ -206,48 +242,50 @@ def matmul_4bit_pair_stacked_plain(wp2: torch.Tensor, scales: torch.Tensor,
 _MAX_ROW_PAIRS = 8 * 65535
 
 
-def _check_pair_args(wp2, scales, x):
+def _check_pair_args(wp2, scales, x, name="pair_matmul"):
     if not (x.is_cuda and wp2.device == x.device == scales.device):
-        raise ValueError("pair_matmul: all tensors must be on the same CUDA "
+        raise ValueError(f"{name}: all tensors must be on the same CUDA "
                          "device")
     if wp2.dtype != torch.int32 or wp2.dim() != 2:
-        raise ValueError(f"pair_matmul: wp2 must be int32 [M/2, K/4], got "
+        raise ValueError(f"{name}: wp2 must be int32 [M/2, K/4], got "
                          f"{wp2.dtype} {tuple(wp2.shape)}")
     M2, K4 = wp2.shape
     if K4 % 16:
-        raise ValueError(f"pair_matmul: K = {4 * K4} is not a multiple of 64")
+        raise ValueError(f"{name}: K = {4 * K4} is not a multiple of 64")
     if M2 > _MAX_ROW_PAIRS:
-        raise ValueError(f"pair_matmul: M = {2 * M2} exceeds the kernel "
+        raise ValueError(f"{name}: M = {2 * M2} exceeds the kernel "
                          f"grid ({2 * _MAX_ROW_PAIRS} rows)")
     if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != 4 * K4:
-        raise ValueError(f"pair_matmul: x must be bf16 [T, {4 * K4}], got "
+        raise ValueError(f"{name}: x must be bf16 [T, {4 * K4}], got "
                          f"{x.dtype} {tuple(x.shape)}")
     kinds = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
     if scales.dtype not in kinds:
-        raise ValueError(f"pair_matmul: scales dtype {scales.dtype}")
+        raise ValueError(f"{name}: scales dtype {scales.dtype}")
     kind = kinds[scales.dtype]
     want = (M2, K4 // 16) if kind == 2 else (2 * M2, K4 // 16)
     if tuple(scales.shape) != want:
-        raise ValueError(f"pair_matmul: scales shape {tuple(scales.shape)}, "
+        raise ValueError(f"{name}: scales shape {tuple(scales.shape)}, "
                          f"expected {want}")
-    for name, t in (("wp2", wp2), ("scales", scales), ("x", x)):
+    for tname, t in (("wp2", wp2), ("scales", scales), ("x", x)):
         if not t.is_contiguous():
-            raise ValueError(f"pair_matmul: {name} must be contiguous")
+            raise ValueError(f"{name}: {tname} must be contiguous")
     if x.data_ptr() % 16:
-        raise ValueError("pair_matmul: x must be 16-byte aligned")
+        raise ValueError(f"{name}: x must be 16-byte aligned")
     return kind
 
 
-def _launch_pair(wp2, scales, x, quant_type):
-    kind = _check_pair_args(wp2, scales, x)
+def _launch_pair(wp2, scales, x, quant_type, kernel=PAIR_MATMUL,
+                 entry="qt_pair_matmul"):
+    """Launch K1, or K8/K9 (the same C signature) through ``entry``."""
+    kind = _check_pair_args(wp2, scales, x, kernel.name)
     M2, K4 = wp2.shape
     T = x.shape[0]
     y = torch.empty((T, 2 * M2), dtype=torch.float32, device=x.device)
-    if T == 0:
+    if T == 0 or M2 == 0:
         return y
     _, out_factor = pair_table(quant_type)
     table = _device_table(quant_type, x.device)
-    launch(PAIR_MATMUL, "qt_pair_matmul", x.device, wp2.data_ptr(),
+    launch(kernel, entry, x.device, wp2.data_ptr(),
            scales.data_ptr(),
            kind, table.data_ptr(), x.data_ptr(), y.data_ptr(), T, M2, K4,
            int(out_factor != 1.0), out_factor)
@@ -277,6 +315,207 @@ def matmul_4bit_pair_stacked(wp2: torch.Tensor, scales: torch.Tensor,
     if wp2.dim() != 3 or scales.dim() != 3:
         raise ValueError("pair_matmul stacked: wp2/scales must be [L, ...]")
     return _launch_pair(wp2[layer_idx], scales[layer_idx], x, quant_type)
+
+
+# --------------------------------------------------------------------------
+# Routing rules of the JAX package (TPU VMEM budgets), copied as they are
+# --------------------------------------------------------------------------
+
+# The JAX package's scoped-VMEM budget for the pair kernels (16 MB limit).
+_PAIR_VMEM_BUDGET = 11_500_000
+# x-residency cap per prefill-kernel call; larger T chunks through it.
+PREFILL_PAIR_CHUNK_T = 512
+
+
+def _prefill_vmem_est(T, tile_t, tile_m, kc4, nb_total, x_itemsize,
+                      s_itemsize) -> int:
+    nb_lanes = -(-nb_total // 128) * 128
+    tm2 = tile_m // 2
+    blocks = 2 * (tm2 * kc4 * 4                      # wp2
+                  + T * 4 * kc4 * x_itemsize         # full-T activation
+                  + tile_m * nb_lanes * s_itemsize   # scales
+                  + T * tile_m * 4)                  # out
+    live = (4 * tm2 * kc4 * 4                        # decoded planes
+            + 4 * tile_m * kc4 * 2                   # 4 live Wj planes
+            + tile_m * kc4 * 2                       # srep
+            + tile_t * tile_m * 4)                   # partial
+    return blocks + live
+
+
+def _pick_tiles_pair_prefill(M, K4, T, x_itemsize, s_itemsize=4):
+    """(tile_m, kc4, tile_t) of the TPU prefill pair kernel, or None when
+    no tiling fits its VMEM budget."""
+    nb = K4 // 16
+    tile_t = min(T, 256)
+    while T % tile_t:
+        tile_t //= 2
+    for kc4 in [d for d in range(min(K4, 896), 0, -nb)
+                if K4 % d == 0 and d % nb == 0] or [K4]:
+        for tile_m in (512, 256, 128):
+            if M % tile_m:
+                continue
+            if _prefill_vmem_est(T, tile_t, tile_m, kc4, K4 // 16,
+                                 x_itemsize, s_itemsize) < _PAIR_VMEM_BUDGET:
+                return tile_m, kc4, tile_t
+    return None
+
+
+def prefill_pair_ok(M: int, K4: int, T: int, s_itemsize: int = 4) -> bool:
+    """Whether the JAX package's prefill pair kernel tiles these shapes
+    (even M, ``T % 8 == 0``, a tiling within its VMEM budget). K8 takes
+    any shape; the rule decides which projections take it."""
+    return (M % 2 == 0 and T % 8 == 0
+            and _pick_tiles_pair_prefill(M, K4, T, 2, s_itemsize)
+            is not None)
+
+
+def _pick_tile_manual(M: int, K4: int) -> int:
+    """M-chunk rows of the TPU manual pipeline: the largest of 512/256/128
+    that divides M and keeps two weight slots within ~2 MB; 0 if none."""
+    for tm in (512, 256, 128):
+        if M % tm == 0 and tm * K4 * 4 <= 2 * 2**20:
+            return tm
+    return 0
+
+
+def manual_vmem_ok(M: int, K: int, tokens: int,
+                   scales_itemsize: int = 4) -> bool:
+    """Whether the TPU manual-pipeline kernel's whole-operand VMEM
+    residency (scales, activation, output, two weight slots) fits 10 MiB.
+    K9 takes any shape; the rule decides which projections take it."""
+    tm = _pick_tile_manual(M, K // 4)
+    if not tm:
+        return False
+    lanes = -(-(K // 64) // 128) * 128          # VMEM lane padding
+    fixed = (M * lanes * scales_itemsize        # scales (lane-padded)
+             + tokens * M * 4                   # output
+             + tokens * K * 4                   # permuted activation
+             + tm * K)                          # two weight slots
+    return fixed <= 10 * 2**20
+
+
+# --------------------------------------------------------------------------
+# K8: the decode-once prefill pair kernel
+# --------------------------------------------------------------------------
+
+def matmul_4bit_pair_prefill_plain(wp2: torch.Tensor, scales: torch.Tensor,
+                                   x: torch.Tensor, quant_type: str = "fp4"
+                                   ) -> torch.Tensor:
+    """Plain PyTorch version of K8: ``bf16(x) @ W.T`` in fp32, with K1's
+    bf16 weights ``W`` put back in original column order, as the kernel
+    decodes them (K1's arithmetic; only the summation order differs)."""
+    Wp = _pair_weight(wp2, scales, quant_type)            # pair column order
+    K = Wp.shape[1]
+    cols = pair_permute_activation(
+        torch.arange(K, device=wp2.device)[None]).reshape(K)
+    W = torch.empty_like(Wp)
+    W[:, cols] = Wp
+    return x.to(torch.bfloat16).float() @ W.float().T
+
+
+def matmul_4bit_pair_prefill_stacked_plain(wp2: torch.Tensor,
+                                           scales: torch.Tensor,
+                                           x: torch.Tensor, layer_idx: int,
+                                           quant_type: str = "fp4"
+                                           ) -> torch.Tensor:
+    """Plain version of K8's stacked form: layer ``layer_idx`` of
+    ``[L, M/2, K/4]``."""
+    return matmul_4bit_pair_prefill_plain(wp2[layer_idx], scales[layer_idx],
+                                          x, quant_type)
+
+
+def matmul_4bit_pair_prefill(wp2: torch.Tensor, scales: torch.Tensor,
+                             x: torch.Tensor, quant_type: str = "fp4"
+                             ) -> torch.Tensor:
+    """:func:`matmul_4bit_pair`'s function through the decode-once
+    prefill kernel: CUDA tensors launch K8 (``x`` bf16, any T and even
+    M); CPU tensors run the plain version."""
+    if x.device.type == "cpu":
+        return matmul_4bit_pair_prefill_plain(wp2, scales, x, quant_type)
+    return _launch_pair(wp2, scales, x, quant_type, PAIR_PREFILL,
+                        "qt_pair_prefill")
+
+
+def matmul_4bit_pair_prefill_stacked(wp2: torch.Tensor, scales: torch.Tensor,
+                                     x: torch.Tensor, layer_idx: int,
+                                     quant_type: str = "fp4"
+                                     ) -> torch.Tensor:
+    """:func:`matmul_4bit_pair_prefill` on layer ``layer_idx`` of stacked
+    ``[L, M/2, K/4]`` weights, read in place."""
+    if x.device.type == "cpu":
+        return matmul_4bit_pair_prefill_stacked_plain(wp2, scales, x,
+                                                      layer_idx, quant_type)
+    if wp2.dim() != 3 or scales.dim() != 3:
+        raise ValueError("pair_prefill stacked: wp2/scales must be [L, ...]")
+    return _launch_pair(wp2[layer_idx], scales[layer_idx], x, quant_type,
+                        PAIR_PREFILL, "qt_pair_prefill")
+
+
+def pair_prefill_matmul(wp2: torch.Tensor, scales: torch.Tensor,
+                        x: torch.Tensor, quant_type: str,
+                        layer_idx: Optional[int] = None) -> torch.Tensor:
+    """The prefill product through K8 in chunks of at most
+    :data:`PREFILL_PAIR_CHUNK_T` token rows (the reference's residency
+    cap), one launch each; ``layer_idx`` selects the stacked form."""
+    step = PREFILL_PAIR_CHUNK_T
+    outs = []
+    for t0 in range(0, x.shape[0], step):
+        xc = x[t0:t0 + step]
+        if layer_idx is None:
+            outs.append(matmul_4bit_pair_prefill(wp2, scales, xc,
+                                                 quant_type))
+        else:
+            outs.append(matmul_4bit_pair_prefill_stacked(
+                wp2, scales, xc, layer_idx, quant_type))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
+# --------------------------------------------------------------------------
+# K9: the manual-pipeline pair kernel
+# --------------------------------------------------------------------------
+
+def matmul_4bit_pair_manual_plain(wp2: torch.Tensor, scales: torch.Tensor,
+                                  x: torch.Tensor, quant_type: str = "fp4"
+                                  ) -> torch.Tensor:
+    """Plain version of K9: K9 computes K1's function bit for bit, so
+    this is :func:`matmul_4bit_pair_plain`."""
+    return matmul_4bit_pair_plain(wp2, scales, x, quant_type)
+
+
+def matmul_4bit_pair_manual_stacked_plain(wp2: torch.Tensor,
+                                          scales: torch.Tensor,
+                                          x: torch.Tensor, layer_idx: int,
+                                          quant_type: str = "fp4"
+                                          ) -> torch.Tensor:
+    """Plain version of K9's stacked form."""
+    return matmul_4bit_pair_plain(wp2[layer_idx], scales[layer_idx], x,
+                                  quant_type)
+
+
+def matmul_4bit_pair_manual(wp2: torch.Tensor, scales: torch.Tensor,
+                            x: torch.Tensor, quant_type: str = "fp4"
+                            ) -> torch.Tensor:
+    """:func:`matmul_4bit_pair` with the weight words streamed through
+    shared memory: CUDA tensors launch K9 (``x`` bf16), whose output is
+    K1's bit for bit; CPU tensors run the plain version."""
+    if x.device.type == "cpu":
+        return matmul_4bit_pair_manual_plain(wp2, scales, x, quant_type)
+    return _launch_pair(wp2, scales, x, quant_type, PAIR_MANUAL,
+                        "qt_pair_manual")
+
+
+def matmul_4bit_pair_manual_stacked(wp2: torch.Tensor, scales: torch.Tensor,
+                                    x: torch.Tensor, layer_idx: int,
+                                    quant_type: str = "fp4") -> torch.Tensor:
+    """:func:`matmul_4bit_pair_manual` on layer ``layer_idx`` of stacked
+    ``[L, M/2, K/4]`` weights, read in place."""
+    if x.device.type == "cpu":
+        return matmul_4bit_pair_manual_stacked_plain(wp2, scales, x,
+                                                     layer_idx, quant_type)
+    if wp2.dim() != 3 or scales.dim() != 3:
+        raise ValueError("pair_manual stacked: wp2/scales must be [L, ...]")
+    return _launch_pair(wp2[layer_idx], scales[layer_idx], x, quant_type,
+                        PAIR_MANUAL, "qt_pair_manual")
 
 
 # --------------------------------------------------------------------------

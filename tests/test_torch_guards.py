@@ -5,9 +5,9 @@
 - Entry points run on CUDA unless they are given ``device="cpu"``: with
   no card they raise rather than fall back to the CPU.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card.
-- Tests marked ``cuda`` hold each kernel (K1 to K7) against its plain
-  version on the card; they skip where ``torch.cuda.is_available()`` is
-  False.
+- Tests marked ``cuda`` hold each kernel (K1 to K9) against its plain
+  version on the card (K9 against K1, bit for bit), and the wrappers'
+  refusals; they skip where ``torch.cuda.is_available()`` is False.
 """
 
 import ast
@@ -26,7 +26,8 @@ from quantizations_tpu_torch.bridge import (cache_from_numpy,
                                             params_from_numpy)
 from quantizations_tpu_torch.models import llama as tl
 from quantizations_tpu_torch.nn.linear import Linear4bit
-from quantizations_tpu_torch.ops import FLASH_DECODE, FLASH_DECODE_I8
+from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
+                                         PAIR_MANUAL, PAIR_PREFILL)
 from quantizations_tpu_torch.ops import attention as tat
 from quantizations_tpu_torch.ops import gemv as tgv
 from quantizations_tpu_torch.ops import paged_attention as tpa
@@ -402,3 +403,134 @@ def test_flash_and_int8_generate_on_card(cuda):
         assert kern.launches - before == 5 * cfg.num_hidden_layers
         assert toks.shape == (2, 6)
         assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+
+
+def _pair_operands(rng, M, K, L=3, scale_kind="fp32"):
+    wp2 = torch.from_numpy(rng.integers(-2**31, 2**31, (L, M // 2, K // 4),
+                                        dtype=np.int64).astype(np.int32))
+    scales = torch.from_numpy(
+        (rng.random((L, M, K // 64)) * 0.05 + 0.01).astype(np.float32))
+    if scale_kind == "bf16":
+        scales = scales.to(torch.bfloat16)
+    elif scale_kind == "bf16x2":
+        scales = tqm.pack_scale_pairs(scales)
+    return wp2, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+@pytest.mark.parametrize("scale_kind", ["fp32", "bf16", "bf16x2"])
+@pytest.mark.parametrize("T,M,K", [(8, 256, 512), (40, 130, 576),
+                                   (100, 384, 1024), (1, 256, 512)])
+def test_k8_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T, M,
+                                  K):
+    """K8 (tensor cores) against its plain version and K1, stacked at
+    layer 1 and unstacked; masked token and row tails (T 40 and 100 are
+    not tile multiples, M 130 is not a multiple of 128)."""
+    wp2, scales = _pair_operands(rng, M, K, scale_kind=scale_kind)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(
+        np.float32)).to(torch.bfloat16)
+    ref = tqm.matmul_4bit_pair_prefill_stacked(wp2, scales, x, 1, quant_type)
+    on = [t.to(cuda) for t in (wp2, scales, x)]
+    before = PAIR_PREFILL.launches
+    got = tqm.matmul_4bit_pair_prefill_stacked(*on, 1, quant_type)
+    assert PAIR_PREFILL.launches == before + 1
+    _agree(got, ref)
+    _agree(tqm.matmul_4bit_pair_prefill(on[0][1], on[1][1], on[2],
+                                        quant_type), ref)
+    k1 = tqm.matmul_4bit_pair_stacked(*on, 1, quant_type)
+    torch.cuda.synchronize()
+    assert (got - k1).abs().max() <= 1e-5 * k1.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+@pytest.mark.parametrize("scale_kind", ["fp32", "bf16", "bf16x2"])
+@pytest.mark.parametrize("T", [1, 3, 8, 16, 40])
+@pytest.mark.parametrize("M,K", [(256, 512), (18, 576)])
+def test_k9_equals_k1_on_card(cuda, rng, quant_type, scale_kind, T, M, K):
+    """K9 is K1 bit for bit, with 16-byte (K 512) and 4-byte (K 576, an
+    odd number of scale blocks) word copies, and within 1e-5 * max|y| of
+    the plain version."""
+    wp2, scales = _pair_operands(rng, M, K, scale_kind=scale_kind)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(
+        np.float32)).to(torch.bfloat16)
+    on = [t.to(cuda) for t in (wp2, scales, x)]
+    before = PAIR_MANUAL.launches
+    got = tqm.matmul_4bit_pair_manual_stacked(*on, 2, quant_type)
+    assert PAIR_MANUAL.launches == before + 1
+    k1 = tqm.matmul_4bit_pair_stacked(*on, 2, quant_type)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), k1.view(torch.int32))
+    assert torch.equal(tqm.matmul_4bit_pair_manual(
+        on[0][0], on[1][0], on[2], quant_type).view(torch.int32),
+        tqm.matmul_4bit_pair(on[0][0], on[1][0], on[2],
+                             quant_type).view(torch.int32))
+    _agree(got, tqm.matmul_4bit_pair_manual_stacked(wp2, scales, x, 2,
+                                                    quant_type))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", [tqm.matmul_4bit_pair_prefill,
+                                tqm.matmul_4bit_pair_manual],
+                         ids=["k8", "k9"])
+def test_k8_k9_refuse_what_they_cannot_take_on_card(cuda, fn):
+    wp2 = torch.zeros((64, 128), dtype=torch.int32, device=cuda)
+    s = torch.ones((128, 8), device=cuda)
+    x = torch.zeros((4, 512), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        fn(wp2, s, x.float())                          # wrong dtype
+    with pytest.raises(ValueError, match="x must be"):
+        fn(wp2, s, x[:, :256])                         # wrong width
+    with pytest.raises(ValueError, match="scales shape"):
+        fn(wp2, s[:64], x)
+    with pytest.raises(ValueError, match="int32"):
+        fn(wp2.float(), s, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(wp2, s.t().contiguous().t(), x)             # non-contiguous
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fn(wp2[:, :120].contiguous(), s, x[:, :480].contiguous())
+    with pytest.raises(ValueError, match="same CUDA device"):
+        fn(wp2.cpu(), s, x)
+
+
+@pytest.mark.cuda
+def test_pair_variants_route_on_card(cuda, monkeypatch):
+    """The tiny model on the card: ``pair_pipeline="manual"`` generates
+    the grid run's tokens with K9 launches and no K1 launch on its
+    stacked projections; ``QT_PREFILL_PAIR=1`` with the K1 band lowered
+    to 8 rows launches K8 on the prompt; ``dense_twin`` launches
+    neither."""
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.ops import PAIR_MATMUL
+    from quantizations_tpu_torch.serve.generate import make_generate_fn
+
+    base = dataclasses.replace(tl.TINY_LLAMA, quant=QuantConfig(
+        quantize_embedding=True))
+    p = tl.fuse_projections(tl.init_llama_params(base, seed=1, device=cuda))
+    ids = torch.randint(0, base.vocab_size, (2, 8),
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    serve = ServeConfig(max_seq_len=32, max_new_tokens=6)
+
+    def run(cfg):
+        counts = [k.launches for k in (PAIR_MATMUL, PAIR_MANUAL,
+                                       PAIR_PREFILL)]
+        toks, _ = make_generate_fn(cfg, serve)(
+            p, ids, tl.KVCache.create(cfg, 2, 32, cuda), None)
+        torch.cuda.synchronize()
+        return toks.cpu(), [k.launches - c for k, c in zip(
+            (PAIR_MATMUL, PAIR_MANUAL, PAIR_PREFILL), counts)]
+
+    grid, n = run(base)
+    assert n == [6 * 9, 0, 0]
+    manual, n = run(dataclasses.replace(base, quant=QuantConfig(
+        quantize_embedding=True, pair_pipeline="manual")))
+    assert torch.equal(manual, grid) and n == [0, 6 * 9, 0]
+    monkeypatch.setenv("QT_PREFILL_PAIR", "1")
+    monkeypatch.setenv("QT_PAIR_MAX_TOKENS", "8")
+    _, n = run(base)
+    assert n == [5 * 9 + 1, 0, 8]
+    monkeypatch.delenv("QT_PREFILL_PAIR")
+    _, n = run(dataclasses.replace(base, quant=QuantConfig(
+        quantize_embedding=True, dense_twin=True)))
+    assert n == [0, 0, 0]

@@ -299,20 +299,10 @@ def test_eos_freezes_rows(models):
     assert (toks[0, first:] == eos).all()
 
 
-@pytest.mark.parametrize("knob", [
-    dict(quant=QuantConfig(pair_pipeline="manual")),
-    dict(quant=QuantConfig(dense_twin=True)), "axis_name", "QT_PREFILL_PAIR"])
-def test_unported_knobs_raise(models, monkeypatch, knob):
+@pytest.mark.parametrize("knob", ["axis_name"])
+def test_unported_knobs_raise(models, knob):
     _, tp = models[False]
-    cfg = tl.TINY_LLAMA
-    kwargs = {}
-    if knob == "axis_name":
-        kwargs = dict(axis_name="tp")
-    elif knob == "QT_PREFILL_PAIR":
-        monkeypatch.setenv("QT_PREFILL_PAIR", "1")
-    else:
-        cfg = dataclasses.replace(cfg, **knob)
     cache = tl.KVCache.create(tl.TINY_LLAMA, 1, MAX_SEQ, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        tl.prefill(tp, torch.zeros((1, 2), dtype=torch.int32), cache, cfg,
-                   **kwargs)
+        tl.prefill(tp, torch.zeros((1, 2), dtype=torch.int32), cache,
+                   tl.TINY_LLAMA, **{knob: "tp"})
