@@ -14,7 +14,8 @@ Phases, each raising on failure:
    thresholds, then timed at each shape (inputs rotating so that they do
    not sit in the 50 MB L2) and summed over one model build's launches;
 4. ``k1``: the pair dequant-matmul kernel against its plain version at
-   every Llama3-8B main-path shape, T in {1, 4, 8, 16, 64, 128, 256},
+   every Llama3-8B main-path shape, T in {1, 4, 8, 16, 64, 128, 256}
+   (its CUDA-core body up to 128 rows, its tensor-core body above),
    FP4 and NF4, fp32 and ``bf16x2`` scales, stacked at a layer other
    than 0 and unstacked. Tolerance: 1e-5 * max|y|, for the fp32
    summation order only (both sides round every operand identically);
@@ -71,16 +72,23 @@ Phases, each raising on failure:
    against their bounds (K5 and K6 per decode forward, K5 at T = 48, K7
    at [14336, 4096] and the lm_head), the plain versions and dense bf16
    ``torch.matmul``;
-9. ``pair_variants``: the pair kernel's two variants. K8 (the
-   decode-once prefill pair kernel, tensor cores) within K8_GATE *
-   max|y| of its plain version and of K1, and K9 (the manual-pipeline
-   pair kernel) bit-identical to K1, at every Llama3-8B pair shape, FP4
-   and NF4, fp32, bf16 and ``bf16x2`` scales, stacked at layer 1 and
-   unstacked: K8 at T in {8, 200, 256, 512}, K9 at T in {1, 4, 8, 16, 64,
-   128}. Their times: K9 per T = 1 decode forward over the projections it
-   takes (qkv, o, down x 32), K8 per 512-row prefill forward (all 128
-   projections), beside K1, the plain versions, dense bf16
-   ``torch.matmul`` and (K8) the dense pair path. Then the knobs end to
+9. ``pair_variants``: the pair kernel's variants. The tensor-core body
+   (``csrc/pair_prefill.cu``: K8, and K1 above 128 rows) within K8_GATE
+   * max|y| of its plain versions and of K1's CUDA-core body, with K1
+   above 128 rows bit-identical to K8, and K9 (the manual-pipeline pair
+   kernel) bit-identical to K1, at every Llama3-8B pair shape (the
+   tensor-core body also at M = 6142, a row tail), FP4 and NF4, fp32,
+   bf16 and ``bf16x2`` scales, stacked at layer 1 and unstacked: K8 at T
+   in {8, 129, 200, 256, 512}, K1 through its tensor-core body at {129,
+   200, 256, 512}, K9 at T in {1, 4, 8, 16, 64, 128}. Their times: K9 per
+   T = 1 decode forward over the projections it takes (qkv, o, down x
+   32), K8 per 512-row prefill forward (all 128 projections), beside
+   K1's CUDA-core body, the plain versions, dense bf16 ``torch.matmul``
+   and (K8) the dense pair path; K1's two bodies, each launched
+   directly, at T in {16, 64, 128, 256, 512} on the four layer shapes
+   beside the bound and ``torch.matmul``, where the tensor-core body
+   starts to win, and the body with each of its row tiles at T = 128, 256
+   and 512 (the tile rule's data). Then the knobs end to
    end on the model phase's parameters: ``pair_pipeline="manual"``
    generates at B = 1, 4, 8 with exact K9/K1 counts (MANUAL_LAUNCHES) and
    the model phase's tokens; ``QT_PREFILL_PAIR=1`` generates after a
@@ -97,8 +105,10 @@ Phases, each raising on failure:
    prompt's first 512 tokens (it must hit the prefix cache for two
    pages). Then again on a fresh engine (the same tokens), then with an
    int8 pool (its agreement with the bf16 tokens is printed). Each run
-   must launch K3 (K4) exactly 32 * steps times and K1 at least
-   129 * steps times, finish every request with 32 in-vocabulary
+   must launch K3 (K4) exactly 32 * steps times, K1 at least
+   129 * steps times and K1's tensor-core body exactly 128 times per
+   admission forward of 129-256 rows (20 chunks of 256: 2,560), finish
+   every request with 32 in-vocabulary
    tokens and return every page but the prefix cache's pins. Printed:
    aggregate new tokens per second, steps, admission group sizes, and
    the wall time split into admission and decode;
@@ -158,8 +168,12 @@ K6_TOKENS = (1, 3, 5, 6, 7, 8)
 PLANAR_BATCHES = (1, 3, 8)
 PLANAR_NEW = 60
 MODULE_SHAPE = (14336, 4096)   # the Linear4bit of the planar phase
-# the pair_variants phase: K8 (prefill pair) and K9 (manual pair)
-K8_TOKENS = (8, 200, 256, 512)
+# the pair_variants phase: K8 (prefill pair) and K9 (manual pair), and
+# K1's tensor-core body (K8's, K1 from PAIR_MMA_MIN_TOKENS rows on)
+K8_TOKENS = (8, 129, 200, 256, 512)
+MMA_TOKENS = (129, 200, 256, 512)         # K1 through its tensor-core body
+MMA_SHAPES = K1_SHAPES + (("odd", 6142, 4096),)   # 3071 row pairs
+BODY_TIMED_T = (16, 64, 128, 256, 512)    # both K1 bodies, the crossover
 K9_TOKENS = (1, 4, 8, 16, 64, 128)
 K8_TIMED_T = 512               # one chunk of a prefill forward
 K8_GATE = 1e-5                 # max|K8 - plain| / max|plain|, and to K1
@@ -1289,20 +1303,42 @@ def phase_planar(dev, gen, results, params):
     phase_planar_time(dev, gen, results)
 
 
+def _gate(rec, what, y, ref, gate=K8_GATE):
+    """max|y - ref| / max|ref| within ``gate``, or raise; the worst case
+    goes into ``rec``."""
+    err = (y - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    if not rel <= gate:
+        raise AssertionError(f"{what}: {rel:.3e} of max|y| (gate "
+                             f"{gate:.0e})")
+    if rel > rec["max_err_over_max_y"]:
+        rec["worst_case"] = what
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    rec["max_err_over_max_y"] = max(rec["max_err_over_max_y"], rel)
+    return rel
+
+
 def phase_pair_variants_check(dev, gen, results):
-    """K8 within K8_GATE * max|y| of its plain version and of K1 at
-    K8_TOKENS, and K9 equal to K1 bit for bit at K9_TOKENS (and within
-    1e-5 * max|y| of its plain version), at every Llama3-8B pair shape,
-    FP4 and NF4, fp32, bf16 and ``bf16x2`` scales; the layer shapes
-    stacked and read at layer 1, the lm_head unstacked."""
+    """The tensor-core body (K8, and K1 from PAIR_MMA_MIN_TOKENS rows on)
+    within K8_GATE * max|y| of its plain versions and of K1's CUDA-core
+    body at K8_TOKENS, with K1 above 128 rows bit-identical to K8 (one
+    body, one tile rule); K9 equal to K1 bit for bit at K9_TOKENS (and
+    within 1e-5 * max|y| of its plain version). Every Llama3-8B pair
+    shape (and, for the tensor-core body, 3071 row pairs: a row tail in
+    every tile), FP4 and NF4, fp32, bf16 and ``bf16x2`` scales; the layer
+    shapes stacked and read at layer 1, the lm_head unstacked."""
     from quantizations_tpu_torch.ops import pack_scale_pairs
     from quantizations_tpu_torch.ops import qmatmul as qm
 
-    k8 = dict(max_abs_err=0.0, max_err_over_max_y=0.0,
-              max_diff_from_k1_over_max=0.0, cases=0, worst_case=None,
-              by_shape={})
+    def rec():
+        return dict(max_abs_err=0.0, max_err_over_max_y=0.0,
+                    worst_case=None, cases=0)
+
+    k8 = dict(rec(), max_diff_from_k1_over_max=0.0, by_shape={})
+    mma = dict(rec(), max_diff_from_cuda_core_over_max=0.0,
+               bit_identical_to_k8=0)
     k9 = dict(max_abs_err=0.0, max_err_over_max_y=0.0, bit_identical=0)
-    for name, M, K in K1_SHAPES:
+    for name, M, K in MMA_SHAPES:
         stacked = name != "lm_head"
         lay = 1 if stacked else 0
         wp2, s32 = _pair_operands(M, K, 2 if stacked else 1, dev, gen)
@@ -1319,35 +1355,44 @@ def phase_pair_variants_check(dev, gen, results):
                 what = f"{name} [{M},{K}] {qt} {sk}"
                 plain8 = qm.matmul_4bit_pair_prefill_plain(wp2[lay], s[lay],
                                                            x, qt)
+                plain1 = qm.matmul_4bit_pair_plain(wp2[lay], s[lay], x, qt)
                 for T in K8_TOKENS:
                     xt = x[:T]
                     y8 = run(qm.matmul_4bit_pair_prefill,
                              qm.matmul_4bit_pair_prefill_stacked, xt)
-                    y1 = run(qm.matmul_4bit_pair, qm.matmul_4bit_pair_stacked,
-                             xt)
+                    ycc = qm.matmul_4bit_pair_cuda_core(wp2[lay], s[lay], xt,
+                                                        qt)
                     torch.cuda.synchronize()
                     if y8.shape != (T, M) or not torch.isfinite(y8).all():
                         raise AssertionError(f"K8 {what} T={T}: bad output")
-                    ref = plain8[:T]
-                    err = (y8 - ref).abs().max().item()
-                    rel = err / ref.abs().max().item()
-                    rel1 = ((y8 - y1).abs().max() / y1.abs().max()).item()
-                    if not (rel <= K8_GATE and rel1 <= K8_GATE):
-                        raise AssertionError(
-                            f"K8 {what} T={T}: {rel:.3e} of max|y| from "
-                            f"the plain version, {rel1:.3e} from K1 (gate "
-                            f"{K8_GATE:.0e})")
-                    if rel > k8["max_err_over_max_y"]:
-                        k8["worst_case"] = f"{what} T={T}"
-                    k8["max_abs_err"] = max(k8["max_abs_err"], err)
-                    k8["max_err_over_max_y"] = max(k8["max_err_over_max_y"],
-                                                   rel)
+                    rel = _gate(k8, f"K8 {what} T={T}", y8, plain8[:T])
+                    rel1 = _gate(rec(), f"K8 {what} T={T} against K1's "
+                                 "CUDA-core body", y8, ycc)
                     k8["max_diff_from_k1_over_max"] = max(
                         k8["max_diff_from_k1_over_max"], rel1)
                     k8["by_shape"][name] = max(k8["by_shape"].get(name, 0.0),
                                                rel)
                     k8["cases"] += 1
-                del plain8
+                    if T not in MMA_TOKENS:
+                        continue
+                    y1 = run(qm.matmul_4bit_pair, qm.matmul_4bit_pair_stacked,
+                             xt)
+                    torch.cuda.synchronize()
+                    if not torch.equal(y1.view(torch.int32),
+                                       y8.view(torch.int32)):
+                        raise AssertionError(f"K1 {what} T={T}: its "
+                                             "tensor-core body differs "
+                                             "from K8")
+                    _gate(mma, f"K1 {what} T={T}", y1, plain1[:T])
+                    rel1 = _gate(rec(), f"K1 {what} T={T} against its "
+                                 "CUDA-core body", y1, ycc)
+                    mma["max_diff_from_cuda_core_over_max"] = max(
+                        mma["max_diff_from_cuda_core_over_max"], rel1)
+                    mma["bit_identical_to_k8"] += 1
+                    mma["cases"] += 1
+                del plain8, plain1
+                if name == "odd":
+                    continue
                 plain9 = qm.matmul_4bit_pair_manual_plain(
                     wp2[lay], s[lay], x[:max(K9_TOKENS)], qt)
                 for T in K9_TOKENS:
@@ -1373,25 +1418,32 @@ def phase_pair_variants_check(dev, gen, results):
                     k9["bit_identical"] += 1
                 del plain9
         log(f"  {name} [{M}, {K}]: K8 within {K8_GATE:.0e} * max|y| of its "
-            f"plain version (worst {k8['by_shape'][name]:.3e}) and of K1, "
-            f"K9 bit-identical to K1 ({k8['cases']} + "
-            f"{k9['bit_identical']} cases so far)")
+            f"plain version (worst {k8['by_shape'][name]:.3e}) and of K1's "
+            f"CUDA-core body, K1 above 128 rows its own tensor-core body "
+            f"bit-identical to K8, K9 bit-identical to K1 ({k8['cases']} + "
+            f"{mma['cases']} + {k9['bit_identical']} cases so far)")
         del wp2, s32, x
         torch.cuda.empty_cache()
-    results["pair_variants_err"] = dict(pair_prefill=k8, pair_manual=k9)
+    results["pair_variants_err"] = dict(pair_prefill=k8, pair_manual=k9,
+                                        pair_matmul_mma=mma)
     log(f"  K8: {k8['cases']} cases, worst max|err| {k8['max_abs_err']:.3e},"
         f" worst max|err| / max|y| {k8['max_err_over_max_y']:.3e} "
-        f"({k8['worst_case']}), from K1 "
-        f"{k8['max_diff_from_k1_over_max']:.3e}; K9: {k9['bit_identical']} "
-        f"cases bit-identical to K1, {k9['max_err_over_max_y']:.3e} of "
-        f"max|y| from its plain version")
+        f"({k8['worst_case']}), from K1's CUDA-core body "
+        f"{k8['max_diff_from_k1_over_max']:.3e}; K1's tensor-core body: "
+        f"{mma['cases']} cases at T {MMA_TOKENS}, worst "
+        f"{mma['max_err_over_max_y']:.3e} of max|y| ({mma['worst_case']}), "
+        f"from its CUDA-core body {mma['max_diff_from_cuda_core_over_max']:.3e}"
+        f"; K9: {k9['bit_identical']} cases bit-identical to K1, "
+        f"{k9['max_err_over_max_y']:.3e} of max|y| from its plain version")
 
 
 def phase_pair_variants_time(dev, gen, results):
     """K9 at T = 1 on the projections that take it at decode (qkv, o,
     down) beside K1 and dense bf16 ``torch.matmul``; K8 at T = 512 on the
-    four layer projections beside K1, the dense pair path (today's route
-    there), dense bf16 ``torch.matmul`` and the plain version. Weights
+    four layer projections beside K1's CUDA-core body (``k1_ms``: above
+    128 rows K1 itself runs K8's body), the dense pair path (the route
+    there without ``QT_PREFILL_PAIR``), dense bf16 ``torch.matmul`` and
+    the plain version. Weights
     rotate over a 32-layer stack; per-forward sums weight each shape by
     its 32 launches."""
     from quantizations_tpu_torch.nn.linear import dense_matmul_pair
@@ -1417,7 +1469,7 @@ def phase_pair_variants_time(dev, gen, results):
             slow = T > 256                  # K1 and the dense path at 512
             ms = device_ms(lambda i: fn(wp2[i % L], scales[i % L], xt,
                                         "fp4"), 64)
-            k1 = device_ms(lambda i: qm.matmul_4bit_pair(
+            k1 = device_ms(lambda i: qm.matmul_4bit_pair_cuda_core(
                 wp2[i % L], scales[i % L], xt, "fp4"), 8 if slow else 64)
             pms = device_ms(lambda i: plain(wp2[0], scales[0], xt, "fp4"),
                             2, warmup=1)
@@ -1463,6 +1515,107 @@ def phase_pair_variants_time(dev, gen, results):
             + (f", dense pair path {f['dense_pair_ms']:.3f} ms"
                if "dense_pair_ms" in f else ""))
     results["pair_variants_time"] = dict(rows=rows, per_forward=per)
+
+
+def phase_body_time(dev, gen, results):
+    """K1's two bodies, each launched directly, at BODY_TIMED_T on the four
+    layer shapes, beside the bound, dense bf16 ``torch.matmul`` and (from
+    256 rows) the plain version; weights rotating over a 32-layer stack.
+    Per-forward sums (32 x the four shapes, no lm_head: an admission
+    chunk's runs at T = 1) at every T, and the crossover: the fewest
+    timed rows at which the tensor-core body is the faster."""
+    from quantizations_tpu_torch.ops import qmatmul as qm
+
+    rows = []
+    for name, M, K in K1_SHAPES:
+        if name == "lm_head":
+            continue
+        L = LAYERS
+        wp2, scales = _pair_operands(M, K, L, dev, gen)
+        R = max(2, math.ceil(4 * L2_BYTES / (M * K * 2)))
+        Wd = torch.randn(R, M, K, generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn(max(BODY_TIMED_T), K, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        for T in BODY_TIMED_T:
+            xt = x[:T].contiguous()
+            cc = device_ms(lambda i: qm.matmul_4bit_pair_cuda_core(
+                wp2[i % L], scales[i % L], xt, "fp4"), 8 if T > 128 else 64)
+            mm = device_ms(lambda i: qm.matmul_4bit_pair_mma(
+                wp2[i % L], scales[i % L], xt, "fp4"), 64)
+            lms = device_ms(lambda i: torch.matmul(xt, Wd[i % R].T), 64)
+            pms = (device_ms(lambda i: qm.matmul_4bit_pair_plain(
+                wp2[0], scales[0], xt, "fp4"), 2, warmup=1)
+                if T >= 256 else None)
+            nbytes = M * K // 2 + M * (K // 64) * 4 + T * K * 2 + T * M * 4
+            bms, by = bound(nbytes, 2 * T * M * K)
+            rows.append(dict(shape=name, M=M, K=K, T=T, cuda_core_ms=cc,
+                             mma_ms=mm, plain_ms=pms, library_ms=lms,
+                             bound_ms=bms, bound_by=by,
+                             tiles=qm.pair_mma_tiles(T),
+                             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             ops_ms=2 * T * M * K / BF16_FLOP_PER_S * 1e3))
+            log(f"  K1 bodies {name:8s} T={T:3d}: CUDA-core {cc * 1e3:9.2f} us"
+                f"  tensor-core {mm * 1e3:8.2f} us (tiles "
+                f"{qm.pair_mma_tiles(T)})  bound {bms * 1e3:8.2f} us "
+                f"({by})  torch.matmul bf16 {lms * 1e3:8.2f} us")
+        del wp2, scales, Wd, x
+        torch.cuda.empty_cache()
+    per = {}
+    for T in BODY_TIMED_T:
+        sel = [r for r in rows if r["T"] == T]
+        f = {k: LAYERS * sum(r[k] for r in sel)
+             for k in ("cuda_core_ms", "mma_ms", "library_ms", "bound_ms",
+                       "bytes_ms", "ops_ms")}
+        if T >= 256:
+            f["plain_ms"] = LAYERS * sum(r["plain_ms"] for r in sel)
+        f["bound_by"] = ("bytes" if f["bytes_ms"] >= f["ops_ms"]
+                         else "operations")
+        f["launches"] = LAYERS * len(sel)
+        f["mma_tflops"] = (2 * T * LAYERS * sum(r["M"] * r["K"] for r in sel)
+                           / (f["mma_ms"] * 1e-3) / 1e12)
+        per[T] = f
+        log(f"  K1 per forward at T={T} ({f['launches']} launches): "
+            f"CUDA-core body {f['cuda_core_ms']:.3f} ms, tensor-core body "
+            f"{f['mma_ms']:.3f} ms ({f['mma_tflops']:.0f} TFLOP/s), bound "
+            f"{f['bound_ms']:.3f} ms ({f['bound_by']}), torch.matmul bf16 "
+            f"{f['library_ms']:.3f} ms"
+            + (f", plain {f['plain_ms']:.1f} ms" if T >= 256 else ""))
+    cross = {}
+    for name, _, _ in K1_SHAPES[:4]:
+        faster = [r["T"] for r in rows
+                  if r["shape"] == name and r["mma_ms"] < r["cuda_core_ms"]]
+        cross[name] = min(faster) if faster else None
+    log(f"  crossover (fewest timed rows where the tensor-core body is "
+        f"faster): {cross}; K1 switches at {qm.PAIR_MMA_MIN_TOKENS}")
+    results["body_time"] = dict(rows=rows, per_forward=per, crossover=cross,
+                                tiles=_tile_sweep(dev, gen))
+
+
+def _tile_sweep(dev, gen):
+    """The tensor-core body at T = 128, 256 and 512 on the four layer
+    shapes with every row tile (bn = 128), beside the tile rule's choice:
+    the data for the rule (``ops/qmatmul.py pair_mma_tiles``)."""
+    from quantizations_tpu_torch.ops import PAIR_MATMUL_MMA
+    from quantizations_tpu_torch.ops import qmatmul as qm
+
+    out = []
+    for name, M, K in K1_SHAPES[:4]:
+        wp2, scales = _pair_operands(M, K, LAYERS, dev, gen)
+        x = torch.randn(512, K, generator=gen, device=dev).to(torch.bfloat16)
+        for T in (128, 256, 512):
+            xt = x[:T].contiguous()
+            ms = {bm: device_ms(lambda i: qm._launch_pair(
+                wp2[i % LAYERS], scales[i % LAYERS], xt, "fp4",
+                PAIR_MATMUL_MMA, "qt_pair_mma", (bm, 128)), 32)
+                for bm in (32, 64, 128)}
+            rule = qm.pair_mma_tiles(T)
+            out.append(dict(shape=name, T=T, rule=rule, ms=ms))
+            log(f"  tiles {name:8s} T={T}: " + "  ".join(
+                f"bm {bm}: {v * 1e3:8.2f} us" for bm, v in ms.items())
+                + f"  (rule {rule})")
+        del wp2, scales, x
+        torch.cuda.empty_cache()
+    return out
 
 
 def _generate_runs(gen, params, ids, cfg, serve, dev, kernels, want, what):
@@ -1662,6 +1815,7 @@ def phase_pair_variants(dev, gen, results, params):
     ``QT_PREFILL_PAIR``."""
     phase_pair_variants_check(dev, gen, results)
     phase_pair_variants_time(dev, gen, results)
+    phase_body_time(dev, gen, results)
     phase_pair_variants_model(dev, params, results)
     phase_pair_variants_paged(dev, params, results)
 
@@ -1683,8 +1837,11 @@ def _serve_paged(params, base, prompts, kv):
     run and read just after it. Returns the run's record: wall time split
     into admission and decode, steps, admission group sizes, the rows of
     every admission forward, launches, stats and tokens."""
+    from quantizations_tpu_torch.nn.linear import pair_max_tokens
     from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
-                                             KERNELS, PAIR_MATMUL)
+                                             KERNELS, PAIR_MATMUL,
+                                             PAIR_MATMUL_MMA,
+                                             PAIR_MMA_MIN_TOKENS)
     from quantizations_tpu_torch.serve.paged import PagedEngine
 
     cfg = dataclasses.replace(base, kv_cache_dtype=kv)
@@ -1755,6 +1912,17 @@ def _serve_paged(params, base, prompts, kv):
     if launches[PAIR_MATMUL.name] < (4 * layers + 1) * st["steps"]:
         raise AssertionError(f"K1 launched {launches[PAIR_MATMUL.name]} "
                              f"times in {st['steps']} steps")
+    # K1's tensor-core body: every projection of an admission forward of
+    # PAIR_MMA_MIN_TOKENS .. pair_max_tokens() rows (4 per layer; its
+    # lm_head samples one row)
+    mma = launches[PAIR_MATMUL_MMA.name]
+    want_mma = 4 * layers * sum(
+        1 for r in spent["rows"]
+        if PAIR_MMA_MIN_TOKENS <= r <= pair_max_tokens())
+    if mma != want_mma or want_mma == 0:
+        raise AssertionError(f"K1's tensor-core body launched {mma} times, "
+                             f"expected {want_mma} (admission rows "
+                             f"{spent['rows']})")
     usable = eng.alloc.num_usable
     if (st["pages_free"] != usable - st["prefix_cache_pages"]
             or st["live_tokens"] != 0 or st["finished"] != len(prompts)):
@@ -1768,11 +1936,12 @@ def _serve_paged(params, base, prompts, kv):
                tok_per_s=new / wall, admit_s=spent["admit_s"],
                decode_s=wall - spent["admit_s"], steps=st["steps"],
                admissions=spent["groups"], admission_rows=spent["rows"],
-               launches=launches, stats=st, tokens=toks)
+               mma_launches=mma, launches=launches, stats=st, tokens=toks)
     log(f"  {kv} pool: {new} new tokens in {wall:.3f} s = "
         f"{new / wall:.2f} tok/s aggregate; {st['steps']} steps; "
         f"admission {spent['admit_s']:.3f} s (groups {spent['groups']}),"
-        f" decode {wall - spent['admit_s']:.3f} s; launches {launches}; "
+        f" decode {wall - spent['admit_s']:.3f} s; K1's tensor-core body "
+        f"{mma} launches (as reckoned); launches {launches}; "
         f"pages free {st['pages_free']} of {usable} "
         f"({st['prefix_cache_pages']} pinned by the prefix cache)")
     return run
@@ -1871,6 +2040,7 @@ def kernel_entries(results, kernels_seq):
     kernels = []
     launches = results.get("launches", {})
     paged_launches = results.get("launches_paged", {})
+    from quantizations_tpu_torch.ops import PAIR_MMA_MIN_TOKENS
     planar_launches = results.get("launches_planar", {})
     for k in kernels_seq:
         entry = dict(name=k.name, route="cuda", source=k.source,
@@ -1889,6 +2059,26 @@ def kernel_entries(results, kernels_seq):
                      f"{LAYERS} layers x 4 projections + the lm_head; "
                      "launches: the generate path",
                 by_shape=results.get("k1_time", {}).get("rows"))
+        elif k.name == "pair_matmul_mma":
+            f = results.get("body_time", {}).get("per_forward", {}).get(
+                K1_CHUNK_TOKENS, {})
+            err = results.get("pair_variants_err", {}).get(k.name, {})
+            entry.update(
+                launches=paged_launches.get(k.name, 0),
+                max_abs_err=err.get("max_abs_err"),
+                max_err_over_max_y=err.get("max_err_over_max_y"),
+                ms=f.get("mma_ms"), plain_ms=f.get("plain_ms"),
+                bound_ms=f.get("bound_ms"), bound_by=f.get("bound_by"),
+                library_ms=f.get("library_ms"),
+                cuda_core_ms=f.get("cuda_core_ms"),
+                unit=f"K1 above {PAIR_MMA_MIN_TOKENS - 1} rows: one "
+                     f"{K1_CHUNK_TOKENS}-row admission forward, {LAYERS} "
+                     "layers x 4 projections (its lm_head samples one row "
+                     "on the CUDA-core body); cuda_core_ms: K1's CUDA-core "
+                     "body there; library_ms: dense bf16 torch.matmul; "
+                     "launches: the paged engine's first bf16 run",
+                per_forward=results.get("body_time", {}).get("per_forward"),
+                crossover=results.get("body_time", {}).get("crossover"))
         elif k.name == "quantize_4bit":
             k2 = results.get("k2", {})
             entry.update(launches=launches.get(k.name, 0),

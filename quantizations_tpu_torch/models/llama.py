@@ -83,6 +83,7 @@ __all__ = [
     "embed_tokens",
     "lm_head_logits",
     "quantize_kv_i8",
+    "check_cache_room",
     "prefill",
     "decode_step",
     "named_tensors",
@@ -859,6 +860,22 @@ def _forward(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
     return lm_head_logits(params, x, cfg), cache
 
 
+def check_cache_room(pos: Union[int, torch.Tensor], T: int,
+                     cache: KVCache) -> None:
+    """Raise ``ValueError`` when ``T`` tokens written from position
+    ``pos`` would run past the cache's ``max_seq`` positions. (The JAX
+    package's ``dynamic_update_slice`` clamps the write instead, to the
+    wrong positions.) A position tensor on the card is not read back:
+    its caller (the paged engine) validates its requests itself."""
+    if isinstance(pos, torch.Tensor):
+        if pos.device.type != "cpu" or pos.numel() == 0:
+            return
+        pos = int(pos.max())
+    if pos + T > cache.max_seq:
+        raise ValueError(f"positions {pos}..{pos + T - 1} run past the "
+                         f"cache's {cache.max_seq} positions")
+
+
 def prefill(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
             cfg: LlamaConfig, pos: Union[int, torch.Tensor, None] = None,
             axis_name: Optional[str] = None, last_token_only: bool = False,
@@ -867,8 +884,11 @@ def prefill(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
             ) -> Tuple[torch.Tensor, KVCache]:
     """Process a prompt chunk; returns (logits [B, T, vocab], cache), or
     the logits of one token per row with ``last_token_only`` or
-    ``logits_at``."""
-    return _forward(params, token_ids, cache, 0 if pos is None else pos, cfg,
+    ``logits_at``. Raises ``ValueError`` before any launch when the chunk
+    would run past the cache."""
+    pos = 0 if pos is None else pos
+    check_cache_room(pos, token_ids.shape[1], cache)
+    return _forward(params, token_ids, cache, pos, cfg,
                     axis_name=axis_name, last_token_only=last_token_only,
                     attend_len=attend_len, logits_at=logits_at)
 
@@ -879,7 +899,9 @@ def decode_step(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
                 attend_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: ``token_ids [B, 1]`` at position ``pos``.
-    Returns (logits [B, vocab], cache)."""
+    Returns (logits [B, vocab], cache). Raises ``ValueError`` before any
+    launch when ``pos`` lies past the cache."""
+    check_cache_room(pos, token_ids.shape[1], cache)
     logits, cache = _forward(params, token_ids, cache, pos, cfg,
                              axis_name=axis_name, attend_len=attend_len)
     return logits[:, -1, :], cache

@@ -2,10 +2,11 @@
 
 Each ``csrc/*.cu`` source holds one or more kernels with a plain C
 interface (``flash_decode.cu`` holds K3 and K4, ``planar_matmul.cu`` K5
-and K6, ``pair_matmul.cu`` K1 and K9, each with its own :class:`Kernel`
-record and launch counter). A source is compiled by its
-own ``nvcc`` call for ``sm_90a`` into a shared library
-under ``quantizations_tpu_torch/build/`` (named by a hash of the source,
+and K6, ``pair_matmul.cu`` K1's CUDA-core body and K9,
+``pair_prefill.cu`` the tensor-core body that K8 and K1 above 128 rows
+launch, each with its own :class:`Kernel` record and launch counter). A
+source is compiled by its own ``nvcc`` call for ``sm_90a`` into a shared
+library under ``quantizations_tpu_torch/build/`` (named by a hash of the source,
 so an edited source rebuilds) and loaded with ``ctypes``. :func:`build`
 starts every missing build at once and waits for all of them; a launch
 builds its own kernel if nothing built it before. Nothing is built at
@@ -27,8 +28,8 @@ from typing import Dict, Sequence
 
 import torch
 
-__all__ = ["Kernel", "PAIR_MATMUL", "QUANTIZE_4BIT", "FLASH_DECODE",
-           "FLASH_DECODE_I8", "PLANAR_MATMUL", "GEMV_4BIT",
+__all__ = ["Kernel", "PAIR_MATMUL", "PAIR_MATMUL_MMA", "QUANTIZE_4BIT",
+           "FLASH_DECODE", "FLASH_DECODE_I8", "PLANAR_MATMUL", "GEMV_4BIT",
            "DEQUANTIZE_4BIT", "PAIR_PREFILL", "PAIR_MANUAL", "KERNELS",
            "build", "launch", "nvcc_path", "NVCC_FLAGS"]
 
@@ -118,20 +119,27 @@ DEQUANTIZE_4BIT = Kernel(
     "(dequantize_4bit_pallas :192)",
     # (wp, scales, scale_kind, table, out, out_kind, M, K8)
     {"qt_dequantize_4bit": [_P, _P, _I, _P, _P, _I, _I, _I, _P]})
+# _PAIR_ARGS with the tile (bm, bn) before the stream
+_MMA_ARGS = _PAIR_ARGS[:-1] + [_I, _I, _P]
 PAIR_PREFILL = Kernel(
     "pair_prefill", "quantizations_tpu_torch/csrc/pair_prefill.cu",
     "quantizations_tpu/ops/qmatmul.py:755 _pair_prefill_kernel "
     "(matmul_4bit_pair_prefill_pallas :837, "
     "matmul_4bit_pair_prefill_pallas_stacked :891)",
-    {"qt_pair_prefill": _PAIR_ARGS})
+    {"qt_pair_mma": _MMA_ARGS})
+# K1 above PAIR_MMA_MIN_TOKENS rows (ops/qmatmul.py): K8's tensor-core
+# body, counted here and in PAIR_MATMUL's count of every K1 launch.
+PAIR_MATMUL_MMA = Kernel(
+    "pair_matmul_mma", "quantizations_tpu_torch/csrc/pair_prefill.cu",
+    PAIR_MATMUL.replaces, {"qt_pair_mma": _MMA_ARGS})
 PAIR_MANUAL = Kernel(
     "pair_manual", "quantizations_tpu_torch/csrc/pair_matmul.cu",
     "quantizations_tpu/ops/qmatmul.py:1048 _manual_kernel_body "
     "(matmul_4bit_pair_manual :1103, matmul_4bit_pair_manual_stacked :1163)",
     {"qt_pair_manual": _PAIR_ARGS})
-KERNELS = (PAIR_MATMUL, QUANTIZE_4BIT, FLASH_DECODE, FLASH_DECODE_I8,
-           PLANAR_MATMUL, GEMV_4BIT, DEQUANTIZE_4BIT, PAIR_PREFILL,
-           PAIR_MANUAL)
+KERNELS = (PAIR_MATMUL, PAIR_MATMUL_MMA, QUANTIZE_4BIT, FLASH_DECODE,
+           FLASH_DECODE_I8, PLANAR_MATMUL, GEMV_4BIT, DEQUANTIZE_4BIT,
+           PAIR_PREFILL, PAIR_MANUAL)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -19,11 +19,17 @@ block (``NB = K/64``) and ``r`` in [0, 16) the word's place in the block:
 
 with row 2i's code at bits [4p, 4p+4) and row 2i+1's at [16+4p, 16+4p+4).
 
-K1 (``csrc/pair_matmul.cu``) serves both the stacked form (a layer of
-``[L, M/2, K/4]``: the view ``wp2[idx]`` is a pointer offset, no copy)
-and the unstacked one (the lm_head). The wrappers launch it for CUDA
-tensors and run the plain version, which repeats its arithmetic, for
-CPU tensors.
+K1 serves both the stacked form (a layer of ``[L, M/2, K/4]``: the view
+``wp2[idx]`` is a pointer offset, no copy) and the unstacked one (the
+lm_head). It has two bodies, chosen by the token count alone
+(:func:`pair_body`): up to 128 rows the CUDA-core body
+(``csrc/pair_matmul.cu``, entry ``qt_pair_matmul``), from
+``PAIR_MMA_MIN_TOKENS`` = 129 rows on the tensor-core body
+(``csrc/pair_prefill.cu``, entry ``qt_pair_mma``, tiles from
+:func:`pair_mma_tiles`). ``PAIR_MATMUL`` counts every K1 launch,
+``PAIR_MATMUL_MMA`` those of the tensor-core body. The wrappers launch
+for CUDA tensors and run the plain version, which repeats K1's
+arithmetic, for CPU tensors.
 
 Two more kernels compute K1's function over the same words, in K1's
 rounding class:
@@ -31,11 +37,11 @@ rounding class:
 - K9 (``csrc/pair_matmul.cu``, entry ``qt_pair_manual``), the
   manual-pipeline pair kernel: K1's work partition and summation order
   with the weight words streamed through a two-stage ``cp.async`` ring
-  in shared memory, so its output is K1's bit for bit.
-- K8 (``csrc/pair_prefill.cu``, entry ``qt_pair_prefill``), the
-  decode-once prefill pair kernel: each weight tile decoded to bf16 in
-  shared memory once per token tile and multiplied on the tensor cores
-  (``mma.sync`` bf16 -> fp32), within 1e-5 * max|y| of its plain version.
+  in shared memory, so its output is K1's CUDA-core body bit for bit.
+- K8 (``csrc/pair_prefill.cu``, entry ``qt_pair_mma``), the prefill pair
+  kernel: the tensor-core body (``mma.sync`` bf16 -> fp32, weights
+  decoded in registers once per token tile), within 1e-5 * max|y| of its
+  plain version.
 
 Which projections take them is the JAX package's rule, copied here as
 pure integer functions: :func:`manual_vmem_ok` and
@@ -51,10 +57,16 @@ from typing import Optional, Tuple
 import torch
 
 from ..quant.codebooks import FP4_CODE, get_4bit_code
-from .cuda import PAIR_MANUAL, PAIR_MATMUL, PAIR_PREFILL, PLANAR_MATMUL, launch
+from .cuda import (PAIR_MANUAL, PAIR_MATMUL, PAIR_MATMUL_MMA, PAIR_PREFILL,
+                   PLANAR_MATMUL, launch)
 from .gemv import _SHIFTS, check_planar_args, device_planar_table, planar_table
 
 __all__ = [
+    "PAIR_MMA_MIN_TOKENS",
+    "pair_body",
+    "pair_mma_tiles",
+    "matmul_4bit_pair_cuda_core",
+    "matmul_4bit_pair_mma",
     "PREFILL_PAIR_CHUNK_T",
     "prefill_pair_ok",
     "manual_vmem_ok",
@@ -275,8 +287,10 @@ def _check_pair_args(wp2, scales, x, name="pair_matmul"):
 
 
 def _launch_pair(wp2, scales, x, quant_type, kernel=PAIR_MATMUL,
-                 entry="qt_pair_matmul"):
-    """Launch K1, or K8/K9 (the same C signature) through ``entry``."""
+                 entry="qt_pair_matmul", tiles=()):
+    """Launch K1's CUDA-core body or K9 through ``entry``, or the
+    tensor-core body (``qt_pair_mma``, K8 and K1 above the switch) with
+    its ``tiles`` (bm, bn)."""
     kind = _check_pair_args(wp2, scales, x, kernel.name)
     M2, K4 = wp2.shape
     T = x.shape[0]
@@ -288,7 +302,66 @@ def _launch_pair(wp2, scales, x, quant_type, kernel=PAIR_MATMUL,
     launch(kernel, entry, x.device, wp2.data_ptr(),
            scales.data_ptr(),
            kind, table.data_ptr(), x.data_ptr(), y.data_ptr(), T, M2, K4,
-           int(out_factor != 1.0), out_factor)
+           int(out_factor != 1.0), out_factor, *tiles)
+    return y
+
+
+# K1 runs its CUDA-core body (``qt_pair_matmul``) up to 128 token rows and
+# the tensor-core body it shares with K8 (``qt_pair_mma``) from here on:
+# above every row count at which K9 is taken or held bit-identical to K1.
+PAIR_MMA_MIN_TOKENS = 129
+
+
+def pair_body(tokens: int) -> str:
+    """Which body K1 runs for ``tokens`` rows: ``"cuda_core"`` or
+    ``"mma"``."""
+    return "mma" if tokens >= PAIR_MMA_MIN_TOKENS else "cuda_core"
+
+
+def pair_mma_tiles(T: int) -> Tuple[int, int]:
+    """(bm, bn): the tensor-core body's block of bm weight rows x bn
+    tokens. bn is 128 from 128 tokens on (a weight is decoded T / 128
+    times), else 64. bm is 64: of the body's row tiles (32, 64, 128) the
+    fastest, or within 4% of it, at T = 128, 256 and 512 on every
+    Llama3-8B layer shape (``chip_smoke.py``'s tile sweep). At T = 256 on
+    o (M = 4096): 128 blocks of 8 warps."""
+    return 64, (128 if T >= 128 else 64)
+
+
+def _launch_mma(wp2, scales, x, quant_type, kernel):
+    tiles = pair_mma_tiles(x.shape[0])
+    return _launch_pair(wp2, scales, x, quant_type, kernel, "qt_pair_mma",
+                        tiles)
+
+
+def matmul_4bit_pair_cuda_core(wp2: torch.Tensor, scales: torch.Tensor,
+                               x: torch.Tensor, quant_type: str = "fp4"
+                               ) -> torch.Tensor:
+    """K1's CUDA-core body at any ``T``: what :func:`matmul_4bit_pair`
+    launches up to ``PAIR_MMA_MIN_TOKENS - 1`` rows, counted in
+    ``PAIR_MATMUL``. CPU tensors run its plain version."""
+    if x.device.type == "cpu":
+        return matmul_4bit_pair_plain(wp2, scales, x, quant_type)
+    return _launch_pair(wp2, scales, x, quant_type)
+
+
+def matmul_4bit_pair_mma(wp2: torch.Tensor, scales: torch.Tensor,
+                         x: torch.Tensor, quant_type: str = "fp4"
+                         ) -> torch.Tensor:
+    """K1's tensor-core body at any ``T``: what :func:`matmul_4bit_pair`
+    launches from ``PAIR_MMA_MIN_TOKENS`` rows on, counted in
+    ``PAIR_MATMUL_MMA`` only. CPU tensors run its plain version, which
+    sums in original column order as the body does (K8's)."""
+    if x.device.type == "cpu":
+        return matmul_4bit_pair_prefill_plain(wp2, scales, x, quant_type)
+    return _launch_mma(wp2, scales, x, quant_type, PAIR_MATMUL_MMA)
+
+
+def _launch_k1(wp2, scales, x, quant_type):
+    if pair_body(x.shape[0]) == "cuda_core":
+        return matmul_4bit_pair_cuda_core(wp2, scales, x, quant_type)
+    y = matmul_4bit_pair_mma(wp2, scales, x, quant_type)
+    PAIR_MATMUL.launches += 1        # K1's count holds both bodies
     return y
 
 
@@ -297,10 +370,12 @@ def matmul_4bit_pair(wp2: torch.Tensor, scales: torch.Tensor, x: torch.Tensor,
     """Fused 4-bit dequant + matmul over pair words: ``y [T, M] = x [T, K]
     @ dequant(wp2 [M/2, K/4], scales).T`` in fp32. ``scales`` are fp32 or
     bf16 ``[M, K/64]``, or ``bf16x2`` int32 ``[M/2, K/64]``. CUDA tensors
-    launch K1 (``x`` must be bf16); CPU tensors run the plain version."""
+    launch K1 (``x`` must be bf16): its CUDA-core body up to 128 rows,
+    its tensor-core body above (:func:`pair_body`); CPU tensors run the
+    plain version."""
     if x.device.type == "cpu":
         return matmul_4bit_pair_plain(wp2, scales, x, quant_type)
-    return _launch_pair(wp2, scales, x, quant_type)
+    return _launch_k1(wp2, scales, x, quant_type)
 
 
 def matmul_4bit_pair_stacked(wp2: torch.Tensor, scales: torch.Tensor,
@@ -314,7 +389,7 @@ def matmul_4bit_pair_stacked(wp2: torch.Tensor, scales: torch.Tensor,
                                               quant_type)
     if wp2.dim() != 3 or scales.dim() != 3:
         raise ValueError("pair_matmul stacked: wp2/scales must be [L, ...]")
-    return _launch_pair(wp2[layer_idx], scales[layer_idx], x, quant_type)
+    return _launch_k1(wp2[layer_idx], scales[layer_idx], x, quant_type)
 
 
 # --------------------------------------------------------------------------
@@ -432,8 +507,7 @@ def matmul_4bit_pair_prefill(wp2: torch.Tensor, scales: torch.Tensor,
     M); CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return matmul_4bit_pair_prefill_plain(wp2, scales, x, quant_type)
-    return _launch_pair(wp2, scales, x, quant_type, PAIR_PREFILL,
-                        "qt_pair_prefill")
+    return _launch_mma(wp2, scales, x, quant_type, PAIR_PREFILL)
 
 
 def matmul_4bit_pair_prefill_stacked(wp2: torch.Tensor, scales: torch.Tensor,
@@ -447,8 +521,8 @@ def matmul_4bit_pair_prefill_stacked(wp2: torch.Tensor, scales: torch.Tensor,
                                                       layer_idx, quant_type)
     if wp2.dim() != 3 or scales.dim() != 3:
         raise ValueError("pair_prefill stacked: wp2/scales must be [L, ...]")
-    return _launch_pair(wp2[layer_idx], scales[layer_idx], x, quant_type,
-                        PAIR_PREFILL, "qt_pair_prefill")
+    return _launch_mma(wp2[layer_idx], scales[layer_idx], x, quant_type,
+                       PAIR_PREFILL)
 
 
 def pair_prefill_matmul(wp2: torch.Tensor, scales: torch.Tensor,

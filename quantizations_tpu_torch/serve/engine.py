@@ -159,8 +159,9 @@ def run_chunk_rounds(entries, n_rows: int, default_starts,
     :func:`iter_prefill_chunks` over ``len(prompt_ids) - cov``. Rows that
     run out of chunks write garbage at ``len(prompt_ids)`` of their own
     row (past their valid prefix: never attended, never scattered).
-    ``dispatch(ids, starts, plens) -> tok[row]`` runs one round. Returns
-    {row: sampled token of its final real round}."""
+    ``dispatch(ids, starts, plens) -> out[row]`` runs one round (the
+    paged engine's returns each row's logits). Returns {row: ``out[row]``
+    of its final real round}."""
     rounds = max(len(c) for _, _, _, c in entries)
     out: dict = {}
     for j in range(rounds):
@@ -179,5 +180,5 @@ def run_chunk_rounds(entries, n_rows: int, default_starts,
         tok = dispatch(ids, starts, plens)
         for row, _, _, c in entries:
             if j == len(c) - 1:
-                out[row] = int(tok[row])
+                out[row] = tok[row]
     return out

@@ -21,6 +21,7 @@ from ..models.llama import (
     KVCache,
     LlamaConfig,
     LlamaParams,
+    check_cache_room,
     decode_step,
     prefill,
 )
@@ -65,8 +66,11 @@ def _generate_impl(params: LlamaParams, prompt_ids: torch.Tensor,
                    ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill + decode loop. Returns (tokens int32 ``[B,
     max_new_tokens]``, cache). ``eos_id`` freezes a row to eos once it
-    emits eos (the loop still runs ``max_new_tokens`` steps)."""
+    emits eos (the loop still runs ``max_new_tokens`` steps). Raises
+    ``ValueError`` before any launch when the last decode step's
+    position, ``P + max_new_tokens - 2``, lies past the cache."""
     B, P = prompt_ids.shape
+    check_cache_room(0, P + max_new_tokens - 1, cache)
     with torch.inference_mode():
         logits, cache = prefill(params, prompt_ids, cache, cfg,
                                 axis_name=axis_name, last_token_only=True)

@@ -587,12 +587,12 @@ class PagedEngine:
         self.table[slot, :] = 0
 
     def _prefill_round(self, ids: np.ndarray, scratch: KVCache,
-                       starts: np.ndarray, plens: np.ndarray,
-                       samp: torch.Tensor) -> np.ndarray:
+                       starts: np.ndarray, plens: np.ndarray
+                       ) -> torch.Tensor:
         """One prefill chunk over the scratch rows, each at its own start;
-        samples each row's last valid position (only those logits are
-        computed) and returns the tokens on the host. Attention reads the
-        scratch up to the furthest written position."""
+        returns the logits ``[rows, vocab]`` of each row's last valid
+        position (only those are computed), on the device. Attention reads
+        the scratch up to the furthest written position."""
         blen = ids.shape[1]
         attend = min(self.max_seq, int(starts.max()) + blen)
         with torch.inference_mode():
@@ -601,8 +601,15 @@ class PagedEngine:
                                     np.int64)), attend_len=attend,
                                 logits_at=self._dev(plens.astype(np.int64)
                                                     - 1))
-            tok = sample_rows_samp(logits[:, 0], samp, self._gen)
-        return tok.cpu().numpy()
+        return logits[:, 0]
+
+    def _sample_first(self, logits: torch.Tensor,
+                      samp: torch.Tensor) -> np.ndarray:
+        """Each admitted row's first token from its final chunk's logits:
+        one sampling call per admission, after its last chunk (as the
+        reference samples), tokens on the host."""
+        with torch.inference_mode():
+            return sample_rows_samp(logits, samp, self._gen).cpu().numpy()
 
     def _admit_one(self, slot, r) -> None:
         plen = len(r.prompt_ids)
@@ -611,15 +618,16 @@ class PagedEngine:
             raise MemoryError(f"pool cannot cover admission of uid {r.uid}")
         scratch = self._mk_scratch(1)
         scratch = self._attach_shared(slot, shared, scratch)
-        samp = torch.tensor([self._rsamp(r)], dtype=torch.float32)
-        tok = None
+        logits = None
         for start, take, blen in iter_prefill_chunks(
                 plen - cov, self._buckets, max_len=self.max_seq, base=cov):
             ids = np.zeros((1, blen), np.int32)
             ids[0, :take] = r.prompt_ids[cov + start:cov + start + take]
-            tok = self._prefill_round(ids, scratch,
-                                      np.asarray([cov + start]),
-                                      np.asarray([take]), samp)
+            logits = self._prefill_round(ids, scratch,
+                                         np.asarray([cov + start]),
+                                         np.asarray([take]))
+        samp = torch.tensor([self._rsamp(r)], dtype=torch.float32)
+        tok = self._sample_first(logits, samp)
         self._finish_admit(slot, r, int(tok[0]), len(shared), scratch)
 
     def _admit_group(self, group) -> None:
@@ -641,11 +649,15 @@ class PagedEngine:
         samp[:, 2] = 1.0
         for row, (slot, r) in enumerate(group):
             samp[row] = torch.tensor(self._rsamp(r))
-
         def dispatch(ids, starts, plens):
-            return self._prefill_round(ids, scratch, starts, plens, samp)
+            return self._prefill_round(ids, scratch, starts, plens)
 
-        toks = run_chunk_rounds(entries, W, np.zeros(W, np.int32), dispatch)
+        # each row's logits from its final real round, sampled once after
+        # the last round (the rounds themselves sample nothing)
+        final = run_chunk_rounds(entries, W, np.zeros(W, np.int32), dispatch)
+        rows = sorted(final)
+        toks = dict(zip(rows, self._sample_first(
+            torch.stack([final[row] for row in rows]), samp[rows]).tolist()))
         for row, (slot, r) in enumerate(group):
             try:
                 self._finish_admit(slot, r, toks[row], n_shared[row],

@@ -6,8 +6,10 @@
   no card they raise rather than fall back to the CPU.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card.
 - Tests marked ``cuda`` hold each kernel (K1 to K9) against its plain
-  version on the card (K9 against K1, bit for bit), and the wrappers'
-  refusals; they skip where ``torch.cuda.is_available()`` is False.
+  version on the card (K9 against K1, bit for bit; K1 above 128 rows,
+  its tensor-core body, against its CUDA-core body and K8), the
+  per-body launch counts, and the wrappers' refusals; they skip where
+  ``torch.cuda.is_available()`` is False.
 """
 
 import ast
@@ -468,6 +470,63 @@ def test_k9_equals_k1_on_card(cuda, rng, quant_type, scale_kind, T, M, K):
                              quant_type).view(torch.int32))
     _agree(got, tqm.matmul_4bit_pair_manual_stacked(wp2, scales, x, 2,
                                                     quant_type))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+@pytest.mark.parametrize("scale_kind", ["fp32", "bf16", "bf16x2"])
+@pytest.mark.parametrize("T", [129, 200, 256])
+@pytest.mark.parametrize("M,K", [(256, 512), (130, 576)])
+def test_k1_tensor_core_body_on_card(cuda, rng, quant_type, scale_kind, T,
+                                     M, K):
+    """Above 128 rows K1 runs its tensor-core body: within 1e-5 * max|y|
+    of its plain version and of its CUDA-core body, and K8 bit for bit
+    (one body, one tile rule). Token tails at T 129 and 200, row tails at
+    M 130 (65 row pairs), an odd count of scale blocks at K 576."""
+    wp2, scales = _pair_operands(rng, M, K, scale_kind=scale_kind)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(
+        np.float32)).to(torch.bfloat16)
+    ref = tqm.matmul_4bit_pair_stacked(wp2, scales, x, 1, quant_type)
+    on = [t.to(cuda) for t in (wp2, scales, x)]
+    got = tqm.matmul_4bit_pair_stacked(*on, 1, quant_type)
+    _agree(got, ref)
+    cc = tqm.matmul_4bit_pair_cuda_core(on[0][1], on[1][1], on[2],
+                                        quant_type)
+    k8 = tqm.matmul_4bit_pair_prefill_stacked(*on, 1, quant_type)
+    torch.cuda.synchronize()
+    assert (got - cc).abs().max() <= 1e-5 * cc.abs().max()
+    assert torch.equal(got.view(torch.int32), k8.view(torch.int32))
+    _agree(tqm.matmul_4bit_pair(on[0][1], on[1][1], on[2], quant_type), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,bodies", [(1, (1, 0)), (128, (1, 0)),
+                                      (129, (1, 1)), (300, (1, 1))])
+def test_k1_counts_each_body_on_card(cuda, rng, T, bodies):
+    """``PAIR_MATMUL`` counts every K1 launch, ``PAIR_MATMUL_MMA`` those
+    of the tensor-core body; a direct launch of either body counts in its
+    own record only, and K8 in ``PAIR_PREFILL`` only."""
+    from quantizations_tpu_torch.ops import PAIR_MATMUL, PAIR_MATMUL_MMA
+
+    wp2, scales = [t.to(cuda) for t in _pair_operands(rng, 64, 256)]
+    x = torch.zeros((T, 256), dtype=torch.bfloat16, device=cuda)
+    kerns = (PAIR_MATMUL, PAIR_MATMUL_MMA, PAIR_PREFILL)
+
+    def counted(fn, *a):
+        before = [k.launches for k in kerns]
+        fn(*a)
+        return tuple(k.launches - b for k, b in zip(kerns, before))
+
+    assert counted(tqm.matmul_4bit_pair_stacked, wp2, scales, x, 2) == (
+        bodies + (0,))
+    assert counted(tqm.matmul_4bit_pair, wp2[0], scales[0], x) == (
+        bodies + (0,))
+    assert counted(tqm.matmul_4bit_pair_cuda_core, wp2[0], scales[0],
+                   x) == (1, 0, 0)
+    assert counted(tqm.matmul_4bit_pair_mma, wp2[0], scales[0], x) == (
+        0, 1, 0)
+    assert counted(tqm.matmul_4bit_pair_prefill, wp2[0], scales[0], x) == (
+        0, 0, 1)
 
 
 @pytest.mark.cuda
