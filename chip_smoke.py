@@ -7,7 +7,9 @@ Phases, each raising on failure:
 
 1. the device: its name, and ``nvidia-smi``'s name and power limit;
 2. ``build``: compile every kernel from ``quantizations_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once) and time it;
+   (one ``nvcc`` per source, all at once) and time it; beside it
+   ``nvcc -Xptxas -v`` on ``flash_decode.cu`` logs the registers and
+   spills of every K3/K4 instantiation, and a spill fails the run;
 3. ``k2``: the quantize kernel against its plain version, bit-exact,
    FP4 and NF4, at every shape that model build quantizes (and the fused
    gate|up's ``[28672, 4096]``), with values placed exactly on the code
@@ -24,10 +26,13 @@ Phases, each raising on failure:
    path's shapes (8 kv heads, 4 query heads each, D 128, B 1/4/8): the
    slot cache (S 2048, attend_len 128 and 2048, unstacked and stacked at
    layer 1) and the paged pool (page 256 and 128, shuffled block tables
-   with page 0 in the unused entries, pages_per_step 1 and 2, q_span 1
-   and 4), lengths {1, 17, 255, 256, 257, 1900, 2047}, window none / 100
-   / 2**30, softcap none / 50. Tolerance 1e-5 * max|out| (the same
-   values on both sides; fp32 summation order only);
+   with page 0 in the unused entries, pages_per_step 1 and 2, q_span 1,
+   4 and 8, the last 32 query rows), lengths {1, 17, 255, 256, 257, 1900,
+   2047}, window none / 100 / 2**30, softcap none / 50; the pool's 2048
+   positions split across blocks (16 x 128 at B = 1, boundaries inside
+   the pages), and every pool case launched twice gives the same bits.
+   Tolerance 1e-5 * max|out| (the same values on both sides; fp32
+   summation order only);
 6. ``time``: each kernel timed with CUDA events over many launches after
    a warm-up (K1 at the decode and prefill T of batch 1, 4 and 8 and at
    the paged engine's 256-token admission chunk), K1's weights rotating
@@ -36,9 +41,13 @@ Phases, each raising on failure:
    the same function; then K3 and K4 per launch at B 1/4/8 and a live
    context of 128, 512 and 1900 tokens, slot and paged, the cache
    rotating over enough layers to exceed the L2 four times, beside the
-   bound (the live K/V and step bytes plus q and out over 3.35 TB/s),
-   the plain version and, for K3, ``scaled_dot_product_attention(...,
-   enable_gqa=True)`` over the same keys laid out contiguously;
+   bound (the live K/V and step bytes plus q and out over 3.35 TB/s, or
+   the fp32 operations over 67 TFLOP/s where longer), its share, the
+   split the wrapper chose and the blocks launched, the plain version
+   and, for K3, ``scaled_dot_product_attention(..., enable_gqa=True)``
+   over the same keys laid out contiguously; 32 query rows over the
+   pool; and the pool cases again with each chunk of
+   ``ATTN_SWEEP_CHUNKS`` forced (the split sweep);
 7. ``model``: Llama3-8B at full width and depth with a 4-bit embedding
    and lm_head, random weights from seed 0 quantized by K2, fused q|k|v
    and gate|up, then greedy generation of 60 tokens after a 16-token
@@ -149,13 +158,19 @@ K1_DECODE_TOKENS = (1, 4, 8)               # decode at B = 1, 4, 8
 K1_TIMED_TOKENS = K1_DECODE_TOKENS + (16, 64, 128)   # and their prefill
 K1_CHUNK_TOKENS = 256          # one admission chunk of the paged engine
 PROMPT_LEN = 16
-INT8_OP_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
 # decode attention at Llama3-8B: 8 kv heads, 4 query heads each, D 128
 KVH, GQA, HEAD_DIM = 8, 4, 128
 ATTN_BATCHES = (1, 4, 8)
 ATTN_LENGTHS = (1, 17, 255, 256, 257, 1900, 2047)
 ATTN_KNOBS = ((None, None), (100, 50.0), (2 ** 30, None))  # window, softcap
 ATTN_TIMED_CTX = (128, 512, 1900)
+# query positions per row over the pool: decode, and speculative verify
+# windows up to 8 positions (32 query rows, four row groups of 8)
+ATTN_Q_SPANS = (1, 4, 8)
+ATTN_SWEEP_CHUNKS = (64, 128, 256, 512, 1024, 2048)   # the split sweep
+# the instantiations that csrc/flash_decode.cu's dispatch launches: row
+# tiles R (4 up to 4 rows a group, else 8) and head dims D, per type
+FD_ROW_TILES, FD_HEAD_DIMS = (4, 8), (64, 128)
 # the paged phase: 7 prompt lengths, and an eighth request that shares
 # the 700-token prompt's first 512 tokens (two 256-token pages)
 PAGED_LENS = (16, 100, 300, 700, 1100, 1500, 1900)
@@ -238,6 +253,67 @@ def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
     whichever is longer."""
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def start_ptxas_report():
+    """Start ``nvcc -Xptxas -v`` on ``csrc/flash_decode.cu`` with the
+    build's flags (beside the build, which it does not replace) and
+    return the process."""
+    from quantizations_tpu_torch.ops.cuda import (BUILD, FLASH_DECODE,
+                                                  NVCC_FLAGS, nvcc_path)
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(BUILD / "flash_decode_ptxas.so"), str(FLASH_DECODE.path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def parse_ptxas(out):
+    """[{kernel, registers, spill_stores, spill_loads}] of every K3/K4
+    instantiation (and the combine) in a ``ptxas -v`` log of
+    ``flash_decode.cu``."""
+    import re
+
+    entries = []
+    for block in out.split("Compiling entry function")[1:]:
+        fn = block.split("'")[1]
+        m = re.search(r"(Ia|I13__nv_bfloat16)Li(\d+)ELi(\d+)E", fn)
+        what = ("combine" if "combine" in fn else
+                f"{'K4 int8' if m.group(1) == 'Ia' else 'K3 bf16'} "
+                f"R={m.group(2)} D={m.group(3)}")
+        regs = int(re.search(r"Used (\d+) registers", block).group(1))
+        st, ld = (int(x) for x in re.search(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            block).groups())
+        entries.append(dict(kernel=what, registers=regs, spill_stores=st,
+                            spill_loads=ld))
+    return entries
+
+
+def read_ptxas_report(proc, results):
+    """Log the registers and spills of every K3/K4 instantiation; raise
+    on a spill, or unless the log holds exactly the instantiations that
+    the dispatch of ``flash_decode.cu`` launches (K3 and K4 at each row
+    tile and head dim of FD_ROW_TILES x FD_HEAD_DIMS, and the combine)."""
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc -Xptxas -v failed:\n" + out)
+    entries = parse_ptxas(out)
+    results["ptxas"] = entries
+    log("  ptxas -v, csrc/flash_decode.cu: " + "; ".join(
+        f"{e['kernel']} {e['registers']} registers, spills "
+        f"{e['spill_stores']}/{e['spill_loads']} bytes" for e in entries))
+    want = {f"{t} R={r} D={d}" for t in ("K3 bf16", "K4 int8")
+            for r in FD_ROW_TILES for d in FD_HEAD_DIMS} | {"combine"}
+    got = [e["kernel"] for e in entries]
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"flash_decode.cu: ptxas -v lists {got}, the "
+                             f"dispatch launches {sorted(want)}")
+    spills = [e["kernel"] for e in entries
+              if e["spill_stores"] or e["spill_loads"]]
+    if spills:
+        raise AssertionError(f"flash_decode.cu: spills in {spills}")
 
 
 def phase_k2(dev, gen, results):
@@ -447,14 +523,21 @@ def phase_attn(dev, gen, results):
     """K3 and K4 against their plain versions at the main path's shapes
     (KVH 8, G 4, D 128, B 1/4/8): the slot cache (S 2048, attend_len 128
     and 2048, unstacked and stacked at layer 1) and the paged pool (page
-    256 and 128, shuffled tables, pages_per_step 1 and 2, q_span 1 and
-    4), over lengths, window and softcap. Tolerance 1e-5 * max|out|: both
-    sides read the same bf16 or int8 values and differ only in the fp32
-    summation order."""
+    256 and 128, shuffled tables, pages_per_step 1 and 2, q_span 1, 4 and
+    8: up to 32 query rows), over lengths, window and softcap. The pool's
+    2048 positions split across blocks (16 chunks of 128 at B = 1, split
+    boundaries inside the pages); each pool case is launched twice and
+    must give the same bits. Tolerance 1e-5 * max|out|: both sides read
+    the same bf16 or int8 values and differ only in the fp32 summation
+    order."""
     from quantizations_tpu_torch.ops import attention as at
     from quantizations_tpu_torch.ops import paged_attention as pa
+    from quantizations_tpu_torch.ops.cuda import (FLASH_DECODE,
+                                                  FLASH_DECODE_I8)
 
     worst = {"flash_decode": [0.0, 0.0, 0], "flash_decode_i8": [0.0, 0.0, 0]}
+    identical = {"flash_decode": 0, "flash_decode_i8": 0}
+    splits = set()      # (B, page, q_span, n_split, chunk) of the pool cases
 
     def check(name, what, got, ref):
         torch.cuda.synchronize()
@@ -506,7 +589,7 @@ def phase_attn(dev, gen, results):
                                   window=win))
             del k, v, ks, vs
             for page in (256, 128):
-                for q_span in (1, 4):
+                for q_span in ATTN_Q_SPANS:
                     k, v, ks, vs, table = _attn_pool(
                         B, lens, page, S // page, q_span, dev, gen, int8)
                     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -530,16 +613,33 @@ def phase_attn(dev, gen, results):
                                 ref = pa.paged_flash_decode_attention_plain(
                                     q, k, v, table, 2, ln, **kw)
                             check(name, what, got, ref)
+                    splits.add((B, page, q_span) + (
+                        FLASH_DECODE_I8 if int8 else FLASH_DECODE
+                    ).last_grid[:2])
+                    # the splits fold in a fixed order: the same bits
+                    again = (pa.paged_flash_decode_attention_i8(
+                        q, k, v, ks, vs, table, 2, ln, **kw) if int8 else
+                        pa.paged_flash_decode_attention(
+                            q, k, v, table, 2, ln, **kw))
+                    if not torch.equal(again, got):
+                        raise AssertionError(f"{name} {what}: two launches "
+                                             "differ")
+                    identical[name] += 1
                     del k, v, ks, vs
         log(f"  B={B}: K3 {worst['flash_decode'][2]} and K4 "
             f"{worst['flash_decode_i8'][2]} cases so far within 1e-5 * "
             "max|out| of the plain versions")
         torch.cuda.empty_cache()
     results["attn_err"] = {n: dict(max_abs_err=w[0], max_err_over_max_out=w[1],
-                                   cases=w[2]) for n, w in worst.items()}
+                                   cases=w[2], bit_identical_reruns=identical[n])
+                           for n, w in worst.items()}
+    results["attn_splits"] = sorted(splits)
     for n, w in worst.items():
         log(f"  {n}: {w[2]} cases, worst max|err| {w[0]:.3e}, worst "
-            f"max|err| / max|out| {w[1]:.3e}")
+            f"max|err| / max|out| {w[1]:.3e}; {identical[n]} pool cases "
+            "launched twice, bit-identical")
+    log("  pool splits (B, page, q_span: n_split x chunk): " + ", ".join(
+        f"{b},{pg},{qs}: {n}x{c}" for b, pg, qs, n, c in sorted(splits)))
 
 
 def _attn_bytes(B, ctx, int8, q_span=1):
@@ -556,21 +656,83 @@ def phase_attn_time(dev, gen, results):
     layers that the read set exceeds the 50 MB L2 four times; beside the
     bound, the plain version and, for K3, one
     ``scaled_dot_product_attention(..., enable_gqa=True)`` over the same
-    keys laid out contiguously (the port never calls it)."""
+    keys laid out contiguously (the port never calls it). Each row prints
+    the split the wrapper chose (n_split x chunk), the blocks launched and
+    the share of the bound. Then 32 query rows (q_span 8) over the pool
+    at 1900 tokens, and the split sweep: paged K3 and K4 at every B and
+    context with each chunk of ATTN_SWEEP_CHUNKS forced."""
     from quantizations_tpu_torch.ops import attention as at
     from quantizations_tpu_torch.ops import paged_attention as pa
+    from quantizations_tpu_torch.ops.cuda import (FLASH_DECODE,
+                                                  FLASH_DECODE_I8)
 
     F = torch.nn.functional
-    rows = []
+    rows, sweep = [], []
+
+    def paged_case(B, ctx, int8, q_span):
+        """A pool rotating over L layers for rows of ctx live tokens and
+        q_span query positions: (operands, launch, plain version, launch
+        with a forced split, n_pos)."""
+        page = 256
+        n_pages = -(-ctx // page)
+        nbytes = _attn_bytes(B, ctx, int8, q_span)
+        L = max(2, min(256, math.ceil(4 * L2_BYTES / nbytes)))
+        k, v, ks, vs, table = _attn_pool(B, [ctx - q_span + 1] * B, page,
+                                         n_pages, q_span, dev, gen, int8, L=L)
+        ln = torch.full((B,), ctx - q_span + 1, dtype=torch.int32,
+                        device=dev)
+        q = torch.randn(B, KVH, q_span * GQA, HEAD_DIM, generator=gen,
+                        device=dev)
+        if int8:
+            run = lambda i: pa.paged_flash_decode_attention_i8(
+                q, k, v, ks, vs, table, i % L, ln, q_span=q_span)
+            plain = lambda i: pa.paged_flash_decode_attention_i8_plain(
+                q, k, v, ks, vs, table, i % L, ln, q_span=q_span)
+        else:
+            run = lambda i: pa.paged_flash_decode_attention(
+                q, k, v, table, i % L, ln, q_span=q_span)
+            plain = lambda i: pa.paged_flash_decode_attention_plain(
+                q, k, v, table, i % L, ln, q_span=q_span)
+
+        def forced(split):
+            return lambda i: at.launch_decode(
+                q, k[i % L], v[i % L], ln, page=page, n_pos=0,
+                scale=HEAD_DIM ** -0.5, softcap=None, window=None,
+                q_span=q_span, table=table,
+                k_step=None if ks is None else ks[i % L],
+                v_step=None if vs is None else vs[i % L], split=split)
+        return (k, v, ks, vs, table, q), run, plain, forced, n_pages * page
+
+    def timed(name, fn):
+        """(ms per launch, the (n_split, chunk, blocks) it launched)."""
+        ms = device_ms(fn, 200)
+        return ms, (FLASH_DECODE_I8 if "i8" in name else FLASH_DECODE
+                    ).last_grid
+
+    def record(name, form, B, ctx, q_span, timing, pms, lib, L):
+        ms, (n_split, chunk, blocks) = timing
+        nbytes = _attn_bytes(B, ctx, "i8" in name, q_span)
+        flops = 4 * B * KVH * q_span * GQA * ctx * HEAD_DIM
+        bms, by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        row = dict(kernel=name, form=form, B=B, ctx=ctx, q_span=q_span,
+                   ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                   library_ms=lib, bytes=nbytes, layers_rotated=L,
+                   n_split=n_split, chunk=chunk, blocks=blocks,
+                   share_of_bound=bms / ms)
+        rows.append(row)
+        libs = ("none" if lib is None else f"{lib * 1e3:8.2f} us" + (
+            " (contiguous keys)" if form == "paged" else ""))
+        log(f"  {name:15s} {form:5s} B={B} ctx={ctx:4d} rows={q_span * GQA:2d}"
+            f": {ms * 1e3:8.2f} us  bound {bms * 1e3:7.2f} us ({by}, "
+            f"{100 * bms / ms:5.1f}%)  split {n_split}x{chunk} "
+            f"{blocks} blocks  plain {pms * 1e3:8.1f} us  sdpa {libs}")
+
     for int8 in (False, True):
         name = "flash_decode_i8" if int8 else "flash_decode"
         for B in ATTN_BATCHES:
             for ctx in ATTN_TIMED_CTX:
                 nbytes = _attn_bytes(B, ctx, int8)
                 L = max(2, min(256, math.ceil(4 * L2_BYTES / nbytes)))
-                flops = 4 * B * KVH * GQA * ctx * HEAD_DIM
-                bms, by = bound(nbytes, flops * (BF16_FLOP_PER_S / (
-                    INT8_OP_PER_S if int8 else BF16_FLOP_PER_S)))
                 ln = torch.full((B,), ctx, dtype=torch.int32, device=dev)
                 q = torch.randn(B, KVH, GQA, HEAD_DIM, generator=gen,
                                 device=dev)
@@ -589,7 +751,7 @@ def phase_attn_time(dev, gen, results):
                     slot_plain = lambda i: (
                         at.flash_decode_attention_stacked_plain(
                             q, k, v, i % L, ln))
-                ms_slot = device_ms(slot, 200)
+                t_slot = timed(name, slot)
                 plain_slot = device_ms(slot_plain, 20)
                 lib = None
                 if not int8:
@@ -598,42 +760,33 @@ def phase_attn_time(dev, gen, results):
                     lib = device_ms(lambda i: F.scaled_dot_product_attention(
                         qs, k[i % L], v[i % L], enable_gqa=True), 200)
                 del k, v, ks, vs
+                record(name, "slot", B, ctx, 1, t_slot, plain_slot, lib, L)
                 # paged: page 256, each row's pages shuffled over the pool
-                page = 256
-                n_pages = -(-ctx // page)
-                Lp = max(2, min(256, math.ceil(4 * L2_BYTES / nbytes)))
-                k, v, ks, vs, table = _attn_pool(B, [ctx] * B, page, n_pages,
-                                                 1, dev, gen, int8, L=Lp)
-                if int8:
-                    paged = lambda i: pa.paged_flash_decode_attention_i8(
-                        q, k, v, ks, vs, table, i % Lp, ln)
-                    paged_plain = lambda i: (
-                        pa.paged_flash_decode_attention_i8_plain(
-                            q, k, v, ks, vs, table, i % Lp, ln))
-                else:
-                    paged = lambda i: pa.paged_flash_decode_attention(
-                        q, k, v, table, i % Lp, ln)
-                    paged_plain = lambda i: (
-                        pa.paged_flash_decode_attention_plain(
-                            q, k, v, table, i % Lp, ln))
-                ms_paged = device_ms(paged, 200)
-                plain_paged = device_ms(paged_plain, 20)
-                del k, v, ks, vs, table
+                held, run, plain, forced, n_pos = paged_case(B, ctx, int8, 1)
+                record(name, "paged", B, ctx, 1, timed(name, run),
+                       device_ms(plain, 20), lib, held[0].shape[0])
+                for chunk in ATTN_SWEEP_CHUNKS:
+                    n = -(-n_pos // chunk)
+                    if chunk > n_pos:
+                        continue
+                    sweep.append(dict(kernel=name, B=B, ctx=ctx,
+                                      n_split=n, chunk=chunk,
+                                      ms=device_ms(forced((n, chunk)), 200)))
+                log(f"  {name:15s} sweep B={B} ctx={ctx:4d}: " + ", ".join(
+                    f"{r['n_split']}x{r['chunk']} {r['ms'] * 1e3:.2f} us"
+                    for r in sweep if r["kernel"] == name and r["B"] == B
+                    and r["ctx"] == ctx))
+                del held, run, plain, forced
                 torch.cuda.empty_cache()
-                for form, ms, pms in (("slot", ms_slot, plain_slot),
-                                      ("paged", ms_paged, plain_paged)):
-                    rows.append(dict(kernel=name, form=form, B=B, ctx=ctx,
-                                     ms=ms, plain_ms=pms, bound_ms=bms,
-                                     bound_by=by, library_ms=lib,
-                                     bytes=nbytes, layers_rotated=L))
-                    libs = ("none" if lib is None else
-                            f"{lib * 1e3:8.2f} us" + (
-                                " (contiguous keys)" if form == "paged"
-                                else ""))
-                    log(f"  {name:15s} {form:5s} B={B} ctx={ctx:4d}: "
-                        f"{ms * 1e3:8.2f} us  bound {bms * 1e3:7.2f} us "
-                        f"({by})  plain {pms * 1e3:8.1f} us  sdpa {libs}")
+        # 32 query rows over the pool (speculative verify of 8 positions)
+        for B in ATTN_BATCHES:
+            held, run, plain, _, _ = paged_case(B, 1900, int8, 8)
+            record(name, "paged", B, 1900, 8, timed(name, run),
+                   device_ms(plain, 20), None, held[0].shape[0])
+            del held, run, plain
+            torch.cuda.empty_cache()
     results["attn_time"] = rows
+    results["attn_sweep"] = sweep
 
 
 def phase_model(dev, results):
@@ -2156,7 +2309,8 @@ def kernel_entries(results, kernels_seq):
             rows = [r for r in results.get("attn_time", [])
                     if r["kernel"] == k.name]
             main = next((r for r in rows if r["form"] == "paged"
-                         and r["B"] == 4 and r["ctx"] == 1900), {})
+                         and r["B"] == 4 and r["ctx"] == 1900
+                         and r["q_span"] == 1), {})
             err = results.get("attn_err", {}).get(k.name, {})
             entry.update(launches=n, max_abs_err=err.get("max_abs_err"),
                          max_err_over_max_out=err.get(
@@ -2200,10 +2354,17 @@ def main() -> int:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    build(KERNELS)
+    ptxas = start_ptxas_report()
+    try:
+        build(KERNELS)
+    except BaseException:
+        ptxas.kill()
+        ptxas.wait()
+        raise
     results["build_s"] = time.perf_counter() - t0
     log(f"[build] {len(KERNELS)} kernels built and loaded in "
         f"{results['build_s']:.2f} s")
+    read_ptxas_report(ptxas, results)
     held = {}
     for ph, fn in (("k2", lambda: phase_k2(dev, gen, results)),
                    ("k1", lambda: phase_k1(dev, gen, results)),

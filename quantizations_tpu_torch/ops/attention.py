@@ -10,7 +10,10 @@ Shapes (one query token per sequence):
 
 CUDA tensors launch K3 (bf16 cache) or K4 (int8 codes with a bf16 step
 per cached row) from ``csrc/flash_decode.cu``; CPU tensors run the plain
-version, a masked softmax in fp32 over the visible positions. The
+version, a masked softmax in fp32 over the visible positions. The kernel
+splits the attended positions across blocks (:func:`decode_split`) and
+the query rows into groups of at most 8 (:func:`row_groups`), and folds
+the splits' partials in a second launch of the same C call. The
 stacked forms hand the kernel layer ``li`` of the full cache as a pointer
 offset (``cache[li]`` of a contiguous stack is a view), and it reads only
 the first ``attend_len`` positions: nothing is sliced or copied.
@@ -24,7 +27,7 @@ position at least).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,9 +41,48 @@ __all__ = [
     "flash_decode_attention_stacked_plain",
     "flash_decode_attention_stacked_i8_plain",
     "decode_attention_plain",
+    "decode_split",
+    "row_groups",
 ]
 
 _NEG = -1e30
+
+# How K3/K4 cut their work (csrc/flash_decode.cu): a block of 4 warps (8
+# for K4 at up to 4 rows) takes a chunk of positions in 16-position warp
+# tiles, for a group of at most GROUP_ROWS query rows; the grid is
+# (B * KVH, n_split, row groups). The constants come from a sweep of
+# forced splits on an H100 (PERF.md, PR 7).
+SPLIT_TILE = 16             # positions of one warp tile
+SPLIT_ALIGN = 64            # four warp tiles
+SPLIT_MIN_CHUNK = 128       # keeps the partials a few % of the K/V bytes
+SPLIT_TARGET_BLOCKS = 264   # at most two blocks per SM of an H100's 132
+GROUP_ROWS = 8
+
+
+def row_groups(qg: int) -> Tuple[int, int]:
+    """``(n_groups, group_rows)``: ``qg`` query rows in the fewest
+    groups of at most :data:`GROUP_ROWS`, as even as whole rows allow
+    (the last group may be shorter)."""
+    n = -(-qg // GROUP_ROWS)
+    return n, -(-qg // n)
+
+
+def decode_split(n_pos: int, blocks: int) -> Tuple[int, int]:
+    """``(n_split, chunk)`` for ``n_pos`` attended positions and
+    ``blocks`` = B * KVH * row groups blocks per split: split ``s`` takes
+    positions ``[s * chunk, (s + 1) * chunk)``. As many splits as keep
+    the grid within :data:`SPLIT_TARGET_BLOCKS` (a partial second wave
+    costs as much as a whole one), with chunks a multiple of
+    :data:`SPLIT_ALIGN` and at least :data:`SPLIT_MIN_CHUNK` positions,
+    so ``n_split`` is 1 up to that many positions. Reads nothing from the
+    card: ``n_pos`` is what the host knows (``attend_len``, or
+    ``max_pages * page`` for the pool)."""
+    if n_pos < 1 or blocks < 1:
+        raise ValueError(f"decode_split: n_pos {n_pos}, blocks {blocks}")
+    want = max(1, SPLIT_TARGET_BLOCKS // blocks)
+    chunk = -(-n_pos // want)
+    chunk = max(SPLIT_MIN_CHUNK, -(-chunk // SPLIT_ALIGN) * SPLIT_ALIGN)
+    return -(-n_pos // chunk), chunk
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -98,11 +140,15 @@ def launch_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   window: Optional[int], q_span: int = 1,
                   table: Optional[torch.Tensor] = None,
                   k_step: Optional[torch.Tensor] = None,
-                  v_step: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  v_step: Optional[torch.Tensor] = None,
+                  split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Check the operands and launch K3 (bf16 ``k``/``v``) or K4 (int8
     codes with ``k_step``/``v_step``). ``k``/``v`` are one layer: the
     slot cache ``[B, KVH, page = S, D]`` with ``table`` None, or the pool
-    ``[P, KVH, page, D]`` read through ``table [B, max_pages]``."""
+    ``[P, KVH, page, D]`` read through ``table [B, max_pages]``.
+    ``split`` = ``(n_split, chunk)`` overrides :func:`decode_split` (for
+    timing other splits; the result does not depend on it beyond the
+    fp32 summation order)."""
     int8 = k_step is not None
     name = "flash_decode_i8" if int8 else "flash_decode"
     dev = q.device
@@ -157,13 +203,27 @@ def launch_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, KVH, QG, D), dtype=torch.float32, device=dev)
     if B == 0:
         return out
+    n_groups, group_rows = row_groups(QG)
+    n_split, chunk = split or decode_split(n_pos, B * KVH * n_groups)
+    if not (1 <= n_split <= 1024 and chunk >= 1
+            and n_split * chunk >= n_pos):
+        raise ValueError(f"{name}: split ({n_split}, {chunk}) does not "
+                         f"cover {n_pos} positions")
+    part = ml = None
+    if n_split > 1:   # the partials' scratch, folded by the second launch
+        part = torch.empty((n_split, B * KVH * QG, D), dtype=torch.float32,
+                           device=dev)
+        ml = torch.empty((n_split, B * KVH * QG, 2), dtype=torch.float32,
+                         device=dev)
     has_cap = softcap is not None
     cap = float(softcap) if has_cap else 1.0
     inv_cap = float(torch.tensor(1.0 / cap, dtype=torch.float32))
     tail = [None if table is None else table.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), B, KVH, QG, QG // q_span, D, page, max_pages,
             n_pos, int(window is not None), 0 if window is None else window,
-            float(scale), int(has_cap), cap, inv_cap]
+            float(scale), int(has_cap), cap, inv_cap, n_split, chunk,
+            group_rows, None if part is None else part.data_ptr(),
+            None if ml is None else ml.data_ptr()]
     head = [q.data_ptr(), int(q.dtype == torch.float32), k.data_ptr(),
             v.data_ptr()]
     if int8:
@@ -171,6 +231,8 @@ def launch_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                k_step.data_ptr(), v_step.data_ptr(), *tail)
     else:
         launch(FLASH_DECODE, "qt_flash_decode_bf16", dev, *head, *tail)
+    (FLASH_DECODE_I8 if int8 else FLASH_DECODE).last_grid = (
+        n_split, chunk, B * KVH * n_groups * n_split)
     return out
 
 

@@ -24,7 +24,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,13 +55,16 @@ class Kernel:
     ``functions`` maps each C entry point to its argument types (every
     pointer and the trailing stream are ``c_void_p``: a plain int would
     cut them to 32 bits); every entry point returns ``cudaGetLastError()``
-    as an int."""
+    as an int. Where the wrapper chooses the grid (K3/K4), it keeps the
+    last launch's ``(n_split, chunk, blocks)`` in ``last_grid`` for the
+    logs."""
 
     name: str
     source: str            # the .cu file, relative to the repo root
     replaces: str          # the TPU kernel, file:line
     functions: Dict[str, Sequence]
     launches: int = 0
+    last_grid: Optional[Tuple[int, int, int]] = None
 
     @property
     def path(self) -> Path:
@@ -85,9 +88,10 @@ QUANTIZE_4BIT = Kernel(
     "(quantize_4bit_pallas :142)",
     {"qt_quantize_4bit": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P]})
 # (q, q_f32, k, v, [ks, vs,] table, lengths, out, B, KVH, QG, G, D, page,
-#  max_pages, n_pos, has_win, win, scale, has_cap, cap, inv_cap, stream)
+#  max_pages, n_pos, has_win, win, scale, has_cap, cap, inv_cap, n_split,
+#  chunk, group_rows, part, part_ml, stream)
 _DECODE_TAIL = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                _F, _F, _P]
+                _F, _F, _I, _I, _I, _P, _P, _P]
 FLASH_DECODE = Kernel(
     "flash_decode", "quantizations_tpu_torch/csrc/flash_decode.cu",
     "quantizations_tpu/ops/attention.py:38 _kernel "

@@ -298,46 +298,70 @@ def _agree(got, ref):
     assert (got.cpu() - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
+# (B, page, max_pages, lengths): one split (128 positions); many splits
+# (B = 1, 1152 positions: 9 splits of 128, each boundary inside a
+# 96-position page); and B = 3 over 1024 positions with short rows whose
+# later splits see nothing
+PAGED_LAYOUTS = {
+    "one_split": (3, 32, 4, (1, 40, None)),
+    "many_splits": (1, 96, 12, (None,)),
+    "short_rows": (3, 128, 8, (1, 200, None)),
+}
+
+
+def _paged_operands(rng, int8, layout, q_span, G, D, KVH=2):
+    """(q, k, v, ks, vs, table, lengths) for PAGED_LAYOUTS[layout]: each
+    row's pages shuffled over the pool, page 0 in the unused entries;
+    None in the lengths is the longest the table allows."""
+    B, page, mp, lens = PAGED_LAYOUTS[layout]
+    lens = [mp * page - q_span + 1 if n is None else n for n in lens]
+    need = [-(-(n + q_span - 1) // page) for n in lens]
+    P = 1 + sum(need)
+    k, v, ks, vs = _decode_operands(rng, int8, P, KVH, page, D)
+    perm = torch.from_numpy(rng.permutation(np.arange(1, P)).astype(np.int32))
+    table = torch.zeros((B, mp), dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(need):
+        table[b, :n] = perm[at:at + n]
+        at += n
+    q = torch.from_numpy(rng.standard_normal((B, KVH, q_span * G, D)).astype(
+        np.float32))
+    return q, k, v, ks, vs, table, torch.tensor(lens, dtype=torch.int32)
+
+
+def _paged(q, k, v, ks, vs, table, lengths, **kw):
+    if ks is None:
+        return tpa.paged_flash_decode_attention(q, k, v, table, 2, lengths,
+                                                **kw)
+    return tpa.paged_flash_decode_attention_i8(q, k, v, ks, vs, table, 2,
+                                               lengths, **kw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("q_span,G,window,softcap", [
     (1, 4, None, None), (1, 1, 7, 50.0), (3, 2, 2 ** 30, None),
-    (4, 8, 20, 30.0)])
+    (4, 8, 20, 30.0), (8, 4, None, None), (8, 4, 150, 30.0)])
+@pytest.mark.parametrize("layout", sorted(PAGED_LAYOUTS))
 def test_k3_k4_paged_match_plain_on_card(cuda, rng, int8, D, q_span, G,
-                                         window, softcap):
-    B, KVH, P, page, mp = 3, 2, 9, 32, 4
-    k, v, ks, vs = _decode_operands(rng, int8, P, KVH, page, D)
-    table = torch.zeros((B, mp), dtype=torch.int32)
-    perm = torch.from_numpy(rng.permutation(np.arange(1, P)).astype(np.int32))
-    table[0, :1], table[1, :2], table[2, :4] = perm[:1], perm[1:3], perm[3:7]
-    lengths = torch.tensor([1, 40, 128 - q_span + 1], dtype=torch.int32)
-    q = torch.from_numpy(rng.standard_normal((B, KVH, q_span * G, D)).astype(
-        np.float32))
+                                         window, softcap, layout):
+    ops = _paged_operands(rng, int8, layout, q_span, G, D)
     kw = dict(softcap=softcap, window=window, q_span=q_span,
               pages_per_step=2)
-    on = [t.to(cuda) for t in (q, k, v)]
-    if int8:
-        ref = tpa.paged_flash_decode_attention_i8(q, k, v, ks, vs, table, 2,
-                                                  lengths, **kw)
-        got = tpa.paged_flash_decode_attention_i8(
-            *on, ks.to(cuda), vs.to(cuda), table.to(cuda), 2,
-            lengths.to(cuda), **kw)
-    else:
-        ref = tpa.paged_flash_decode_attention(q, k, v, table, 2, lengths,
-                                               **kw)
-        got = tpa.paged_flash_decode_attention(*on, table.to(cuda), 2,
-                                               lengths.to(cuda), **kw)
+    ref = _paged(*ops, **kw)
+    got = _paged(*[None if t is None else t.to(cuda) for t in ops], **kw)
     _agree(got, ref)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("attend_len,window,softcap", [
-    (None, None, None), (96, 7, 50.0), (300, 2 ** 30, None)])
+@pytest.mark.parametrize("attend_len,window,softcap,S", [
+    (None, None, None, 320), (96, 7, 50.0, 320), (300, 2 ** 30, None, 320),
+    (None, None, None, 1300), (1200, 40, 30.0, 1300)])
 def test_k3_k4_slot_match_plain_on_card(cuda, rng, int8, attend_len, window,
-                                        softcap):
-    B, KVH, G, D, S = 3, 2, 4, 128, 320
+                                        softcap, S):
+    B, KVH, G, D = 3, 2, 4, 128
     k, v, ks, vs = _decode_operands(rng, int8, B, KVH, S, D)
     n = attend_len or S
     lengths = torch.tensor([1, 33, n], dtype=torch.int32)
@@ -363,6 +387,50 @@ def test_k3_k4_slot_match_plain_on_card(cuda, rng, int8, attend_len, window,
                                           window=window)
         _agree(got1, ref1)
     _agree(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("split", [(1, 1152), (72, 16), (24, 48), (3, 400)])
+@pytest.mark.parametrize("q_span", [1, 8])
+def test_k3_k4_any_split_matches_plain_on_card(cuda, rng, int8, split,
+                                               q_span):
+    """Splits the rule never picks (one split over 1152 positions, chunks
+    of one warp tile, of three, and not a multiple of the tile) at 4 and
+    32 query rows (both row tiles, and K4's two warp counts)."""
+    q, k, v, ks, vs, table, lengths = _paged_operands(
+        rng, int8, "many_splits", q_span, 4, 128)
+    ref = _paged(q, k, v, ks, vs, table, lengths, q_span=q_span)
+    c = [None if t is None else t.to(cuda) for t in (q, k, v, ks, vs, table,
+                                                     lengths)]
+    got = tat.launch_decode(c[0], c[1][2], c[2][2], c[6], page=96, n_pos=0,
+                            scale=128 ** -0.5, softcap=None, window=None,
+                            q_span=q_span, table=c[5],
+                            k_step=None if ks is None else c[3][2],
+                            v_step=None if ks is None else c[4][2],
+                            split=split)
+    _agree(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("layout", sorted(PAGED_LAYOUTS))
+def test_k3_k4_launches_are_bit_identical_on_card(cuda, rng, int8, layout):
+    """The splits are folded in a fixed order with no atomics: two
+    launches on the same inputs give the same bits."""
+    ops = [None if t is None else t.to(cuda)
+           for t in _paged_operands(rng, int8, layout, 8, 4, 128)]
+    kern = FLASH_DECODE_I8 if int8 else FLASH_DECODE
+    before = kern.launches
+    a = _paged(*ops, q_span=8)
+    b = _paged(*ops, q_span=8)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2      # one count per wrapper call
+    assert torch.equal(a, b)
+    # the record keeps the grid launched: the rule's split, 4 row groups
+    B, page, mp, _ = PAGED_LAYOUTS[layout]
+    n_split, chunk = tat.decode_split(mp * page, B * 2 * 4)
+    assert kern.last_grid == (n_split, chunk, B * 2 * 4 * n_split)
 
 
 @pytest.mark.cuda
