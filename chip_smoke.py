@@ -55,7 +55,7 @@ Phases, each raising on failure:
    ``use_flash_attention`` (K3) and with flash and an int8 KV cache
    (K4); NF4 at batch 1. Every generate must launch K1 exactly
    60 * (4 * 32 + 1) = 7740 times (and K3 or K4 exactly 59 * 32 = 1888
-   times) and give the same tokens on every run; tok/s is new tokens
+   times, K10 never) and give the same tokens on every run; tok/s is new tokens
    over the whole generate call, from CUDA events, the median of 5
    timed runs after a warm-up, printed with their min and max. A tiny
    model then checks the CUDA path against the CPU's plain path on the
@@ -89,7 +89,19 @@ Phases, each raising on failure:
    tensor-core body also at M = 6142, a row tail), FP4 and NF4, fp32,
    bf16 and ``bf16x2`` scales, stacked at layer 1 and unstacked: K8 at T
    in {8, 129, 200, 256, 512}, K1 through its tensor-core body at {129,
-   200, 256, 512}, K9 at T in {1, 4, 8, 16, 64, 128}. Their times: K9 per
+   200, 256, 512}, K9 at T in {1, 4, 8, 16, 64, 128}. The dense pair band
+   (the default route above the K1 band): K10 (pair-layout dequantize)
+   bit-exact against ``dense_weight`` and its plain version at every pair
+   shape, FP4 and NF4, fp32, bf16 and ``bf16x2`` scales, layer 1 of a
+   stack, bf16 and fp32 output; the band (K10, then bf16 tensor-core
+   products with fp32 output, ``nn/linear.py dense_product``) within
+   1e-5 * max|y| of
+   ``dense_matmul_pair_plain`` (fp32 products of the same bf16 values) at
+   T in {264, 512, 1024} on the four layer shapes, and the planar dense
+   band (K7, the same product) within 1e-5 * max|y| of its fp32 product;
+   the band per forward at T = 256, 512 and 1024 beside its bound, K10
+   alone, bf16 ``torch.matmul``, K8's route and (512, 1024) the plain
+   band. Their times: K9 per
    T = 1 decode forward over the projections it takes (qkv, o, down x
    32), K8 per 512-row prefill forward (all 128 projections), beside
    K1's CUDA-core body, the plain versions, dense bf16 ``torch.matmul``
@@ -101,11 +113,14 @@ Phases, each raising on failure:
    end on the model phase's parameters: ``pair_pipeline="manual"``
    generates at B = 1, 4, 8 with exact K9/K1 counts (MANUAL_LAUNCHES) and
    the model phase's tokens; ``QT_PREFILL_PAIR=1`` generates after a
-   1024-token prompt with exactly 256 K8 and 7612 K1 launches, and its
-   prefill forward is timed beside the dense pair path's; a
-   ``PagedEngine`` run without and with ``QT_PREFILL_PAIR`` (K8 launched
-   128 x ceil(rows / 512) times per admission forward above the K1 band
-   with a row count divisible by 8);
+   1024-token prompt with exactly 256 K8 and 7612 K1 launches (no K10),
+   and its prefill forward is timed on three routes in turns: K8, the
+   dense pair band (exactly 128 K10 launches) and the plain band, with
+   the band's last-token logits within 0.25 * max|logit| of the K8 and
+   the plain routes'; a ``PagedEngine`` run without and with
+   ``QT_PREFILL_PAIR`` (K8 launched 128 x ceil(rows / 512) times per
+   admission forward above the K1 band with a row count divisible by 8,
+   K10 128 times per other admission forward above the band);
 10. ``paged``: the paged engine. ``PagedEngine(slots=4, max_seq=2048,
    prefill_buckets=(64, 256), admit_width=4, prefix_cache=True,
    num_pages=40)`` (page 256) over the FP4 model serves 8 greedy
@@ -116,7 +131,9 @@ Phases, each raising on failure:
    int8 pool (its agreement with the bf16 tokens is printed). Each run
    must launch K3 (K4) exactly 32 * steps times, K1 at least
    129 * steps times and K1's tensor-core body exactly 128 times per
-   admission forward of 129-256 rows (20 chunks of 256: 2,560), finish
+   admission forward of 129-256 rows (20 chunks of 256: 2,560) and K10
+   exactly 128 times per admission forward above 256 rows (the batched
+   group's 3 rounds of 1024: 384), finish
    every request with 32 in-vocabulary
    tokens and return every page but the prefix cache's pins. Printed:
    aggregate new tokens per second, steps, admission group sizes, and
@@ -193,6 +210,12 @@ K9_TOKENS = (1, 4, 8, 16, 64, 128)
 K8_TIMED_T = 512               # one chunk of a prefill forward
 K8_GATE = 1e-5                 # max|K8 - plain| / max|plain|, and to K1
 K9_SHAPES = ("qkv", "o", "down")   # the decode projections K9 takes
+# the dense pair band (K10 and the bf16 product): its gate's row counts,
+# its timed row counts and those of the plain band (today's CPU route)
+BAND_TOKENS = (264, 512, 1024)
+BAND_TIMED_T = (256, 512, 1024)
+PLAIN_BAND_T = (512, 1024)
+BAND_GATE = 1e-5               # max|band - plain| / max|plain|
 PV_BATCHES = (1, 4, 8)
 # (K9, K1) launches per manual generate (60 tokens, a 16-token prompt):
 # K9 takes qkv and o up to 128 rows and down up to 16 (manual_vmem_ok),
@@ -922,6 +945,9 @@ def phase_model(dev, results):
             f"{B * serve.max_new_tokens}")
     results["launches"] = {k.name: k.launches for k in KERNELS}
     results["generate"] = runs
+    if results["launches"]["dequantize_4bit_pair"] != 0:
+        raise AssertionError("K10 launched by a generate: no projection of "
+                             "a 16-token prompt is above the K1 band")
     results["decode_logits"] = _decode_logit_check(fp4_params, dev)
     for k in (PAIR_MATMUL, QUANTIZE_4BIT, FLASH_DECODE, FLASH_DECODE_I8):
         if k.launches == 0:
@@ -1134,7 +1160,8 @@ def phase_planar_model(dev, params, results):
     from quantizations_tpu_torch.models.llama import (LLAMA3_8B, KVCache,
                                                       decode_step,
                                                       named_tensors, prefill)
-    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT, GEMV_4BIT,
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT,
+                                             DEQUANTIZE_4BIT_PAIR, GEMV_4BIT,
                                              KERNELS, PAIR_MATMUL,
                                              PLANAR_MATMUL)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
@@ -1175,7 +1202,8 @@ def phase_planar_model(dev, params, results):
         times, first = [], None
         for it in range(5 + 1):
             cache = KVCache.create(cfg, B, serve.max_seq_len, dev)
-            before = [k.launches for k in kerns + (PAIR_MATMUL,)]
+            pair_kerns = (PAIR_MATMUL, DEQUANTIZE_4BIT_PAIR)
+            before = [k.launches for k in kerns + pair_kerns]
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -1183,10 +1211,11 @@ def phase_planar_model(dev, params, results):
             end.record()
             end.synchronize()
             got = tuple(k.launches - b for k, b in
-                        zip(kerns + (PAIR_MATMUL,), before))
-            if got != want + (0,):
-                raise AssertionError(f"planar B={B}: (K5, K6, K7, K1) "
-                                     f"launched {got}, expected {want + (0,)}")
+                        zip(kerns + pair_kerns, before))
+            if got != want + (0, 0):
+                raise AssertionError(f"planar B={B}: (K5, K6, K7, K1, K10) "
+                                     f"launched {got}, expected "
+                                     f"{want + (0, 0)}")
             if toks.shape != (B, PLANAR_NEW) or int(toks.min()) < 0 or int(
                     toks.max()) >= cfg.vocab_size:
                 raise AssertionError(f"planar tokens out of range: "
@@ -1590,19 +1619,135 @@ def phase_pair_variants_check(dev, gen, results):
         f"{k9['max_err_over_max_y']:.3e} of max|y| from its plain version")
 
 
+def phase_dense_band_check(dev, gen, results):
+    """The dense pair band (above the K1 band on the reference's default
+    route). K10 bit-exact against ``dense_weight`` (bf16) and its plain
+    version (bf16 and fp32 output) at every Llama3-8B pair shape, FP4 and
+    NF4, fp32, bf16 and ``bf16x2`` scales, read at layer 1 of a stack of
+    two; then the band (K10 and the bf16 product with fp32 output) within
+    BAND_GATE * max|y| of ``dense_matmul_pair_plain`` (fp32 products of
+    the same bf16 values) at BAND_TOKENS on the four layer shapes, FP4
+    and NF4, and the planar dense band (K7, the same product) within
+    BAND_GATE * max|y| of the fp32 product of K7's weight."""
+    from quantizations_tpu_torch.nn.linear import (dense_matmul_pair,
+                                                   dense_matmul_pair_plain,
+                                                   dense_product,
+                                                   dense_weight)
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+                                             dequantize_4bit_kernel,
+                                             dequantize_4bit_pair,
+                                             dequantize_4bit_pair_plain,
+                                             pack_scale_pairs)
+
+    k10 = dict(cases=0, max_abs_err=0.0)
+    for name, M, K in K1_SHAPES:
+        wp2, s32 = _pair_operands(M, K, 2, dev, gen)
+        for qt in ("fp4", "nf4"):
+            for sk, s in (("fp32", s32), ("bf16", s32.to(torch.bfloat16)),
+                          ("bf16x2", pack_scale_pairs(s32))):
+                twin = dense_weight(wp2[1], s[1], qt, "pair")
+                for dt in (torch.bfloat16, torch.float32):
+                    before = DEQUANTIZE_4BIT_PAIR.launches
+                    got = dequantize_4bit_pair(wp2, s, qt, dt, layer_idx=1)
+                    ref = dequantize_4bit_pair_plain(wp2, s, qt, dt, 1)
+                    torch.cuda.synchronize()
+                    what = f"K10 {name} [{M}, {K}] {qt} {sk} -> {dt}"
+                    if DEQUANTIZE_4BIT_PAIR.launches != before + 1:
+                        raise AssertionError(f"{what}: not launched once")
+                    if got.shape != (M, K) or not torch.equal(
+                            got.view(torch.uint8), ref.view(torch.uint8)):
+                        raise AssertionError(f"{what}: not bit-exact with "
+                                             "its plain version")
+                    if dt == torch.bfloat16 and not torch.equal(
+                            got.view(torch.int16), twin.view(torch.int16)):
+                        raise AssertionError(f"{what}: not bit-exact with "
+                                             "dense_weight")
+                    k10["cases"] += 1
+                    del got, ref
+                del twin
+        del wp2, s32
+        torch.cuda.empty_cache()
+    log(f"  K10: {k10['cases']} cases bit-exact with its plain version "
+        "(and, to bf16, with dense_weight) at every pair shape")
+
+    band = dict(max_abs_err=0.0, max_err_over_max_y=0.0, worst_case=None,
+                cases=0)
+    planar = dict(band)
+    # why dense_product sums 2048-column chunks: one torch.mm over the whole
+    # K against the same plain version (recorded, not gated), by shape
+    one_mm = {}
+    for name, M, K in K1_SHAPES:
+        if name == "lm_head":
+            continue
+        wp2, s = _pair_operands(M, K, 1, dev, gen)
+        wp, sp = _planar_operands(M, K, 1, dev, gen)
+        x = torch.randn(max(BAND_TOKENS), K, generator=gen, device=dev)
+        for qt in ("fp4", "nf4"):
+            Wp = dequantize_4bit_kernel(wp[0], sp[0], qt, torch.bfloat16)
+            for T in BAND_TOKENS:
+                xt = x[:T]
+                y = dense_matmul_pair(xt, wp2[0], s[0], qt)
+                ref = dense_matmul_pair_plain(xt, wp2[0], s[0], qt)
+                torch.cuda.synchronize()
+                if y.shape != (T, M) or not torch.isfinite(y).all():
+                    raise AssertionError(f"band {name} T={T}: bad output")
+                _gate(band, f"band {name} [{M},{K}] {qt} T={T}", y, ref,
+                      BAND_GATE)
+                band["cases"] += 1
+                W = dequantize_4bit_pair(wp2[0], s[0], qt, torch.bfloat16)
+                flag = torch.backends.cuda.matmul
+                for reduced in (True, False):
+                    was = flag.allow_bf16_reduced_precision_reduction
+                    flag.allow_bf16_reduced_precision_reduction = reduced
+                    try:
+                        y1 = torch.mm(xt.to(torch.bfloat16), W.T,
+                                      out_dtype=torch.float32)
+                    finally:
+                        flag.allow_bf16_reduced_precision_reduction = was
+                    key = f"{name} flag {'on' if reduced else 'off'}"
+                    one_mm[key] = max(one_mm.get(key, 0.0), (
+                        (y1 - ref).abs().max() / ref.abs().max()).item())
+                del W, y1
+                xb = xt.to(torch.bfloat16)
+                _gate(planar, f"planar band {name} [{M},{K}] {qt} T={T}",
+                      dense_product(xb, Wp), xb.float() @ Wp.float().T,
+                      BAND_GATE)
+                planar["cases"] += 1
+            del Wp
+        del wp2, s, wp, sp, x
+        torch.cuda.empty_cache()
+    results["dense_band_err"] = dict(dequantize_4bit_pair=k10, pair=band,
+                                     planar=planar, one_mm_over_max_y=one_mm)
+    log(f"  dense pair band: {band['cases']} cases at T {BAND_TOKENS}, "
+        f"worst {band['max_err_over_max_y']:.3e} of max|y| "
+        f"({band['worst_case']}) from its fp32 plain version; planar dense "
+        f"band: {planar['cases']} cases, worst "
+        f"{planar['max_err_over_max_y']:.3e} ({planar['worst_case']}); one "
+        "torch.mm over the whole K instead (no gate; flag: torch.backends."
+        "cuda.matmul.allow_bf16_reduced_precision_reduction): " + ", ".join(
+            f"{n} {e:.3e}" for n, e in one_mm.items()))
+
+
 def phase_pair_variants_time(dev, gen, results):
     """K9 at T = 1 on the projections that take it at decode (qkv, o,
     down) beside K1 and dense bf16 ``torch.matmul``; K8 at T = 512 on the
     four layer projections beside K1's CUDA-core body (``k1_ms``: above
-    128 rows K1 itself runs K8's body), the dense pair path (the route
-    there without ``QT_PREFILL_PAIR``), dense bf16 ``torch.matmul`` and
-    the plain version. Weights
-    rotate over a 32-layer stack; per-forward sums weight each shape by
-    its 32 launches."""
-    from quantizations_tpu_torch.nn.linear import dense_matmul_pair
+    128 rows K1 itself runs K8's body), the dense pair band
+    (``dense_pair_ms``: the route there without ``QT_PREFILL_PAIR``), the
+    plain band (``plain_band_ms``: the fp32 route before K10), dense bf16
+    ``torch.matmul`` and the plain version. Then the dense pair band at
+    BAND_TIMED_T beside its bound, K10 alone (its bound and plain
+    version), bf16 ``torch.matmul`` on a ready weight, K8's route
+    (``pair_prefill_matmul``, 512-row chunks) and, at PLAIN_BAND_T, the
+    plain band. Weights rotate over a 32-layer stack; per-forward sums
+    weight each shape by its 32 launches."""
+    from quantizations_tpu_torch.nn.linear import (dense_matmul_pair,
+                                                   dense_matmul_pair_plain)
+    from quantizations_tpu_torch.ops import (dequantize_4bit_pair,
+                                             dequantize_4bit_pair_plain)
     from quantizations_tpu_torch.ops import qmatmul as qm
 
-    rows = []
+    rows, band = [], []
     for name, M, K in K1_SHAPES:
         if name == "lm_head":
             continue
@@ -1610,8 +1755,42 @@ def phase_pair_variants_time(dev, gen, results):
         wp2, scales = _pair_operands(M, K, L, dev, gen)
         R = max(2, math.ceil(4 * L2_BYTES / (M * K * 2)))
         Wd = torch.randn(R, M, K, generator=gen, device=dev).to(torch.bfloat16)
-        x = torch.randn(K8_TIMED_T, K, generator=gen,
+        x = torch.randn(max(BAND_TIMED_T), K, generator=gen,
                         device=dev).to(torch.bfloat16)
+        # the dense pair band and K10 alone (K10's work does not depend on T)
+        k10 = device_ms(lambda i: dequantize_4bit_pair(
+            wp2, scales, "fp4", torch.bfloat16, layer_idx=i % L), 32)
+        k10_plain = device_ms(lambda i: dequantize_4bit_pair_plain(
+            wp2, scales, "fp4", torch.bfloat16, 0), 1, warmup=1)
+        k10_bytes = M * K // 2 + M * (K // 64) * 4 + M * K * 2
+        k10_bound = bound(k10_bytes, M * K, FP32_FLOP_PER_S)[0]
+        band_at = {}
+        for T in BAND_TIMED_T:
+            xt = x[:T].contiguous()
+            ms = device_ms(lambda i: dense_matmul_pair(
+                xt, wp2[i % L], scales[i % L], "fp4"), 16, warmup=2)
+            lms = device_ms(lambda i: torch.matmul(xt, Wd[i % R].T), 32)
+            k8 = device_ms(lambda i: qm.pair_prefill_matmul(
+                wp2, scales, xt, "fp4", layer_idx=i % L), 16, warmup=2)
+            plain_band = (device_ms(lambda i: dense_matmul_pair_plain(
+                xt, wp2[i % L], scales[i % L], "fp4"), 2, warmup=1)
+                if T in PLAIN_BAND_T else None)
+            nbytes = M * K // 2 + M * (K // 64) * 4 + T * K * 2 + T * M * 4
+            bms, by = bound(nbytes, 2 * T * M * K)
+            band_at[T] = dict(
+                shape=name, M=M, K=K, T=T, ms=ms, library_ms=lms, k8_ms=k8,
+                plain_ms=plain_band, bound_ms=bms, bound_by=by, k10_ms=k10,
+                k10_plain_ms=k10_plain, k10_bound_ms=k10_bound,
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=2 * T * M * K / BF16_FLOP_PER_S * 1e3)
+            band.append(band_at[T])
+            log(f"  dense pair band {name:8s} T={T:4d}: {ms * 1e3:9.2f} us  "
+                f"bound {bms * 1e3:8.2f} us ({by})  K10 {k10 * 1e3:8.2f} us "
+                f"(bound {k10_bound * 1e3:8.2f}, plain {k10_plain * 1e3:9.1f})"
+                f"  torch.matmul bf16 {lms * 1e3:8.2f} us  K8 route "
+                f"{k8 * 1e3:9.2f} us"
+                + ("" if plain_band is None else
+                   f"  plain band {plain_band * 1e3:9.2f} us"))
         cases = [("pair_prefill", K8_TIMED_T, qm.matmul_4bit_pair_prefill,
                   qm.matmul_4bit_pair_prefill_plain)]
         if name in K9_SHAPES:
@@ -1619,7 +1798,7 @@ def phase_pair_variants_time(dev, gen, results):
                              qm.matmul_4bit_pair_manual_plain))
         for kname, T, fn, plain in cases:
             xt = x[:T].contiguous()
-            slow = T > 256                  # K1 and the dense path at 512
+            slow = T > 256                  # K1 and the dense band at 512
             ms = device_ms(lambda i: fn(wp2[i % L], scales[i % L], xt,
                                         "fp4"), 64)
             k1 = device_ms(lambda i: qm.matmul_4bit_pair_cuda_core(
@@ -1627,14 +1806,15 @@ def phase_pair_variants_time(dev, gen, results):
             pms = device_ms(lambda i: plain(wp2[0], scales[0], xt, "fp4"),
                             2, warmup=1)
             lms = device_ms(lambda i: torch.matmul(xt, Wd[i % R].T), 64)
-            dense = (device_ms(lambda i: dense_matmul_pair(
-                xt, wp2[i % L], scales[i % L], "fp4"), 4, warmup=1)
-                if slow else None)
+            # the band's times at this T (timed above; 512 is in both)
+            dense = band_at[T]["ms"] if slow else None
+            plain_band = band_at[T]["plain_ms"] if slow else None
             nbytes = M * K // 2 + M * (K // 64) * 4 + T * K * 2 + T * M * 4
             bms, by = bound(nbytes, 2 * T * M * K)
             rows.append(dict(kernel=kname, shape=name, M=M, K=K, T=T, ms=ms,
                              k1_ms=k1, plain_ms=pms, library_ms=lms,
-                             dense_pair_ms=dense, bound_ms=bms, bound_by=by,
+                             dense_pair_ms=dense, plain_band_ms=plain_band,
+                             bound_ms=bms, bound_by=by,
                              bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                              ops_ms=2 * T * M * K / BF16_FLOP_PER_S * 1e3))
             log(f"  {kname:12s} {name:8s} T={T:3d}: {ms * 1e3:9.2f} us  "
@@ -1642,7 +1822,8 @@ def phase_pair_variants_time(dev, gen, results):
                 f"plain {pms * 1e3:9.1f} us  torch.matmul bf16 "
                 f"{lms * 1e3:8.2f} us"
                 + ("" if dense is None else
-                   f"  dense pair path {dense * 1e3:9.2f} us"))
+                   f"  dense pair band {dense * 1e3:9.2f} us, plain band "
+                   f"{plain_band * 1e3:9.2f} us"))
         del wp2, scales, Wd, x
         torch.cuda.empty_cache()
     per = {}
@@ -1653,6 +1834,7 @@ def phase_pair_variants_time(dev, gen, results):
                        "bytes_ms", "ops_ms")}
         if kname == "pair_prefill":
             f["dense_pair_ms"] = LAYERS * sum(r["dense_pair_ms"] for r in sel)
+            f["plain_band_ms"] = LAYERS * sum(r["plain_band_ms"] for r in sel)
         f["bound_by"] = ("bytes" if f["bytes_ms"] >= f["ops_ms"]
                          else "operations")
         f["launches"] = LAYERS * len(sel)
@@ -1665,9 +1847,31 @@ def phase_pair_variants_time(dev, gen, results):
             f"{f['ops_ms']:.3f}), K1 {f['k1_ms']:.3f} ms, plain "
             f"{f['plain_ms']:.1f} ms, torch.matmul bf16 "
             f"{f['library_ms']:.3f} ms"
-            + (f", dense pair path {f['dense_pair_ms']:.3f} ms"
-               if "dense_pair_ms" in f else ""))
-    results["pair_variants_time"] = dict(rows=rows, per_forward=per)
+            + (f", dense pair band {f['dense_pair_ms']:.3f} ms, plain band "
+               f"{f['plain_band_ms']:.3f} ms" if "dense_pair_ms" in f
+               else ""))
+    band_per = {}
+    for T in BAND_TIMED_T:
+        sel = [r for r in band if r["T"] == T]
+        f = {k: LAYERS * sum(r[k] for r in sel)
+             for k in ("ms", "library_ms", "k8_ms", "bound_ms", "bytes_ms",
+                       "ops_ms", "k10_ms", "k10_plain_ms", "k10_bound_ms")}
+        f["plain_ms"] = (LAYERS * sum(r["plain_ms"] for r in sel)
+                         if T in PLAIN_BAND_T else None)
+        f["bound_by"] = ("bytes" if f["bytes_ms"] >= f["ops_ms"]
+                         else "operations")
+        f["launches"] = LAYERS * len(sel)
+        band_per[T] = f
+        log(f"  dense pair band per forward at T={T} ({f['launches']} K10 "
+            f"launches): {f['ms']:.3f} ms, bound {f['bound_ms']:.3f} ms "
+            f"({f['bound_by']}); K10 {f['k10_ms']:.3f} ms (bound "
+            f"{f['k10_bound_ms']:.3f}, plain {f['k10_plain_ms']:.1f}); "
+            f"torch.matmul bf16 {f['library_ms']:.3f} ms; K8 route "
+            f"{f['k8_ms']:.3f} ms"
+            + ("" if f["plain_ms"] is None else
+               f"; plain band {f['plain_ms']:.1f} ms"))
+    results["pair_variants_time"] = dict(rows=rows, per_forward=per,
+                                         band=band, band_per_forward=band_per)
 
 
 def phase_body_time(dev, gen, results):
@@ -1816,8 +2020,10 @@ def phase_pair_variants_model(dev, params, results):
     from quantizations_tpu_torch.config import QuantConfig, ServeConfig
     from quantizations_tpu_torch.models.llama import (LLAMA3_8B, KVCache,
                                                       prefill)
-    from quantizations_tpu_torch.ops import (KERNELS, PAIR_MANUAL,
-                                             PAIR_MATMUL, PAIR_PREFILL)
+    from quantizations_tpu_torch.nn import linear as tlin
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR, KERNELS,
+                                             PAIR_MANUAL, PAIR_MATMUL,
+                                             PAIR_PREFILL)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
 
     base = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
@@ -1836,8 +2042,9 @@ def phase_pair_variants_model(dev, params, results):
     for B in PV_BATCHES:
         want = MANUAL_LAUNCHES[B]
         toks, times = _generate_runs(gen, params, ids.repeat(B, 1), manual,
-                                     serve, dev, (PAIR_MANUAL, PAIR_MATMUL),
-                                     want, f"manual B={B}")
+                                     serve, dev, (PAIR_MANUAL, PAIR_MATMUL,
+                                                  DEQUANTIZE_4BIT_PAIR),
+                                     want + (0,), f"manual B={B}")
         if toks.tolist() != grid_tokens[B]:
             raise AssertionError(f"manual B={B}: tokens differ from the grid "
                                  "run's")
@@ -1868,7 +2075,8 @@ def phase_pair_variants_model(dev, params, results):
         for k in KERNELS:
             k.launches = 0
         toks, times = _generate_runs(gen, params, long_ids, base, long_serve,
-                                     dev, (PAIR_PREFILL, PAIR_MATMUL), want,
+                                     dev, (PAIR_PREFILL, PAIR_MATMUL,
+                                           DEQUANTIZE_4BIT_PAIR), want + (0,),
                                      "QT_PREFILL_PAIR generate")
         results["launches_pair_prefill"] = {k.name: k.launches
                                             for k in KERNELS}
@@ -1880,17 +2088,22 @@ def phase_pair_variants_model(dev, params, results):
         f"{60 / min(times):.2f}); K8/K1 launches {want} each; the same "
         "tokens every run")
 
-    # the prefill forward alone, with the knob (K8) and without (the dense
-    # pair path), in turns
-    ms = {"k8": [], "dense": []}
+    # the prefill forward alone on three routes, in turns: with the knob
+    # (K8), without it (the dense pair band: K10 and the bf16 product) and
+    # the plain band (the fp32 route before K10, patched in here only)
+    band_fn = tlin.dense_matmul_pair
+    ms = {"k8": [], "band": [], "plain": []}
+    want_k10 = {"k8": 0, "band": 4 * layers, "plain": 0}
     first = {}
     with torch.inference_mode():
-        for route in ("k8", "dense", "dense", "k8", "k8", "dense", "dense",
-                      "k8"):
+        for route in ("k8", "band", "plain", "plain", "band", "k8") * 2:
             if route == "k8":
                 os.environ["QT_PREFILL_PAIR"] = "1"
+            elif route == "plain":
+                tlin.dense_matmul_pair = tlin.dense_matmul_pair_plain
             try:
                 cache = KVCache.create(base, 1, LONG_PROMPT + 128, dev)
+                before = DEQUANTIZE_4BIT_PAIR.launches
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -1900,26 +2113,45 @@ def phase_pair_variants_model(dev, params, results):
                 end.synchronize()
             finally:
                 os.environ.pop("QT_PREFILL_PAIR", None)
+                tlin.dense_matmul_pair = band_fn
+            got = DEQUANTIZE_4BIT_PAIR.launches - before
+            if got != want_k10[route]:
+                raise AssertionError(f"{route} prefill forward: K10 launched "
+                                     f"{got} times, expected "
+                                     f"{want_k10[route]}")
             ms[route].append(start.elapsed_time(end))
             first.setdefault(route, logits.float().cpu())
             del cache
-    rel = ((first["k8"] - first["dense"]).abs().max()
-           / first["dense"].abs().max()).item()
+
+    def apart(a, b):
+        return ((first[a] - first[b]).abs().max()
+                / first[b].abs().max()).item()
+
+    rel, rel_plain = apart("k8", "band"), apart("band", "plain")
     if not rel <= 0.25:
         raise AssertionError(f"K8 prefill logits {rel:.3e} of max|logit| "
-                             "from the dense path's")
+                             "from the dense pair band's")
+    if not rel_plain <= 0.25:
+        raise AssertionError(f"dense pair band prefill logits "
+                             f"{rel_plain:.3e} of max|logit| from the plain "
+                             "band's")
     pf = {r: dict(median_ms=statistics.median(v), all_ms=v)
           for r, v in ms.items()}
     log(f"  prefill forward of {LONG_PROMPT} rows: K8 route "
-        f"{pf['k8']['median_ms']:.2f} ms, dense pair path "
-        f"{pf['dense']['median_ms']:.2f} ms (medians of 4, in turns); "
-        f"last-token logits {rel:.3e} of max|logit| apart (a layout check: "
-        "the dense path rounds fp32 scales)")
+        f"{pf['k8']['median_ms']:.2f} ms, dense pair band "
+        f"{pf['band']['median_ms']:.2f} ms ({4 * layers} K10 launches), plain"
+        f" band {pf['plain']['median_ms']:.2f} ms (medians of 4, in turns);"
+        f" last-token logits: K8 {rel:.3e} of max|logit| from the band (a "
+        f"layout check: the band rounds fp32 scales), the band {rel_plain:.3e}"
+        " from the plain band (the same bf16 values, fp32 sums in another "
+        "order)")
     results["pair_prefill_generate"] = dict(
         prompt=LONG_PROMPT, tok_per_s=60 / t, generate_s_all=times,
         launches_per_generate=dict(pair_prefill=want[0],
                                    pair_matmul=want[1]),
-        prefill_forward=pf, logits_k8_vs_dense=rel, tokens=toks.tolist())
+        prefill_forward=pf, k10_per_forward=want_k10,
+        logits_k8_vs_band=rel, logits_band_vs_plain=rel_plain,
+        tokens=toks.tolist())
 
 
 def phase_pair_variants_paged(dev, params, results):
@@ -1967,6 +2199,7 @@ def phase_pair_variants(dev, gen, results, params):
     their times, the knobs end to end, and the paged engine with
     ``QT_PREFILL_PAIR``."""
     phase_pair_variants_check(dev, gen, results)
+    phase_dense_band_check(dev, gen, results)
     phase_pair_variants_time(dev, gen, results)
     phase_body_time(dev, gen, results)
     phase_pair_variants_model(dev, params, results)
@@ -1990,8 +2223,10 @@ def _serve_paged(params, base, prompts, kv):
     run and read just after it. Returns the run's record: wall time split
     into admission and decode, steps, admission group sizes, the rows of
     every admission forward, launches, stats and tokens."""
+    from quantizations_tpu_torch.models.llama import prefill_pair_enabled
     from quantizations_tpu_torch.nn.linear import pair_max_tokens
-    from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+                                             FLASH_DECODE, FLASH_DECODE_I8,
                                              KERNELS, PAIR_MATMUL,
                                              PAIR_MATMUL_MMA,
                                              PAIR_MMA_MIN_TOKENS)
@@ -2076,6 +2311,17 @@ def _serve_paged(params, base, prompts, kv):
         raise AssertionError(f"K1's tensor-core body launched {mma} times, "
                              f"expected {want_mma} (admission rows "
                              f"{spent['rows']})")
+    # K10: every projection of an admission forward above the K1 band (4
+    # per layer), unless QT_PREFILL_PAIR sends it to K8 (rows % 8 == 0)
+    knob = prefill_pair_enabled()
+    k10 = launches[DEQUANTIZE_4BIT_PAIR.name]
+    want_k10 = 4 * layers * sum(
+        1 for r in spent["rows"]
+        if r > pair_max_tokens() and not (knob and r % 8 == 0))
+    if k10 != want_k10 or (want_k10 == 0 and not knob):
+        raise AssertionError(f"K10 launched {k10} times, expected "
+                             f"{want_k10} (admission rows {spent['rows']}"
+                             f"{', QT_PREFILL_PAIR' if knob else ''})")
     usable = eng.alloc.num_usable
     if (st["pages_free"] != usable - st["prefix_cache_pages"]
             or st["live_tokens"] != 0 or st["finished"] != len(prompts)):
@@ -2089,12 +2335,13 @@ def _serve_paged(params, base, prompts, kv):
                tok_per_s=new / wall, admit_s=spent["admit_s"],
                decode_s=wall - spent["admit_s"], steps=st["steps"],
                admissions=spent["groups"], admission_rows=spent["rows"],
-               mma_launches=mma, launches=launches, stats=st, tokens=toks)
+               mma_launches=mma, k10_launches=k10, launches=launches,
+               stats=st, tokens=toks)
     log(f"  {kv} pool: {new} new tokens in {wall:.3f} s = "
         f"{new / wall:.2f} tok/s aggregate; {st['steps']} steps; "
         f"admission {spent['admit_s']:.3f} s (groups {spent['groups']}),"
         f" decode {wall - spent['admit_s']:.3f} s; K1's tensor-core body "
-        f"{mma} launches (as reckoned); launches {launches}; "
+        f"{mma} launches, K10 {k10} (as reckoned); launches {launches}; "
         f"pages free {st['pages_free']} of {usable} "
         f"({st['prefix_cache_pages']} pinned by the prefix cache)")
     return run
@@ -2289,6 +2536,32 @@ def kernel_entries(results, kernels_seq):
                           .get("rows", []) if r["kernel"] == k.name])
             if k.name == "pair_prefill":
                 entry["dense_pair_ms"] = f.get("dense_pair_ms")
+        elif k.name == "dequantize_4bit_pair":
+            pv = results.get("pair_variants_time", {})
+            f = pv.get("band_per_forward", {}).get(max(BAND_TIMED_T), {})
+            err = results.get("dense_band_err", {})
+            entry.update(
+                launches=paged_launches.get(k.name, 0),
+                max_abs_err=err.get(k.name, {}).get("max_abs_err"),
+                band_max_err_over_max_y=err.get("pair", {}).get(
+                    "max_err_over_max_y"),
+                ms=f.get("ms"), plain_ms=f.get("plain_ms"),
+                bound_ms=f.get("bound_ms"), bound_by=f.get("bound_by"),
+                library_ms=f.get("library_ms"), k10_ms=f.get("k10_ms"),
+                k10_bound_ms=f.get("k10_bound_ms"),
+                k10_plain_ms=f.get("k10_plain_ms"), k8_route_ms=f.get("k8_ms"),
+                unit=f"the dense pair band per {max(BAND_TIMED_T)}-row "
+                     f"forward: {LAYERS} layers x 4 projections, each one K10 "
+                     "launch and dense_product (bf16 torch.mm/addmm with "
+                     "fp32 output, 2048 columns of K each); "
+                     "max_abs_err: K10 against its plain version (bit-exact); "
+                     "plain_ms: the plain band (fp32 products, the route "
+                     "before K10); library_ms: dense bf16 torch.matmul on "
+                     "ready weights; k10_*: K10 alone; k8_route_ms: the "
+                     "QT_PREFILL_PAIR route; launches: the paged engine's "
+                     "first bf16 run",
+                per_forward=pv.get("band_per_forward"),
+                by_shape=pv.get("band"))
         elif k.name == "dequantize_4bit":
             rows = results.get("planar_time", {}).get("k7", [])
             main = next((r for r in rows if r["M"] == 14336

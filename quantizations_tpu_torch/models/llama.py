@@ -33,7 +33,7 @@ from ..nn.linear import (
     GEMV_MAX_TOKENS,
     QMATMUL_MAX_TOKENS,
     apply_4bit,
-    dense_weight,
+    dense_product,
     gemv_activation,
     kernel_activation,
     manual_ok,
@@ -56,7 +56,11 @@ from ..ops.qmatmul import (
     planar_to_pair,
     prefill_pair_ok,
 )
-from ..ops.quantize import quantize_4bit_kernel
+from ..ops.quantize import (
+    dequantize_4bit_kernel,
+    dequantize_4bit_pair,
+    quantize_4bit_kernel,
+)
 from ..quant.codebooks import get_4bit_code
 from ..quant.functional import (
     dequantize_absmax,
@@ -545,8 +549,11 @@ def _ql(x2: torch.Tensor, lin: QLinear, qcfg: QuantConfig,
     """Apply a (possibly layer-stacked) QLinear, in the JAX package's
     order (``models/llama.py:725-799``):
 
-    - ``dense_twin``: the dense bf16 weight of layer ``idx``, then
-      ``torch.matmul`` (fp32 sums of bf16 values);
+    - ``dense_twin``: the dense bf16 weight of layer ``idx`` (K10 for
+      pair words, K7 for planar; their plain versions on the CPU, bit for
+      bit ``dense_weight``), then
+      :func:`~quantizations_tpu_torch.nn.linear.dense_product` (fp32 sums
+      of bf16 values);
     - stacked pair words in the kernel band: K9 (``pair_pipeline ==
       "manual"`` and :func:`~quantizations_tpu_torch.nn.linear.manual_ok`)
       or K1, on layer ``idx`` in place;
@@ -560,8 +567,10 @@ def _ql(x2: torch.Tensor, lin: QLinear, qcfg: QuantConfig,
     if qcfg.dense_twin:
         if lin.wp.dim() == 3:
             lin = QLinear(wp=lin.wp[idx], scales=lin.scales[idx])
-        W = dense_weight(lin.wp, lin.scales, qt, lin.layout)
-        return x2.to(torch.bfloat16).float() @ W.float().T
+        dq = (dequantize_4bit_pair if lin.layout == "pair"
+              else dequantize_4bit_kernel)
+        W = dq(lin.wp, lin.scales, qt, dtype=torch.bfloat16)
+        return dense_product(x2.to(torch.bfloat16), W)
     if lin.wp.dim() == 3:
         tokens = x2.shape[0]
         if lin.layout == "pair":

@@ -6,6 +6,8 @@ from .linear import (
     Params4bit,
     apply_4bit,
     dense_matmul_pair,
+    dense_matmul_pair_plain,
+    dense_product,
     dense_weight,
     dequantize_permuted,
     pair_max_tokens,
@@ -13,5 +15,5 @@ from .linear import (
 )
 
 __all__ = ["Linear4bit", "Params4bit", "apply_4bit", "dense_matmul_pair",
-           "dense_weight", "dequantize_permuted", "pair_max_tokens",
-           "permute_cols"]
+           "dense_matmul_pair_plain", "dense_product", "dense_weight",
+           "dequantize_permuted", "pair_max_tokens", "permute_cols"]

@@ -3,7 +3,9 @@ the 4-bit matmul dispatch :func:`apply_4bit`, :class:`Params4bit` and the
 bnb-compatible :class:`Linear4bit`.
 
 Pair-layout weights take kernel K1 (``ops/qmatmul.py``) up to
-:func:`pair_max_tokens` token rows and the dense pair matmul above it;
+:func:`pair_max_tokens` token rows and the dense pair band above it (on
+the card K10 dequantizes, ``ops/quantize.py``, and bf16 tensor-core
+products with fp32 output follow, :func:`dense_product`);
 with ``pair_pipeline="manual"`` the band's projections that pass the JAX
 package's gate (unpacked scales, ``M % 128 == 0``, ``manual_vmem_ok``)
 take K9 instead, K1's function bit for bit.
@@ -11,8 +13,9 @@ Planar weights follow the JAX package's bands: K5 (``ops/qmatmul.py``)
 up to :data:`QMATMUL_MAX_TOKENS` rows when the row count is one the TPU
 kernel tiles (``qmm_ok``), else K6 (``ops/gemv.py``) up to
 :data:`GEMV_MAX_TOKENS` rows, else K7 (``ops/quantize.py``) dequantizes
-the weight and ``torch.matmul`` multiplies. On CPU tensors each kernel's
-plain version runs in its band.
+the weight and the same bf16 product follows. On CPU tensors each
+kernel's plain version runs in its band, and the dense products are fp32
+matmuls of the same values.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..config import FP4_DECODES, PAIR_PIPELINES
 from ..device import resolve_device
 from ..ops.gemv import _SHIFTS, gemv_4bit, pack_i32_rows
 from ..ops.lut import lut_fp4_bits, lut_tree
-from ..ops.quantize import dequantize_4bit_kernel
+from ..ops.quantize import dequantize_4bit_kernel, dequantize_4bit_pair
 from ..ops.qmatmul import (
     manual_vmem_ok,
     matmul_4bit_pair,
@@ -43,10 +46,12 @@ from ..quant.codebooks import get_4bit_code
 from ..quant.functional import dequantize_absmax, quantize_4bit
 from ..quant.state import QuantState
 
-__all__ = ["apply_4bit", "dense_matmul_pair", "dequantize_permuted",
+__all__ = ["apply_4bit", "dense_matmul_pair", "dense_matmul_pair_plain",
+           "dense_product", "dequantize_permuted",
            "permute_cols", "dense_weight", "kernel_activation",
            "pair_max_tokens", "qmm_ok", "gemv_activation", "manual_ok",
            "Params4bit", "Linear4bit", "PAIR_QMATMUL_MAX_TOKENS",
+           "DENSE_PRODUCT_CHUNK_K",
            "QMATMUL_MAX_TOKENS", "GEMV_MAX_TOKENS"]
 
 # Planar bands: K6 (the fp32 GEMV) takes at most this many token rows...
@@ -56,6 +61,9 @@ QMATMUL_MAX_TOKENS = 64
 
 # Default upper token count of the fused pair kernel band.
 PAIR_QMATMUL_MAX_TOKENS = 256
+
+# Columns of K per tensor-core product in :func:`dense_product`.
+DENSE_PRODUCT_CHUNK_K = 2048
 
 
 def pair_max_tokens() -> int:
@@ -145,14 +153,36 @@ def dense_weight(wp: torch.Tensor, scales: torch.Tensor, quant_type: str,
     return Wp.reshape(M, 8, K // 8).transpose(1, 2).reshape(M, K)
 
 
-def dense_matmul_pair(x2: torch.Tensor, wp2: torch.Tensor,
-                      scales: torch.Tensor, quant_type: str,
-                      compute_dtype: Any = torch.bfloat16) -> torch.Tensor:
-    """Matmul straight from the pair layout above the kernel band:
+def dense_product(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``x [T, K] @ W[M, K].T -> fp32 [T, M]`` for the dense bands, the
+    reference's ``jnp.dot(..., preferred_element_type=jnp.float32)``. On
+    the card a bf16 or fp16 ``x`` and ``W`` take one tensor-core product
+    with fp32 output per :data:`DENSE_PRODUCT_CHUNK_K` columns of K
+    (``torch.mm`` / ``torch.addmm(..., out_dtype=torch.float32)`` into one
+    fp32 output): exact products, and fp32 partial sums added in fp32.
+    On an H100 one product over the whole K = 14336 came out 1.9e-5 of
+    max|y| from the fp32 product of the same values (the tensor cores'
+    accumulator over a long K), the chunks within 4.1e-6. Otherwise, and
+    on the CPU, an fp32 matmul of the same values."""
+    if not x.is_cuda or x.dtype == torch.float32:
+        return x.float() @ W.float().T
+    c = DENSE_PRODUCT_CHUNK_K
+    y = torch.mm(x[:, :c], W[:, :c].T, out_dtype=torch.float32)
+    for k0 in range(c, x.shape[1], c):
+        torch.addmm(y, x[:, k0:k0 + c], W[:, k0:k0 + c].T,
+                    out_dtype=torch.float32, out=y)
+    return y
+
+
+def dense_matmul_pair_plain(x2: torch.Tensor, wp2: torch.Tensor,
+                            scales: torch.Tensor, quant_type: str,
+                            compute_dtype: Any = torch.bfloat16
+                            ) -> torch.Tensor:
+    """Plain version of the dense pair band, the JAX package's own steps:
     dequantize the even-row and odd-row halves as two ``[M/2, K]``
     matrices in the pair column order (fp32 decode x fp32 scale, cast to
-    ``compute_dtype``), multiply each, and interleave the output columns.
-    Returns fp32 ``[T, M]``."""
+    ``compute_dtype``), multiply each in fp32, and interleave the output
+    columns. Returns fp32 ``[T, M]``."""
     if scales.dtype == torch.int32:
         scales = unpack_scale_pairs(scales)
     M2, K4 = wp2.shape[-2:]
@@ -170,6 +200,22 @@ def dense_matmul_pair(x2: torch.Tensor, wp2: torch.Tensor,
     return torch.stack(ys, dim=-1).reshape(T, 2 * M2)
 
 
+def dense_matmul_pair(x2: torch.Tensor, wp2: torch.Tensor,
+                      scales: torch.Tensor, quant_type: str,
+                      compute_dtype: Any = torch.bfloat16) -> torch.Tensor:
+    """The dense pair band above the kernel band: ``x2 [T, K]`` times the
+    pair words' weight, fp32 ``[T, M]``. On the card K10 dequantizes the
+    words to ``compute_dtype`` ``[M, K]`` in the original order (fp32
+    decode x fp32 scale, rounded once) and :func:`dense_product`
+    multiplies; the weight is not kept. A CPU tensor runs
+    :func:`dense_matmul_pair_plain`."""
+    if not x2.is_cuda:
+        return dense_matmul_pair_plain(x2, wp2, scales, quant_type,
+                                       compute_dtype)
+    W = dequantize_4bit_pair(wp2, scales, quant_type, dtype=compute_dtype)
+    return dense_product(x2.to(compute_dtype), W)
+
+
 def apply_4bit(x2: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
                quant_type: str, compute_dtype: Any = torch.bfloat16,
                pair_pipeline: str = "grid", fp4_decode: str = "arith"
@@ -185,7 +231,7 @@ def apply_4bit(x2: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
     ``T <= QMATMUL_MAX_TOKENS`` with :func:`qmm_ok`, else K6 for
     ``T <= GEMV_MAX_TOKENS``, else the dense path: K7 dequantizes to
     ``compute_dtype`` (fp32 decode x fp32 scale, the values of the JAX
-    package's XLA dequant) and one fp32 ``torch.matmul`` follows."""
+    package's XLA dequant) and :func:`dense_product` multiplies."""
     tokens = x2.shape[0]
     spacked = scales.dtype == torch.int32
     pair = spacked or wp.shape[-2] != scales.shape[-2]
@@ -206,7 +252,7 @@ def apply_4bit(x2: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
         return gemv_4bit(wp, scales, gemv_activation(x2, compute_dtype),
                          quant_type)
     W = dequantize_4bit_kernel(wp, scales, quant_type, dtype=compute_dtype)
-    return x2.to(compute_dtype).float() @ W.float().T
+    return dense_product(x2.to(compute_dtype), W)
 
 
 @dataclasses.dataclass

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` source holds one or more kernels with a plain C
 interface (``flash_decode.cu`` holds K3 and K4, ``planar_matmul.cu`` K5
-and K6, ``pair_matmul.cu`` K1's CUDA-core body and K9,
+and K6, ``dequantize.cu`` K7 and K10, ``pair_matmul.cu`` K1's CUDA-core
+body and K9,
 ``pair_prefill.cu`` the tensor-core body that K8 and K1 above 128 rows
 launch, each with its own :class:`Kernel` record and launch counter). A
 source is compiled by its own ``nvcc`` call for ``sm_90a`` into a shared
@@ -30,7 +31,8 @@ import torch
 
 __all__ = ["Kernel", "PAIR_MATMUL", "PAIR_MATMUL_MMA", "QUANTIZE_4BIT",
            "FLASH_DECODE", "FLASH_DECODE_I8", "PLANAR_MATMUL", "GEMV_4BIT",
-           "DEQUANTIZE_4BIT", "PAIR_PREFILL", "PAIR_MANUAL", "KERNELS",
+           "DEQUANTIZE_4BIT", "DEQUANTIZE_4BIT_PAIR", "PAIR_PREFILL",
+           "PAIR_MANUAL", "KERNELS",
            "build", "launch", "nvcc_path", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -123,6 +125,13 @@ DEQUANTIZE_4BIT = Kernel(
     "(dequantize_4bit_pallas :192)",
     # (wp, scales, scale_kind, table, out, out_kind, M, K8)
     {"qt_dequantize_4bit": [_P, _P, _I, _P, _P, _I, _I, _I, _P]})
+# K10: no Pallas site; the reference dequantizes the pair words with XLA
+DEQUANTIZE_4BIT_PAIR = Kernel(
+    "dequantize_4bit_pair", "quantizations_tpu_torch/csrc/dequantize.cu",
+    "quantizations_tpu/nn/linear.py:128 dense_matmul_pair (XLA dequant; "
+    "no Pallas site)",
+    # (wp2, scales, scale_kind, table, out, out_kind, M2, K4)
+    {"qt_dequantize_4bit_pair": [_P, _P, _I, _P, _P, _I, _I, _I, _P]})
 # _PAIR_ARGS with the tile (bm, bn) before the stream
 _MMA_ARGS = _PAIR_ARGS[:-1] + [_I, _I, _P]
 PAIR_PREFILL = Kernel(
@@ -143,7 +152,7 @@ PAIR_MANUAL = Kernel(
     {"qt_pair_manual": _PAIR_ARGS})
 KERNELS = (PAIR_MATMUL, PAIR_MATMUL_MMA, QUANTIZE_4BIT, FLASH_DECODE,
            FLASH_DECODE_I8, PLANAR_MATMUL, GEMV_4BIT, DEQUANTIZE_4BIT,
-           PAIR_PREFILL, PAIR_MANUAL)
+           PAIR_PREFILL, PAIR_MANUAL, DEQUANTIZE_4BIT_PAIR)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -81,6 +81,7 @@ __all__ = [
     "matmul_4bit_pair_manual_stacked_plain",
     "pair_tokens_ok",
     "nibble_swap",
+    "pair_column",
     "planar_to_pair",
     "pair_to_planar",
     "pack_scale_pairs",
@@ -128,6 +129,18 @@ def _unblockmajor(h: torch.Tensor) -> torch.Tensor:
 
 
 _HI16 = -65536  # ~0xFFFF as int32
+
+
+def pair_column(w, half, p, K: int):
+    """The pair layout's map: nibble ``p`` (0-3) of 16-bit half ``half``
+    of word ``w`` of a row pair ``[K/4]`` holds the code of row
+    ``half`` of the pair (0 even, 1 odd) at original column
+    ``64b + 8(q % 8) + 4(q // 8) + p``, where ``w = q*NB + b``,
+    ``NB = K/64``. Returns ``(row, column)``; ``w`` and ``p`` may be
+    integer tensors. K10 (``csrc/dequantize.cu``) mirrors it."""
+    NB = K // 64
+    q, b = w // NB, w % NB
+    return half, 64 * b + 8 * (q % 8) + 4 * (q // 8) + p
 
 
 def planar_to_pair(wp: torch.Tensor) -> torch.Tensor:

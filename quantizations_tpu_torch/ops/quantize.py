@@ -13,22 +13,31 @@ tensors.
 true codebook value (fp32) times the fp32 block scale, cast to ``dtype``,
 in the original element order. K7 (``csrc/dequantize.cu``) and its plain
 version agree bit for bit.
+
+``dequantize_4bit_pair(wp2 [M/2, K/4], scales) -> [M, K]``: the same
+values from the pair-layout words (K10, ``csrc/dequantize.cu``), in the
+original row and column order, with fp32, bf16 or ``bf16x2`` scales read
+as they are; a layer of a stacked ``[L, M/2, K/4]`` is read in place.
+Bit-exact with its plain version and with the pair branch of
+``nn/linear.py dense_weight``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..quant.codebooks import NF4_CODE, code_midpoints, get_4bit_code
 from ..quant.functional import _CODES_FN, _block_absmax, _normalize, pack_4bit
-from .cuda import DEQUANTIZE_4BIT, QUANTIZE_4BIT, launch
+from .cuda import DEQUANTIZE_4BIT, DEQUANTIZE_4BIT_PAIR, QUANTIZE_4BIT, launch
 from .gemv import _SHIFTS
+from .qmatmul import pair_column, unpack_scale_pairs
 
 __all__ = ["quantize_4bit_kernel", "quantize_4bit_kernel_plain",
-           "dequantize_4bit_kernel", "dequantize_4bit_kernel_plain"]
+           "dequantize_4bit_kernel", "dequantize_4bit_kernel_plain",
+           "dequantize_4bit_pair", "dequantize_4bit_pair_plain"]
 
 
 def quantize_4bit_kernel_plain(W: torch.Tensor, blocksize: int = 64,
@@ -141,4 +150,98 @@ def dequantize_4bit_kernel(wp: torch.Tensor, scales: torch.Tensor,
            scales.data_ptr(), int(scales.dtype == torch.bfloat16),
            _device_code(quant_type, wp.device).data_ptr(), out.data_ptr(),
            _OUT_KINDS[dtype], M, K8)
+    return out
+
+
+# scales dtype -> K10's scale_kind (int32: bf16x2 row-pair words)
+_SCALE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+def _pair_layer(wp2: torch.Tensor, scales: torch.Tensor,
+                layer_idx: Optional[int]):
+    """Check K10's operands and return layer ``layer_idx`` of a stack
+    (the whole of an unstacked weight when None)."""
+    if wp2.dtype != torch.int32 or wp2.dim() != (2 if layer_idx is None
+                                                 else 3):
+        raise ValueError(f"dequantize_4bit_pair: wp2 must be int32 [M/2, "
+                         f"K/4] (or [L, M/2, K/4] with layer_idx), got "
+                         f"{wp2.dtype} {tuple(wp2.shape)}")
+    if scales.dim() != wp2.dim() or scales.device != wp2.device:
+        raise ValueError(f"dequantize_4bit_pair: scales must have wp2's "
+                         f"rank and device ({wp2.device}), got "
+                         f"{tuple(scales.shape)} on {scales.device}")
+    if layer_idx is not None:
+        if not 0 <= layer_idx < wp2.shape[0] or scales.shape[0] != \
+                wp2.shape[0]:
+            raise ValueError(f"dequantize_4bit_pair: layer_idx {layer_idx} "
+                             f"not in a stack of {wp2.shape[0]} (scales "
+                             f"{scales.shape[0]})")
+        wp2, scales = wp2[layer_idx], scales[layer_idx]
+    M2, K4 = wp2.shape
+    if K4 % 16:
+        raise ValueError(f"dequantize_4bit_pair: K = {4 * K4} must be a "
+                         "multiple of 64")
+    rows = M2 if scales.dtype == torch.int32 else 2 * M2
+    if scales.dtype not in _SCALE_KINDS or tuple(scales.shape) != (
+            rows, K4 // 16):
+        raise ValueError(f"dequantize_4bit_pair: scales must be fp32/bf16 "
+                         f"[{2 * M2}, {K4 // 16}] or bf16x2 int32 [{M2}, "
+                         f"{K4 // 16}], got {scales.dtype} "
+                         f"{tuple(scales.shape)}")
+    return wp2, scales
+
+
+def dequantize_4bit_pair_plain(wp2: torch.Tensor, scales: torch.Tensor,
+                               quant_type: str = "fp4",
+                               dtype: torch.dtype = torch.bfloat16,
+                               layer_idx: Optional[int] = None
+                               ) -> torch.Tensor:
+    """Plain PyTorch version of K10: each nibble placed by
+    :func:`~quantizations_tpu_torch.ops.qmatmul.pair_column`, its
+    codebook value times the fp32 scale, cast to ``dtype``."""
+    wp2, scales = _pair_layer(wp2, scales, layer_idx)
+    M2, K4 = wp2.shape
+    K = 4 * K4
+    s = (unpack_scale_pairs(scales) if scales.dtype == torch.int32
+         else scales.float()).reshape(M2, 2, K // 64)
+    code = _device_code(quant_type, wp2.device)
+    out = torch.empty((M2, 2, K), dtype=dtype, device=wp2.device)
+    w = torch.arange(K4, device=wp2.device)
+    for half in range(2):
+        for p in range(4):
+            _, col = pair_column(w, half, p, K)
+            codes = ((wp2 >> (16 * half + 4 * p)) & 15).long()
+            out[:, half, col] = (code[codes] * s[:, half, col // 64]
+                                 ).to(dtype)
+    return out.reshape(2 * M2, K)
+
+
+def dequantize_4bit_pair(wp2: torch.Tensor, scales: torch.Tensor,
+                         quant_type: str = "fp4",
+                         dtype: torch.dtype = torch.bfloat16,
+                         layer_idx: Optional[int] = None) -> torch.Tensor:
+    """Dequantize pair words ``[M/2, K/4]`` (or layer ``layer_idx`` of
+    ``[L, M/2, K/4]``) to ``[M, K]`` in the original row and column
+    order: codebook value x fp32 scale, cast to ``dtype`` (fp32, bf16 or
+    fp16). Scales: fp32 or bf16 ``[M, K/64]`` or ``bf16x2`` int32
+    ``[M/2, K/64]``, stacked alike. Launches K10 for CUDA tensors, runs
+    the plain version for CPU tensors."""
+    if dtype not in _OUT_KINDS:
+        raise ValueError(f"dequantize_4bit_pair: dtype {dtype} not in "
+                         f"{tuple(_OUT_KINDS)}")
+    if wp2.device.type == "cpu":
+        return dequantize_4bit_pair_plain(wp2, scales, quant_type, dtype,
+                                          layer_idx)
+    wp2, scales = _pair_layer(wp2, scales, layer_idx)
+    if not (wp2.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("dequantize_4bit_pair: wp2 and scales must be "
+                         "contiguous")
+    M2, K4 = wp2.shape
+    out = torch.empty((2 * M2, 4 * K4), dtype=dtype, device=wp2.device)
+    if out.numel() == 0:
+        return out
+    launch(DEQUANTIZE_4BIT_PAIR, "qt_dequantize_4bit_pair", wp2.device,
+           wp2.data_ptr(), scales.data_ptr(), _SCALE_KINDS[scales.dtype],
+           _device_code(quant_type, wp2.device).data_ptr(), out.data_ptr(),
+           _OUT_KINDS[dtype], M2, K4)
     return out

@@ -5,11 +5,12 @@
 - Entry points run on CUDA unless they are given ``device="cpu"``: with
   no card they raise rather than fall back to the CPU.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card.
-- Tests marked ``cuda`` hold each kernel (K1 to K9) against its plain
+- Tests marked ``cuda`` hold each kernel (K1 to K10) against its plain
   version on the card (K9 against K1, bit for bit; K1 above 128 rows,
-  its tensor-core body, against its CUDA-core body and K8), the
-  per-body launch counts, and the wrappers' refusals; they skip where
-  ``torch.cuda.is_available()`` is False.
+  its tensor-core body, against its CUDA-core body and K8; K10 bit for
+  bit, and the dense bands' bf16 products within 1e-5 * max|y| of their
+  fp32 plain products), the per-body launch counts, and the wrappers'
+  refusals; they skip where ``torch.cuda.is_available()`` is False.
 """
 
 import ast
@@ -661,3 +662,128 @@ def test_pair_variants_route_on_card(cuda, monkeypatch):
     _, n = run(dataclasses.replace(base, quant=QuantConfig(
         quantize_embedding=True, dense_twin=True)))
     assert n == [0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+@pytest.mark.parametrize("scale_kind", ["fp32", "bf16", "bf16x2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("M,K", [(256, 512), (18, 576), (4, 4096)])
+def test_k10_bit_exact_on_card(cuda, rng, quant_type, scale_kind, dtype, M,
+                               K):
+    """K10 against its plain version, bit for bit, stacked at layer 1 and
+    unstacked (K 576: 9 blocks a row, an odd shared-memory stride)."""
+    from quantizations_tpu_torch.ops import DEQUANTIZE_4BIT_PAIR
+
+    wp2, scales = _pair_operands(rng, M, K, scale_kind=scale_kind)
+    ref = tqz.dequantize_4bit_pair(wp2, scales, quant_type, dtype, 1)
+    on = [t.to(cuda) for t in (wp2, scales)]
+    before = DEQUANTIZE_4BIT_PAIR.launches
+    got = tqz.dequantize_4bit_pair(*on, quant_type, dtype, 1)
+    alone = tqz.dequantize_4bit_pair(on[0][1], on[1][1], quant_type, dtype)
+    torch.cuda.synchronize()
+    assert DEQUANTIZE_4BIT_PAIR.launches == before + 2
+    assert got.dtype == dtype and got.shape == (M, K)
+    for y in (got, alone):
+        assert torch.equal(y.cpu().view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+@pytest.mark.parametrize("scale_kind", ["fp32", "bf16x2"])
+@pytest.mark.parametrize("T", [9, 300])
+def test_dense_pair_band_on_card(cuda, rng, quant_type, scale_kind, T):
+    """The dense pair band on the card (K10, then bf16 products with fp32
+    output over K = 4608: two 2048-column chunks and a 512-column tail)
+    within 1e-5 * max|y| of its fp32 plain version on the same card: the
+    same bf16 values, fp32 summation order only."""
+    from quantizations_tpu_torch.nn import linear as tlin
+    from quantizations_tpu_torch.ops import DEQUANTIZE_4BIT_PAIR
+
+    wp2, scales = [t.to(cuda) for t in _pair_operands(
+        rng, 256, 4608, L=1, scale_kind=scale_kind)]
+    x = torch.from_numpy(rng.standard_normal((T, 4608)).astype(
+        np.float32)).to(cuda)
+    before = DEQUANTIZE_4BIT_PAIR.launches
+    got = tlin.dense_matmul_pair(x, wp2[0], scales[0], quant_type)
+    assert DEQUANTIZE_4BIT_PAIR.launches == before + 1
+    ref = tlin.dense_matmul_pair_plain(x, wp2[0], scales[0], quant_type)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (T, 256)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+def test_planar_dense_band_on_card(cuda, rng, quant_type):
+    """Above the planar kernel bands: K7, then the bf16 product with fp32
+    output, within 1e-5 * max|y| of the fp32 product of the same
+    values."""
+    from quantizations_tpu_torch.nn import linear as tlin
+    from quantizations_tpu_torch.ops import DEQUANTIZE_4BIT
+
+    wp, scales = [t.to(cuda) for t in _planar_operands(rng, 96, 2560, L=1)]
+    x = torch.from_numpy(rng.standard_normal((100, 2560)).astype(
+        np.float32)).to(cuda)
+    before = DEQUANTIZE_4BIT.launches
+    got = tlin.apply_4bit(x, wp[0], scales[0], quant_type)
+    assert DEQUANTIZE_4BIT.launches == before + 1
+    W = tqz.dequantize_4bit_kernel(wp[0], scales[0], quant_type,
+                                   torch.bfloat16)
+    ref = x.to(torch.bfloat16).float() @ W.float().T
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["pair", "planar"])
+def test_dense_twin_on_card(cuda, rng, layout):
+    """``dense_twin`` on the card: K10 (pair) or K7 (planar) and the bf16
+    product, within 1e-5 * max|y| of the plain twin (``dense_weight``
+    and an fp32 product) at layer 1 of a stack."""
+    from quantizations_tpu_torch.nn.linear import dense_weight
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT,
+                                             DEQUANTIZE_4BIT_PAIR)
+
+    ops = (_pair_operands(rng, 256, 512) if layout == "pair"
+           else _planar_operands(rng, 256, 512))
+    lin = tl.QLinear(wp=ops[0].to(cuda), scales=ops[1].to(cuda))
+    qcfg = QuantConfig(dense_twin=True)
+    x = torch.from_numpy(rng.standard_normal((5, 512)).astype(
+        np.float32)).to(cuda)
+    kern = DEQUANTIZE_4BIT_PAIR if layout == "pair" else DEQUANTIZE_4BIT
+    before = kern.launches
+    got = tl._ql(x, lin, qcfg, 1)
+    assert kern.launches == before + 1
+    W = dense_weight(lin.wp[1], lin.scales[1], "fp4", layout)
+    ref = x.to(torch.bfloat16).float() @ W.float().T
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_tiny_prefill_reaches_k10_on_card(cuda, monkeypatch):
+    """With the K1 band lowered to 8 rows, a 2 x 12-token prefill of the
+    tiny model runs every projection and the lm_head on the dense pair
+    band: exactly 4 * 2 + 1 K10 launches, logits within 2e-2 * max|logit|
+    of the CPU's plain path (bf16 attention operands on the card), and
+    the same greedy next tokens (seed 4: top-2 margins of 12% and 7% of
+    max|logit| on the CPU)."""
+    from quantizations_tpu_torch.ops import DEQUANTIZE_4BIT_PAIR
+
+    monkeypatch.setenv("QT_PAIR_MAX_TOKENS", "8")
+    cfg = dataclasses.replace(tl.TINY_LLAMA, quant=QuantConfig(
+        quantize_embedding=True))
+    p = tl.fuse_projections(tl.init_llama_params(cfg, seed=1, device=cuda))
+    pc = tl.map_tensors(lambda t: t.cpu(), p)
+    ids = torch.randint(0, cfg.vocab_size, (2, 12),
+                        generator=torch.Generator().manual_seed(4))
+    before = DEQUANTIZE_4BIT_PAIR.launches
+    lg, _ = tl.prefill(p, ids.to(cuda), tl.KVCache.create(cfg, 2, 32, cuda),
+                       cfg)
+    torch.cuda.synchronize()
+    assert DEQUANTIZE_4BIT_PAIR.launches == before + 4 * 2 + 1
+    lc, _ = tl.prefill(pc, ids, tl.KVCache.create(cfg, 2, 32, "cpu"), cfg)
+    assert (lg.cpu() - lc).abs().max() <= 2e-2 * lc.abs().max()
+    assert torch.equal(lg[:, -1].argmax(-1).cpu(), lc[:, -1].argmax(-1))
