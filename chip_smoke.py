@@ -8,8 +8,10 @@ Phases, each raising on failure:
 1. the device: its name, and ``nvidia-smi``'s name and power limit;
 2. ``build``: compile every kernel from ``quantizations_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and time it; beside it
-   ``nvcc -Xptxas -v`` on ``flash_decode.cu`` logs the registers and
-   spills of every K3/K4 instantiation, and a spill fails the run;
+   ``nvcc -Xptxas -v`` on ``flash_decode.cu`` and ``pair_matmul.cu``
+   logs the registers and spills of every K3/K4 instantiation and of
+   K1/K9's body at each token tile, and a spill or a missing
+   instantiation fails the run;
 3. ``k2``: the quantize kernel against its plain version, bit-exact,
    FP4 and NF4, at every shape that model build quantizes (and the fused
    gate|up's ``[28672, 4096]``), with values placed exactly on the code
@@ -188,6 +190,8 @@ ATTN_SWEEP_CHUNKS = (64, 128, 256, 512, 1024, 2048)   # the split sweep
 # the instantiations that csrc/flash_decode.cu's dispatch launches: row
 # tiles R (4 up to 4 rows a group, else 8) and head dims D, per type
 FD_ROW_TILES, FD_HEAD_DIMS = (4, 8), (64, 128)
+# the token tiles TT of csrc/pair_matmul.cu's body (K1 up to 128 rows, K9)
+PAIR_TILES = (1, 2, 4, 8, 16)
 # the paged phase: 7 prompt lengths, and an eighth request that shares
 # the 700-token prompt's first 512 tokens (two 256-token pages)
 PAGED_LENS = (16, 100, 300, 700, 1100, 1500, 1900)
@@ -279,64 +283,92 @@ def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 
 
 def start_ptxas_report():
-    """Start ``nvcc -Xptxas -v`` on ``csrc/flash_decode.cu`` with the
-    build's flags (beside the build, which it does not replace) and
-    return the process."""
+    """Start ``nvcc -Xptxas -v`` with the build's flags on
+    ``csrc/flash_decode.cu`` and ``csrc/pair_matmul.cu`` (beside the
+    build, which it does not replace), both at once, and return
+    ``{source stem: process}``."""
     from quantizations_tpu_torch.ops.cuda import (BUILD, FLASH_DECODE,
-                                                  NVCC_FLAGS, nvcc_path)
+                                                  NVCC_FLAGS, PAIR_MATMUL,
+                                                  nvcc_path)
 
     BUILD.mkdir(parents=True, exist_ok=True)
-    return subprocess.Popen(
+    return {k.path.stem: subprocess.Popen(
         [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         str(BUILD / "flash_decode_ptxas.so"), str(FLASH_DECODE.path)],
+         str(BUILD / f"{k.path.stem}_ptxas.so"), str(k.path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in (FLASH_DECODE, PAIR_MATMUL)}
 
 
-def parse_ptxas(out):
-    """[{kernel, registers, spill_stores, spill_loads}] of every K3/K4
-    instantiation (and the combine) in a ``ptxas -v`` log of
-    ``flash_decode.cu``."""
+def _ptxas_label(stem, fn):
+    """The instantiation a mangled kernel name stands for: K3/K4 by type,
+    row tile and head dim (and the combine) in ``flash_decode``; K1/K9's
+    token tile TT in ``pair_matmul``."""
+    import re
+
+    if stem == "pair_matmul":
+        tile = re.search(r"pair_matmul_kernelILi(\d+)E", fn).group(1)
+        return f"TT={tile}"
+    if "combine" in fn:
+        return "combine"
+    m = re.search(r"(Ia|I13__nv_bfloat16)Li(\d+)ELi(\d+)E", fn)
+    return (f"{'K4 int8' if m.group(1) == 'Ia' else 'K3 bf16'} "
+            f"R={m.group(2)} D={m.group(3)}")
+
+
+def parse_ptxas(out, stem="flash_decode"):
+    """[{kernel, registers, spill_stores, spill_loads, smem}] of every
+    kernel instantiation in a ``ptxas -v`` log of ``csrc/<stem>.cu``
+    (``smem``: the static shared memory in bytes)."""
     import re
 
     entries = []
     for block in out.split("Compiling entry function")[1:]:
         fn = block.split("'")[1]
-        m = re.search(r"(Ia|I13__nv_bfloat16)Li(\d+)ELi(\d+)E", fn)
-        what = ("combine" if "combine" in fn else
-                f"{'K4 int8' if m.group(1) == 'Ia' else 'K3 bf16'} "
-                f"R={m.group(2)} D={m.group(3)}")
         regs = int(re.search(r"Used (\d+) registers", block).group(1))
         st, ld = (int(x) for x in re.search(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads",
             block).groups())
-        entries.append(dict(kernel=what, registers=regs, spill_stores=st,
-                            spill_loads=ld))
+        smem = re.search(r"(\d+) bytes smem", block)
+        entries.append(dict(kernel=_ptxas_label(stem, fn), registers=regs,
+                            spill_stores=st, spill_loads=ld,
+                            smem=int(smem.group(1)) if smem else 0))
     return entries
 
 
-def read_ptxas_report(proc, results):
-    """Log the registers and spills of every K3/K4 instantiation; raise
-    on a spill, or unless the log holds exactly the instantiations that
-    the dispatch of ``flash_decode.cu`` launches (K3 and K4 at each row
-    tile and head dim of FD_ROW_TILES x FD_HEAD_DIMS, and the combine)."""
-    out, _ = proc.communicate(timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc -Xptxas -v failed:\n" + out)
-    entries = parse_ptxas(out)
-    results["ptxas"] = entries
-    log("  ptxas -v, csrc/flash_decode.cu: " + "; ".join(
-        f"{e['kernel']} {e['registers']} registers, spills "
-        f"{e['spill_stores']}/{e['spill_loads']} bytes" for e in entries))
-    want = {f"{t} R={r} D={d}" for t in ("K3 bf16", "K4 int8")
-            for r in FD_ROW_TILES for d in FD_HEAD_DIMS} | {"combine"}
-    got = [e["kernel"] for e in entries]
-    if sorted(got) != sorted(want):
-        raise AssertionError(f"flash_decode.cu: ptxas -v lists {got}, the "
-                             f"dispatch launches {sorted(want)}")
-    spills = [e["kernel"] for e in entries
-              if e["spill_stores"] or e["spill_loads"]]
-    if spills:
-        raise AssertionError(f"flash_decode.cu: spills in {spills}")
+def read_ptxas_report(procs, results):
+    """Log the registers and spills of every instantiation in each
+    source's ``ptxas -v`` log; raise on a spill, or unless it holds exactly
+    the instantiations that the source's dispatch launches: K3 and K4 at
+    each row tile and head dim of FD_ROW_TILES x FD_HEAD_DIMS and the
+    combine (``results["ptxas"]``), and K1/K9's body at each token tile of
+    PAIR_TILES (``results["ptxas_pair_matmul"]``; both entry points
+    launch the same instantiations)."""
+    want = {"flash_decode": {f"{t} R={r} D={d}" for t in ("K3 bf16", "K4 int8")
+                             for r in FD_ROW_TILES for d in FD_HEAD_DIMS}
+            | {"combine"},
+            "pair_matmul": {f"TT={t}" for t in PAIR_TILES}}
+    outs = {stem: proc.communicate(timeout=600)[0]
+            for stem, proc in procs.items()}
+    for stem, out in outs.items():
+        if procs[stem].returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed on {stem}.cu:\n"
+                               + out)
+        entries = parse_ptxas(out, stem)
+        results["ptxas" if stem == "flash_decode" else f"ptxas_{stem}"] = (
+            entries)
+        log(f"  ptxas -v, csrc/{stem}.cu: " + "; ".join(
+            f"{e['kernel']} {e['registers']} registers, spills "
+            f"{e['spill_stores']}/{e['spill_loads']} bytes"
+            + (f", {e['smem']} bytes static smem" if stem != "flash_decode"
+               else "") for e in entries))
+        got = [e["kernel"] for e in entries]
+        if sorted(got) != sorted(want[stem]):
+            raise AssertionError(f"{stem}.cu: ptxas -v lists {got}, the "
+                                 f"dispatch launches {sorted(want[stem])}")
+        spills = [e["kernel"] for e in entries
+                  if e["spill_stores"] or e["spill_loads"]]
+        if spills:
+            raise AssertionError(f"{stem}.cu: spills in {spills}")
 
 
 def phase_k2(dev, gen, results):
@@ -2631,8 +2663,9 @@ def main() -> int:
     try:
         build(KERNELS)
     except BaseException:
-        ptxas.kill()
-        ptxas.wait()
+        for proc in ptxas.values():
+            proc.kill()
+            proc.wait()
         raise
     results["build_s"] = time.perf_counter() - t0
     log(f"[build] {len(KERNELS)} kernels built and loaded in "

@@ -35,9 +35,10 @@ Two more kernels compute K1's function over the same words, in K1's
 rounding class:
 
 - K9 (``csrc/pair_matmul.cu``, entry ``qt_pair_manual``), the
-  manual-pipeline pair kernel: K1's work partition and summation order
-  with the weight words streamed through a two-stage ``cp.async`` ring
-  in shared memory, so its output is K1's CUDA-core body bit for bit.
+  manual-pipeline pair kernel: its weight words stream through a
+  ``cp.async`` ring in shared memory, as K1's CUDA-core body's do, so
+  the two entry points launch one body and K9's output is K1's bit for
+  bit.
 - K8 (``csrc/pair_prefill.cu``, entry ``qt_pair_mma``), the prefill pair
   kernel: the tensor-core body (``mma.sync`` bf16 -> fp32, weights
   decoded in registers once per token tile), within 1e-5 * max|y| of its

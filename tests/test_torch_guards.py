@@ -4,7 +4,9 @@
   imports JAX, Flax or the JAX package (read from the parsed imports).
 - Entry points run on CUDA unless they are given ``device="cpu"``: with
   no card they raise rather than fall back to the CPU.
-- ``chip_smoke.py`` exits non-zero, printing no result, without a card.
+- ``chip_smoke.py`` exits non-zero, printing no result, without a card,
+  and raises on a spill or a missing instantiation in K1/K9's
+  ``ptxas -v`` log.
 - Tests marked ``cuda`` hold each kernel (K1 to K10) against its plain
   version on the card (K9 against K1, bit for bit; K1 above 128 rows,
   its tensor-core body, against its CUDA-core body and K8; K10 bit for
@@ -15,6 +17,7 @@
 
 import ast
 import dataclasses
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -119,6 +122,54 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     assert '"ok"' not in out.stdout
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _DoneNvcc:
+    """A finished ``nvcc -Xptxas -v`` process with the given log."""
+
+    returncode = 0
+
+    def __init__(self, out):
+        self.out = out
+
+    def communicate(self, timeout=None):
+        return self.out, None
+
+
+@pytest.mark.parametrize("tiles,spilled,ok", [
+    ((1, 2, 4, 8, 16), (), True),
+    ((1, 2, 4, 8), (), False),            # an instantiation missing
+    ((1, 2, 4, 8, 16), (8,), False)])     # a spill
+def test_chip_smoke_checks_pair_matmul_ptxas(tiles, spilled, ok):
+    """``chip_smoke.py`` reads K1/K9's ``ptxas -v`` log: every token tile
+    of ``PAIR_TILES`` once, no spill, or it raises."""
+    cs = _chip_smoke()
+    name = ("_ZN12_GLOBAL__N_118pair_matmul_kernelILi{}EEEvPKiPKviPK13"
+            "__nv_bfloat16S8_Pfiiiiifi")
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name.format(t)}' for "
+        f"'sm_90a'\nptxas info    : Function properties for "
+        f"{name.format(t)}\n    0 bytes stack frame, {44 * (t in spilled)} "
+        f"bytes spill stores, {56 * (t in spilled)} bytes spill loads\n"
+        f"ptxas info    : Used 64 registers, used 1 barriers, 2080 bytes "
+        f"smem, 420 bytes cmem[0]\n" for t in tiles)
+    results = {}
+    if not ok:
+        with pytest.raises(AssertionError):
+            cs.read_ptxas_report({"pair_matmul": _DoneNvcc(log)}, results)
+        return
+    cs.read_ptxas_report({"pair_matmul": _DoneNvcc(log)}, results)
+    assert [e["kernel"] for e in results["ptxas_pair_matmul"]] == [
+        f"TT={t}" for t in cs.PAIR_TILES]
+    assert {e["registers"] for e in results["ptxas_pair_matmul"]} == {64}
+
+
 # -- on the card ------------------------------------------------------------
 # A machine with a card may have no JAX, which tests/conftest.py imports:
 # there these tests run as ``python -m pytest --noconftest -m cuda
@@ -136,12 +187,23 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+# K1's CUDA-core body (and K9) on the tails its ring must handle: token
+# tiles cut short (T 2, 5, 7, 12, 17: zero-filled rows), row pairs past
+# the block's 8 (M 18 and 130), an odd count of scale blocks (K 576, the
+# 4-byte copies) and more than 64 of them (K 4608: two chunks a step).
+PAIR_TAIL_T = [1, 2, 3, 5, 7, 8, 12, 16, 17, 40]
+PAIR_TAIL_MK = [(256, 512), (18, 576), (130, 4608)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
 @pytest.mark.parametrize("scale_kind", ["fp32", "bf16", "bf16x2"])
-@pytest.mark.parametrize("T", [1, 3, 8, 16, 40])
-def test_k1_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T):
-    M, K = 256, 512
+@pytest.mark.parametrize("T", PAIR_TAIL_T)
+@pytest.mark.parametrize("M,K", PAIR_TAIL_MK)
+def test_k1_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T, M,
+                                  K):
+    """K1 within 1e-5 * max|y| of its plain version, and two launches give
+    the same bits."""
     wp2 = torch.from_numpy(rng.integers(-2**31, 2**31, (3, M // 2, K // 4),
                                         dtype=np.int64).astype(np.int32))
     scales = torch.from_numpy(
@@ -153,11 +215,13 @@ def test_k1_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T):
     x = torch.from_numpy(rng.standard_normal((T, K)).astype(
         np.float32)).to(torch.bfloat16)
     ref = tqm.matmul_4bit_pair_stacked(wp2, scales, x, 1, quant_type)
-    got = tqm.matmul_4bit_pair_stacked(wp2.to(cuda), scales.to(cuda),
-                                       x.to(cuda), 1, quant_type)
+    on = [t.to(cuda) for t in (wp2, scales, x)]
+    got = tqm.matmul_4bit_pair_stacked(*on, 1, quant_type)
+    again = tqm.matmul_4bit_pair_stacked(*on, 1, quant_type)
     torch.cuda.synchronize()
     # same rounding class on both sides: fp32 summation order only
     assert (got.cpu() - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -517,12 +581,13 @@ def test_k8_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T, M,
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
 @pytest.mark.parametrize("scale_kind", ["fp32", "bf16", "bf16x2"])
-@pytest.mark.parametrize("T", [1, 3, 8, 16, 40])
-@pytest.mark.parametrize("M,K", [(256, 512), (18, 576)])
+@pytest.mark.parametrize("T", PAIR_TAIL_T)
+@pytest.mark.parametrize("M,K", PAIR_TAIL_MK)
 def test_k9_equals_k1_on_card(cuda, rng, quant_type, scale_kind, T, M, K):
-    """K9 is K1 bit for bit, with 16-byte (K 512) and 4-byte (K 576, an
-    odd number of scale blocks) word copies, and within 1e-5 * max|y| of
-    the plain version."""
+    """K9 is K1 bit for bit, with 16-byte (K 512, 4608) and 4-byte (K 576,
+    an odd number of scale blocks) word copies, on the tails of
+    ``PAIR_TAIL_T`` and ``PAIR_TAIL_MK``, and within 1e-5 * max|y| of the
+    plain version."""
     wp2, scales = _pair_operands(rng, M, K, scale_kind=scale_kind)
     x = torch.from_numpy(rng.standard_normal((T, K)).astype(
         np.float32)).to(torch.bfloat16)
