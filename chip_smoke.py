@@ -8,9 +8,10 @@ Phases, each raising on failure:
 1. the device: its name, and ``nvidia-smi``'s name and power limit;
 2. ``build``: compile every kernel from ``quantizations_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and time it; beside it
-   ``nvcc -Xptxas -v`` on ``flash_decode.cu`` and ``pair_matmul.cu``
-   logs the registers and spills of every K3/K4 instantiation and of
-   K1/K9's body at each token tile, and a spill or a missing
+   ``nvcc -Xptxas -v`` on ``flash_decode.cu``, ``pair_matmul.cu`` and
+   ``planar_matmul.cu`` logs the registers and spills of every K3/K4
+   instantiation, of K1/K9's body at each token tile and of K5's two
+   bodies and K6 at each of theirs, and a spill or a missing
    instantiation fails the run;
 3. ``k2``: the quantize kernel against its plain version, bit-exact,
    FP4 and NF4, at every shape that model build quantizes (and the fused
@@ -62,17 +63,21 @@ Phases, each raising on failure:
    timed runs after a warm-up, printed with their min and max. A tiny
    model then checks the CUDA path against the CPU's plain path on the
    same parameters (prefill, and a flash decode step, bf16 and int8);
-8. ``planar``: the planar layout. K5 (planar dequant-matmul) and K6
-   (planar fp32 GEMV) within 1e-5 * max|y| of their plain versions and
-   K7 (dequantize) bit-exact at every planar Llama3-8B shape and an odd
-   row count, FP4 and NF4, fp32 and bf16 scales, K5 at T in {1, 2, 4, 8,
-   16, 48, 64}, K6 at T in {1, 3, 5, 6, 7, 8}. Then the planar twin of
-   the model phase's FP4 model (every pair weight repacked to planar
-   words, the same codes and scales) generates 60 tokens at B = 1, 3, 8
-   with exact launch counts (B = 1: 7740 K5; B = 3: 128 K5 on the 48-row
-   prefill and 7612 K6; B = 8: 128 K7 on the 128-row prefill's dense band
-   and 7612 K5; no K1), the same tokens on every run, tok/s the median of
-   5; each projection of the twin against K1 on the pair words it came
+8. ``planar``: the planar layout. K5 (planar dequant-matmul: each of
+   its two bodies launched directly, and the dispatch, which must give
+   the bits of the body ``planar_body`` names; the tensor-core body
+   bit-identical across two launches) and K6 (planar fp32 GEMV) within
+   1e-5 * max|y| of their plain versions and K7 (dequantize) bit-exact
+   at every planar Llama3-8B shape and an odd row count, FP4 and NF4,
+   fp32 and bf16 scales, K5 at T in {1, 2, 4, 8, 16, 48, 64}, K6 at T in
+   {1, 3, 5, 6, 7, 8}. Then the planar twin of the model phase's FP4
+   model (every pair weight repacked to planar words, the same codes and
+   scales) generates 60 tokens at B = 1, 3, 8 with exact launch counts
+   (B = 1: 7740 K5; B = 3: 128 K5 on the 48-row prefill and 7612 K6; B =
+   8: 128 K7 on the 128-row prefill's dense band and 7612 K5; no K1; K5's
+   split by body as ``planar_body`` says), the same tokens on every run,
+   tok/s the median of 5; each projection of the twin against K1 on the
+   pair words it came
    from (K5 within 1e-5 * max|y|: one rounding class; K6 within 1e-2:
    fp32 class against bf16), one decode step's logits against the pair
    model's on the same cache (a layout check, 0.25 * max|logit|: 32
@@ -80,9 +85,10 @@ Phases, each raising on failure:
    streams part. ``Linear4bit.create`` on a [14336, 4096]
    weight runs T = 1, 3, 64, 256 against the plain path and round-trips
    through the bnb flat tensors bit-identically. Last the kernels' times
-   against their bounds (K5 and K6 per decode forward, K5 at T = 48, K7
-   at [14336, 4096] and the lm_head), the plain versions and dense bf16
-   ``torch.matmul``;
+   against their bounds (K5's two bodies at T in {1, 2, 4, 8, 16, 32, 48,
+   64} per shape and per forward, with the crossover; K6 per T = 3
+   forward; K7 at [14336, 4096] and the lm_head), the plain versions and
+   dense bf16 ``torch.matmul``;
 9. ``pair_variants``: the pair kernel's variants. The tensor-core body
    (``csrc/pair_prefill.cu``: K8, and K1 above 128 rows) within K8_GATE
    * max|y| of its plain versions and of K1's CUDA-core body, with K1
@@ -192,6 +198,11 @@ ATTN_SWEEP_CHUNKS = (64, 128, 256, 512, 1024, 2048)   # the split sweep
 FD_ROW_TILES, FD_HEAD_DIMS = (4, 8), (64, 128)
 # the token tiles TT of csrc/pair_matmul.cu's body (K1 up to 128 rows, K9)
 PAIR_TILES = (1, 2, 4, 8, 16)
+# csrc/planar_matmul.cu: the CUDA-core body's token tiles (K5, K6) and the
+# tensor-core body's (NT n8 tiles, MT 16-row tiles) that its dispatch
+# launches
+K5_TILES, K6_TILES = (1, 2, 4, 8, 16), (1, 2, 4, 8)
+PLANAR_MMA_TILES = ((1, 1), (1, 2), (2, 2), (4, 2), (6, 2), (8, 2))
 # the paged phase: 7 prompt lengths, and an eighth request that shares
 # the 700-token prompt's first 512 tokens (two 256-token pages)
 PAGED_LENS = (16, 100, 300, 700, 1100, 1500, 1900)
@@ -200,6 +211,10 @@ LAYERS = 32
 # the planar phase: every planar Llama3-8B shape and one odd row count
 PLANAR_SHAPES = K1_SHAPES + (("odd", 6143, 4096),)
 K5_TOKENS = (1, 2, 4, 8, 16, 48, 64)
+# K5's two bodies are timed at these rows (its band's decode rows and the
+# prefill rows of B = 1 to 4), the plain version at the main path's three
+PLANAR_BODY_T = (1, 2, 4, 8, 16, 32, 48, 64)
+PLANAR_PLAIN_T = (1, 8, 48)
 K6_TOKENS = (1, 3, 5, 6, 7, 8)
 PLANAR_BATCHES = (1, 3, 8)
 PLANAR_NEW = 60
@@ -284,30 +299,38 @@ def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 
 def start_ptxas_report():
     """Start ``nvcc -Xptxas -v`` with the build's flags on
-    ``csrc/flash_decode.cu`` and ``csrc/pair_matmul.cu`` (beside the
-    build, which it does not replace), both at once, and return
-    ``{source stem: process}``."""
+    ``csrc/flash_decode.cu``, ``csrc/pair_matmul.cu`` and
+    ``csrc/planar_matmul.cu`` (beside the build, which it does not
+    replace), all at once, and return ``{source stem: process}``."""
     from quantizations_tpu_torch.ops.cuda import (BUILD, FLASH_DECODE,
                                                   NVCC_FLAGS, PAIR_MATMUL,
-                                                  nvcc_path)
+                                                  PLANAR_MATMUL, nvcc_path)
 
     BUILD.mkdir(parents=True, exist_ok=True)
     return {k.path.stem: subprocess.Popen(
         [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
          str(BUILD / f"{k.path.stem}_ptxas.so"), str(k.path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for k in (FLASH_DECODE, PAIR_MATMUL)}
+        for k in (FLASH_DECODE, PAIR_MATMUL, PLANAR_MATMUL)}
 
 
 def _ptxas_label(stem, fn):
     """The instantiation a mangled kernel name stands for: K3/K4 by type,
     row tile and head dim (and the combine) in ``flash_decode``; K1/K9's
-    token tile TT in ``pair_matmul``."""
+    token tile TT in ``pair_matmul``; in ``planar_matmul`` the CUDA-core
+    body's class (K5 or K6) and token tile, or K5's tensor-core body by
+    its n8 tiles NT and 16-row tiles MT."""
     import re
 
     if stem == "pair_matmul":
         tile = re.search(r"pair_matmul_kernelILi(\d+)E", fn).group(1)
         return f"TT={tile}"
+    if stem == "planar_matmul":
+        m = re.search(r"planar_mma_kernelILi(\d+)ELi(\d+)E", fn)
+        if m:
+            return f"K5 mma NT={m.group(1)} MT={m.group(2)}"
+        m = re.search(r"planar_kernelILi(\d+)ELb([01])E", fn)
+        return f"{'K5' if m.group(2) == '1' else 'K6'} TT={m.group(1)}"
     if "combine" in fn:
         return "combine"
     m = re.search(r"(Ia|I13__nv_bfloat16)Li(\d+)ELi(\d+)E", fn)
@@ -340,13 +363,18 @@ def read_ptxas_report(procs, results):
     source's ``ptxas -v`` log; raise on a spill, or unless it holds exactly
     the instantiations that the source's dispatch launches: K3 and K4 at
     each row tile and head dim of FD_ROW_TILES x FD_HEAD_DIMS and the
-    combine (``results["ptxas"]``), and K1/K9's body at each token tile of
+    combine (``results["ptxas"]``), K1/K9's body at each token tile of
     PAIR_TILES (``results["ptxas_pair_matmul"]``; both entry points
-    launch the same instantiations)."""
+    launch the same instantiations), and in ``planar_matmul`` K5's and
+    K6's CUDA-core body at K5_TILES and K6_TILES and K5's tensor-core body
+    at PLANAR_MMA_TILES (``results["ptxas_planar_matmul"]``)."""
     want = {"flash_decode": {f"{t} R={r} D={d}" for t in ("K3 bf16", "K4 int8")
                              for r in FD_ROW_TILES for d in FD_HEAD_DIMS}
             | {"combine"},
-            "pair_matmul": {f"TT={t}" for t in PAIR_TILES}}
+            "pair_matmul": {f"TT={t}" for t in PAIR_TILES},
+            "planar_matmul": {f"K5 TT={t}" for t in K5_TILES}
+            | {f"K6 TT={t}" for t in K6_TILES}
+            | {f"K5 mma NT={n} MT={m}" for n, m in PLANAR_MMA_TILES}}
     outs = {stem: proc.communicate(timeout=600)[0]
             for stem, proc in procs.items()}
     for stem, out in outs.items():
@@ -1075,15 +1103,19 @@ def _planar_operands(M, K, L, dev, gen):
 def phase_planar_check(dev, gen, results):
     """K5 and K6 within 1e-5 * max|y| of their plain versions, K7
     bit-exact, at every planar Llama3-8B shape and an odd row count, FP4
-    and NF4, fp32 and bf16 scales: K5 at T in K5_TOKENS, K6 at
-    K6_TOKENS (bf16 activations, as the model passes them), K7 to fp32
-    and bf16. The layer shapes are stacked and read at layer 1."""
+    and NF4, fp32 and bf16 scales: K5 at T in K5_TOKENS, each of its two
+    bodies launched directly and through the dispatch (which must give
+    the bits of the body ``planar_body`` names), the tensor-core body
+    launched twice (the same bits); K6 at K6_TOKENS (bf16 activations, as
+    the model passes them), K7 to fp32 and bf16. The layer shapes are
+    stacked and read at layer 1."""
     from quantizations_tpu_torch.ops import gemv as gv
     from quantizations_tpu_torch.ops import qmatmul as qm
     from quantizations_tpu_torch.ops import quantize as qz
 
-    worst = {n: [0.0, 0.0, 0] for n in ("planar_matmul", "gemv_4bit",
-                                        "dequantize_4bit")}
+    worst = {n: [0.0, 0.0, 0] for n in (
+        "planar_matmul", "planar_matmul_cuda_core", "planar_matmul_mma",
+        "gemv_4bit", "dequantize_4bit")}
 
     def check(name, what, got, ref, exact=False):
         torch.cuda.synchronize()
@@ -1109,25 +1141,41 @@ def phase_planar_check(dev, gen, results):
                         device=dev).to(torch.bfloat16)
         for qt in ("fp4", "nf4"):
             for sk, s in (("fp32", s32), ("bf16", s32.to(torch.bfloat16))):
-                for kname, tokens, fn, fn_stacked, fs in (
-                        ("planar_matmul", K5_TOKENS, qm.matmul_4bit_planar,
-                         qm.matmul_4bit_planar_stacked,
-                         qm.matmul_4bit_planar_plain),
-                        ("gemv_4bit", K6_TOKENS, gv.gemv_4bit,
-                         gv.gemv_4bit_stacked, gv.gemv_4bit_plain)):
-                    for T in tokens:
-                        xt = x[:T]
-                        got = (fn_stacked(wp, s, xt, 1, qt) if stacked
-                               else fn(wp[0], s[0], xt, qt))
-                        check(kname, f"{name} [{M},{K}] {qt} {sk} T={T}",
-                              got, fs(wp[-1], s[-1], xt, qt))
+                for T in K5_TOKENS:
+                    xt, what = x[:T], f"{name} [{M},{K}] {qt} {sk} T={T}"
+                    ref = qm.matmul_4bit_planar_plain(wp[-1], s[-1], xt, qt)
+                    got = (qm.matmul_4bit_planar_stacked(wp, s, xt, 1, qt)
+                           if stacked else
+                           qm.matmul_4bit_planar(wp[0], s[0], xt, qt))
+                    body = {b: getattr(qm, f"matmul_4bit_planar_{b}")(
+                        wp[-1], s[-1], xt, qt) for b in ("cuda_core", "mma")}
+                    again = qm.matmul_4bit_planar_mma(wp[-1], s[-1], xt, qt)
+                    check("planar_matmul", what, got, ref)
+                    for b, y in body.items():
+                        check(f"planar_matmul_{b}", what, y, ref)
+                    if not torch.equal(got.view(torch.int32), body[
+                            qm.planar_body(T)].view(torch.int32)):
+                        raise AssertionError(f"K5 {what}: the dispatch is not "
+                                             f"its {qm.planar_body(T)} body")
+                    if not torch.equal(again.view(torch.int32),
+                                       body["mma"].view(torch.int32)):
+                        raise AssertionError(f"K5 tensor-core body {what}: "
+                                             "two launches differ")
+                for T in K6_TOKENS:
+                    xt = x[:T]
+                    got = (gv.gemv_4bit_stacked(wp, s, xt, 1, qt) if stacked
+                           else gv.gemv_4bit(wp[0], s[0], xt, qt))
+                    check("gemv_4bit", f"{name} [{M},{K}] {qt} {sk} T={T}",
+                          got, gv.gemv_4bit_plain(wp[-1], s[-1], xt, qt))
                 for dt in (torch.float32, torch.bfloat16):
                     check("dequantize_4bit", f"{name} {qt} {sk} {dt}",
                           qz.dequantize_4bit_kernel(wp[-1], s[-1], qt, dt),
                           qz.dequantize_4bit_kernel_plain(wp[-1], s[-1], qt,
                                                           dt), exact=True)
-        log(f"  {name} [{M}, {K}]: K5 and K6 within 1e-5 * max|y|, K7 "
-            f"bit-exact ({sum(w[2] for w in worst.values())} cases so far)")
+        log(f"  {name} [{M}, {K}]: K5 (both bodies, the dispatch) and K6 "
+            f"within 1e-5 * max|y|, K7 bit-exact, the tensor-core body "
+            f"bit-identical across launches "
+            f"({sum(w[2] for w in worst.values())} cases so far)")
         del wp, s32, x
         torch.cuda.empty_cache()
     results["planar_err"] = {n: dict(max_abs_err=w[0], max_err_over_max_y=w[1],
@@ -1163,21 +1211,25 @@ def planar_twin(params):
 
 
 def _planar_launches(B, layers):
-    """(K5, K6, K7) launches of one planar generate of PLANAR_NEW tokens
-    after a PROMPT_LEN-token prompt at batch B (4 projections a layer and
-    the lm_head a forward; the prefill's lm_head runs at T = B)."""
+    """(K5, K5's tensor-core body, K6, K7) launches of one planar generate
+    of PLANAR_NEW tokens after a PROMPT_LEN-token prompt at batch B (4
+    projections a layer and the lm_head a forward; the prefill's lm_head
+    runs at T = B). K5 counts both bodies; ``planar_body`` splits them."""
+    from quantizations_tpu_torch.ops import planar_body
+
     per = 4 * layers
     steps = PLANAR_NEW - 1
     T = B * PROMPT_LEN
-    k5 = k6 = k7 = 0
+    k5 = mma = k6 = k7 = 0
     for t, n in ((T, per), (B, 1), (B, steps * (per + 1))):
         if t <= 64 and (t in (1, 2, 4) or t % 8 == 0):
             k5 += n
+            mma += n * (planar_body(t) == "mma")
         elif t <= 8:
             k6 += n
         else:
             k7 += n
-    return k5, k6, k7
+    return k5, mma, k6, k7
 
 
 def phase_planar_model(dev, params, results):
@@ -1185,7 +1237,8 @@ def phase_planar_model(dev, params, results):
     FP4 Llama3-8B generates 60 tokens greedily at B = 1, 3 and 8 (K5
     only; K5 on the 48-row prefill and K6 on every decode step; K7's
     dense band on the 128-row prefill and K5 on decode), with exact launch
-    counts, the same tokens on every run and tok/s the median of 5. Then
+    counts (K5's split by body as ``planar_body`` says), the same tokens
+    on every run and tok/s the median of 5. Then
     one decode step's logits against the pair model's on the same cache,
     and where the greedy streams part."""
     from quantizations_tpu_torch.config import QuantConfig, ServeConfig
@@ -1195,7 +1248,7 @@ def phase_planar_model(dev, params, results):
     from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT,
                                              DEQUANTIZE_4BIT_PAIR, GEMV_4BIT,
                                              KERNELS, PAIR_MATMUL,
-                                             PLANAR_MATMUL)
+                                             PLANAR_MATMUL, PLANAR_MATMUL_MMA)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
 
     cfg = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
@@ -1224,7 +1277,7 @@ def phase_planar_model(dev, params, results):
             toks, _ = gen(params, ids.repeat(B, 1),
                           KVCache.create(cfg, B, serve.max_seq_len, dev), None)
             pair_tokens[B] = toks.cpu().tolist()
-    kerns = (PLANAR_MATMUL, GEMV_4BIT, DEQUANTIZE_4BIT)
+    kerns = (PLANAR_MATMUL, PLANAR_MATMUL_MMA, GEMV_4BIT, DEQUANTIZE_4BIT)
     runs = []
     for k in KERNELS:
         k.launches = 0
@@ -1245,9 +1298,9 @@ def phase_planar_model(dev, params, results):
             got = tuple(k.launches - b for k, b in
                         zip(kerns + pair_kerns, before))
             if got != want + (0, 0):
-                raise AssertionError(f"planar B={B}: (K5, K6, K7, K1, K10) "
-                                     f"launched {got}, expected "
-                                     f"{want + (0, 0)}")
+                raise AssertionError(f"planar B={B}: (K5, K5 tensor-core, "
+                                     f"K6, K7, K1, K10) launched {got}, "
+                                     f"expected {want + (0, 0)}")
             if toks.shape != (B, PLANAR_NEW) or int(toks.min()) < 0 or int(
                     toks.max()) >= cfg.vocab_size:
                 raise AssertionError(f"planar tokens out of range: "
@@ -1269,13 +1322,13 @@ def phase_planar_model(dev, params, results):
                          tok_per_s_max=PLANAR_NEW * B / min(times),
                          generate_s=t, generate_s_all=times,
                          launches_per_generate=dict(zip(
-                             ("planar_matmul", "gemv_4bit",
-                              "dequantize_4bit"), want)),
+                             (k.name for k in kerns), want)),
                          first_part_from_pair=part, tokens=first.tolist()))
         r = runs[-1]
         log(f"  planar B={B}: {r['tok_per_s']:.2f} tok/s, median of 5 (min "
             f"{r['tok_per_s_min']:.2f}, max {r['tok_per_s_max']:.2f}); "
-            f"K5/K6/K7 launches {want} each; the stream "
+            f"K5 (tensor-core body) / K6 / K7 launches {want[0]} "
+            f"({want[1]}) / {want[2]} / {want[3]} each; the stream "
             + ("equals the pair model's" if part is None else
                f"parts from the pair model's at token {part}"))
     results["launches_planar"] = {k.name: k.launches for k in KERNELS}
@@ -1425,18 +1478,22 @@ def _forward_sum(rows, T, key, head_t):
 
 
 def phase_planar_time(dev, gen, results):
-    """K5 at T = 1, 8 (decode at B = 1, 8) and 48 (the B = 3 prefill) and
-    K6 at T = 3 (decode at B = 3), per shape and summed over one forward;
-    K7 at [14336, 4096] and the lm_head, to fp32 and bf16. Weights rotate
-    over enough layers to exceed the 50 MB L2 four times; beside each,
-    the bound (K5: bf16 tensor-core rate; K6, K7: fp32 rate), the plain
-    version and, for K5/K6, a dense bf16 ``torch.matmul`` over the same
-    shapes (the port never calls it)."""
+    """K5's two bodies, each launched directly, at PLANAR_BODY_T on the
+    five planar shapes, beside the bound (bf16 tensor-core rate), dense
+    bf16 ``torch.matmul`` over the same shapes (the port never calls it)
+    and, at PLANAR_PLAIN_T, the plain version; ``ms`` is the body that
+    ``planar_body`` picks. K6 at T = 3 (decode at B = 3) beside its bound
+    (fp32 rate), plain version and ``torch.matmul``; K7 at [14336, 4096]
+    and the lm_head, to fp32 and bf16. Weights rotate over enough layers
+    to exceed the 50 MB L2 four times. Per-forward sums: 32 layers x the
+    four projections, with the lm_head at T where T <= 8 (decode; a
+    prefill's lm_head runs at B rows); and the crossover: the fewest
+    timed rows from which the tensor-core body is the faster per forward
+    at every larger count."""
     from quantizations_tpu_torch.ops import (dequantize_4bit_kernel,
                                              dequantize_4bit_kernel_plain,
-                                             gemv_4bit, gemv_4bit_plain,
-                                             matmul_4bit_planar,
-                                             matmul_4bit_planar_plain)
+                                             gemv_4bit, gemv_4bit_plain)
+    from quantizations_tpu_torch.ops import qmatmul as qm
 
     rows, k7 = [], []
     for name, M, K in K1_SHAPES:
@@ -1445,29 +1502,40 @@ def phase_planar_time(dev, gen, results):
         wp, s = _planar_operands(M, K, L, dev, gen)
         R = max(2, math.ceil(4 * L2_BYTES / (M * K * 2)))
         Wd = torch.randn(R, M, K, generator=gen, device=dev).to(torch.bfloat16)
-        x = torch.randn(48, K, generator=gen, device=dev).to(torch.bfloat16)
-        for kname, T, fn, plain, rate in (
-                ("planar_matmul", 1, matmul_4bit_planar,
-                 matmul_4bit_planar_plain, BF16_FLOP_PER_S),
-                ("gemv_4bit", 3, gemv_4bit, gemv_4bit_plain, FP32_FLOP_PER_S),
-                ("planar_matmul", 8, matmul_4bit_planar,
-                 matmul_4bit_planar_plain, BF16_FLOP_PER_S),
-                ("planar_matmul", 48, matmul_4bit_planar,
-                 matmul_4bit_planar_plain, BF16_FLOP_PER_S)):
+        x = torch.randn(max(PLANAR_BODY_T), K, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        for T in PLANAR_BODY_T + (3,):
             xt = x[:T].contiguous()
-            ms = device_ms(lambda i: fn(wp[i % L], s[i % L], xt), 64)
-            pms = device_ms(lambda i: plain(wp[0], s[0], xt), 3, warmup=1)
+            k6 = T == 3
+            if k6:
+                ms = {"ms": device_ms(lambda i: gemv_4bit(
+                    wp[i % L], s[i % L], xt), 64)}
+            else:
+                ms = {f"{b}_ms": device_ms(lambda i: getattr(
+                    qm, f"matmul_4bit_planar_{b}")(wp[i % L], s[i % L], xt),
+                    64) for b in ("cuda_core", "mma")}
+                ms["ms"] = ms[f"{qm.planar_body(T)}_ms"]
+            pms = (device_ms(lambda i: (gemv_4bit_plain if k6 else
+                                        qm.matmul_4bit_planar_plain)(
+                wp[0], s[0], xt), 3, warmup=1)
+                if k6 or T in PLANAR_PLAIN_T else None)
             lms = device_ms(lambda i: torch.matmul(xt, Wd[i % R].T), 64)
+            rate = FP32_FLOP_PER_S if k6 else BF16_FLOP_PER_S
             nbytes = layer_bytes + T * K * 2 + T * M * 4
             bms, by = bound(nbytes, 2 * T * M * K, rate)
-            rows.append(dict(kernel=kname, shape=name, M=M, K=K, T=T, ms=ms,
-                             plain_ms=pms, library_ms=lms, bound_ms=bms,
-                             bound_by=by, bytes_ms=nbytes / HBM_BYTES_PER_S
-                             * 1e3, ops_ms=2 * T * M * K / rate * 1e3,
-                             layers_rotated=L))
-            log(f"  {kname:13s} {name:8s} T={T:2d}: {ms * 1e3:9.2f} us  "
-                f"bound {bms * 1e3:8.2f} us ({by})  plain {pms * 1e3:9.1f} "
-                f"us  torch.matmul bf16 {lms * 1e3:8.2f} us")
+            rows.append(dict(kernel="gemv_4bit" if k6 else "planar_matmul",
+                             shape=name, M=M, K=K, T=T, plain_ms=pms,
+                             library_ms=lms, bound_ms=bms, bound_by=by,
+                             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             ops_ms=2 * T * M * K / rate * 1e3,
+                             layers_rotated=L, **ms))
+            log(f"  {'K6' if k6 else 'K5'} {name:8s} T={T:2d}: "
+                + (f"{ms['ms'] * 1e3:9.2f} us" if k6 else
+                   f"CUDA-core {ms['cuda_core_ms'] * 1e3:9.2f} us  "
+                   f"tensor-core {ms['mma_ms'] * 1e3:9.2f} us")
+                + f"  bound {bms * 1e3:8.2f} us ({by})  torch.matmul bf16 "
+                f"{lms * 1e3:8.2f} us"
+                + (f"  plain {pms * 1e3:9.1f} us" if pms else ""))
         if name in ("gate_up", "lm_head"):
             # one of the two halves of gate_up ([14336, 4096]), the head
             Mq = M // 2 if name == "gate_up" else M
@@ -1487,23 +1555,38 @@ def phase_planar_time(dev, gen, results):
         del wp, s, Wd, x
         torch.cuda.empty_cache()
     per = {}
-    # decode forwards (the lm_head at T = B), and the B = 3 prefill's 128
-    # projections at T = 48 (its lm_head runs K6 at T = 3)
-    for kname, T, head_t in (("planar_matmul", 1, 1), ("planar_matmul", 8, 8),
-                             ("gemv_4bit", 3, 3), ("planar_matmul", 48, None)):
+    for kname, T in [("planar_matmul", T) for T in PLANAR_BODY_T] + [
+            ("gemv_4bit", 3)]:
         sel = [r for r in rows if r["kernel"] == kname]
-        f = {k: _forward_sum(sel, T, k, head_t)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
-                       "ops_ms")}
+        head_t = T if T <= 8 else None
+        keys = ["ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms"]
+        keys += ["plain_ms"] if kname == "gemv_4bit" or T in PLANAR_PLAIN_T \
+            else []
+        keys += ["cuda_core_ms", "mma_ms"] if kname == "planar_matmul" else []
+        f = {k: _forward_sum(sel, T, k, head_t) for k in keys}
         f["bound_by"] = ("bytes" if f["bytes_ms"] >= f["ops_ms"]
                          else "operations")
         f["launches"] = 4 * LAYERS + (head_t is not None)
         per[f"{kname} T={T}"] = f
-        log(f"  {kname} per forward at T={T} ({f['launches']} launches): "
-            f"{f['ms']:.3f} ms, bound {f['bound_ms']:.3f} ms "
-            f"({f['bound_by']}), plain {f['plain_ms']:.1f} ms, torch.matmul "
-            f"bf16 {f['library_ms']:.3f} ms")
-    results["planar_time"] = dict(rows=rows, per_forward=per, k7=k7)
+        log(f"  {'K6' if kname == 'gemv_4bit' else 'K5'} per forward at "
+            f"T={T} ({f['launches']} launches): "
+            + (f"{f['ms']:.3f} ms" if kname == "gemv_4bit" else
+               f"CUDA-core body {f['cuda_core_ms']:.3f} ms, tensor-core "
+               f"body {f['mma_ms']:.3f} ms")
+            + f", bound {f['bound_ms']:.3f} ms ({f['bound_by']}), "
+            f"torch.matmul bf16 {f['library_ms']:.3f} ms"
+            + (f", plain {f['plain_ms']:.1f} ms" if "plain_ms" in f else ""))
+    cross = None
+    for T in sorted(PLANAR_BODY_T, reverse=True):
+        f = per[f"planar_matmul T={T}"]
+        if f["mma_ms"] >= f["cuda_core_ms"]:
+            break
+        cross = T
+    log(f"  K5 crossover (fewest timed rows from which the tensor-core body "
+        f"is the faster per forward at every larger count): {cross}; K5 "
+        f"switches at {qm.PLANAR_MMA_MIN_TOKENS}")
+    results["planar_time"] = dict(rows=rows, per_forward=per, k7=k7,
+                                  crossover=cross)
 
 
 def phase_planar(dev, gen, results, params):
@@ -2472,7 +2555,8 @@ def kernel_entries(results, kernels_seq):
     kernels = []
     launches = results.get("launches", {})
     paged_launches = results.get("launches_paged", {})
-    from quantizations_tpu_torch.ops import PAIR_MMA_MIN_TOKENS
+    from quantizations_tpu_torch.ops import (PAIR_MMA_MIN_TOKENS,
+                                             PLANAR_MMA_MIN_TOKENS)
     planar_launches = results.get("launches_planar", {})
     for k in kernels_seq:
         entry = dict(name=k.name, route="cuda", source=k.source,
@@ -2535,13 +2619,35 @@ def kernel_entries(results, kernels_seq):
                 library_ms=f.get("library_ms"),
                 unit=("one decode forward at T=" + (
                     "1" if k.name == "planar_matmul" else "3")
-                      + f": {LAYERS} layers x 4 projections + the lm_head; "
-                      "library_ms: dense bf16 torch.matmul over the same "
-                      "shapes; launches: the planar generates (B = 1, 3, 8, "
-                      "6 runs each)"),
+                      + f": {LAYERS} layers x 4 projections + the lm_head "
+                      "(K5: the body planar_body picks, both bodies' "
+                      "launches); library_ms: dense bf16 torch.matmul over "
+                      "the same shapes; launches: the planar generates (B = "
+                      "1, 3, 8, 6 runs each)"),
                 per_forward=pt,
                 by_shape=[r for r in results.get("planar_time", {}).get(
                     "rows", []) if r["kernel"] == k.name])
+        elif k.name == "planar_matmul_mma":
+            pt = results.get("planar_time", {})
+            f = pt.get("per_forward", {}).get("planar_matmul T=48", {})
+            err = results.get("planar_err", {}).get(k.name, {})
+            entry.update(
+                launches=planar_launches.get(k.name, 0),
+                max_abs_err=err.get("max_abs_err"),
+                max_err_over_max_y=err.get("max_err_over_max_y"),
+                ms=f.get("mma_ms"), plain_ms=f.get("plain_ms"),
+                bound_ms=f.get("bound_ms"), bound_by=f.get("bound_by"),
+                library_ms=f.get("library_ms"),
+                cuda_core_ms=f.get("cuda_core_ms"),
+                crossover=pt.get("crossover"),
+                unit=f"K5 from {PLANAR_MMA_MIN_TOKENS} rows on: the B = 3 "
+                     f"prefill forward, T=48, {LAYERS} layers x 4 "
+                     "projections; cuda_core_ms: K5's CUDA-core body there; "
+                     "library_ms: dense bf16 torch.matmul over the same "
+                     "shapes; launches: the planar generates (B = 1, 3, 8, "
+                     "6 runs each)",
+                per_forward={k2: v for k2, v in pt.get(
+                    "per_forward", {}).items() if k2.startswith("planar")})
         elif k.name in ("pair_prefill", "pair_manual"):
             pv = results.get("pair_variants_time", {}).get("per_forward", {})
             f = pv.get(k.name, {})

@@ -43,8 +43,10 @@
 //    product, as the TPU kernel does.
 // A tile of TT <= 16 tokens (K5) or 8 (K6) lives in registers; larger T
 // loops over token tiles in blockIdx.x (fastest), so the tiles of one row
-// block run together and re-read its words from L2. Tensor cores (wgmma),
-// TMA and pipelining are left for later.
+// block run together and re-read its words from L2. This CUDA-core body
+// is K5's below PLANAR_MMA_MIN_TOKENS rows and all of K6; K5's
+// tensor-core body (mma.sync, a cp.async ring a warp) is at the end of
+// the file.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -295,5 +297,372 @@ extern "C" int qt_gemv_4bit(const void* wp, const void* scales,
   else
     e = launch_tt<8, false>(w, scales, scale_kind, tb, x, x_kind, yy, T, M,
                             K8, has_factor, factor, st);
+  return static_cast<int>(e);
+}
+
+// ---------------------------------------------------------------------------
+// K5's tensor-core body (qt_planar_mma): the function and rounding class of
+// qt_planar_matmul, the same bf16 weights and activations, with the fp32
+// sums in another order (the tensor cores', then the warps'). K5 launches
+// it from PLANAR_MMA_MIN_TOKENS rows on (ops/qmatmul.py planar_body); the
+// CUDA-core body above keeps the rows below.
+//
+// Bound: the weight bytes up to T = 64 (at T = 48 the 128 projections of
+// a Llama3-8B forward are 0.72 TFLOP, 0.73 ms at 989 TFLOP/s, against
+// 1.2 ms for their bytes at 3.35 TB/s). The CUDA-core body decodes every
+// weight once per 16-token tile and spends one fp32 FMA per weight and
+// token; this body decodes each weight once per 64 tokens and leaves the
+// products to mma.sync.m16n8k16 (bf16 x bf16, fp32 sums):
+//  - weights are the A operand (16 rows a tile), tokens the n8 tiles: all
+//    of T <= 64 is one tile of NT <= 8 n8 tiles. Of the A fragment for a
+//    16-column step s, lane (g, tg) holds rows g and g + 8 at columns 2tg,
+//    2tg + 1 and 2tg + 8, 2tg + 9: byte tg of words 2s and 2s + 1 of each
+//    row (a byte's high nibble is the even column). The lane decodes its
+//    two codes with the fp32 table, multiplies each by the bf16 scale in
+//    fp32 and packs them with one round-to-nearest bf16x2 conversion:
+//    K5's rounding points;
+//  - the B fragments come from the activation tile in its original column
+//    order with ldmatrix.x4 (x [T, K] row-major is the .col B layout;
+//    rows padded to 72 values: conflict-free), no permuted copy of x;
+//  - split K: a block owns 16 * MT rows; each of its KS warps takes its
+//    own range of whole 64-column scale blocks and streams them (words,
+//    scales, activation rows) through its own cp.async ring of ST stages,
+//    waiting with wait_group + __syncwarp: no block barrier in the loop;
+//  - two-level sums, as in csrc/pair_prefill.cu: the mma accumulators of
+//    one 64-column block start at zero and the block's partial is added
+//    to the warp's running fp32 sum with an ordinary add (one chained
+//    tensor-core accumulator over K = 14336 misses 1e-5 of max|y|);
+//  - at the end each warp writes its partial into its own ring and, after
+//    the block's only barrier, the warps' partials are added in warp
+//    order: no atomics, reruns give the same bits.
+// Any M, any T (tiles of 64 tokens on grid y above 64), K a multiple of
+// 64; token and row tails are zero-filled and masked. mma.sync only: no
+// wgmma, TMA or clusters.
+
+namespace {
+
+constexpr int kMmaLdx = 64 + 8;   // activation stage row, in bf16
+
+template <int NT, int MT, int KS, int ST>
+struct MmaTile {
+  static constexpr int kRows = 16 * MT;             // weight rows a block
+  static constexpr int kThreads = 32 * KS;
+  static constexpr int kWords = 8 * kRows;          // uint32 a stage
+  static constexpr int kX = 8 * NT * kMmaLdx;       // bf16 a stage
+  static constexpr int kStage = 4 * kWords + 4 * kRows + 2 * kX;   // bytes
+  static constexpr int kPartLd = kRows + 4;         // floats a partial row
+  static constexpr size_t kSmem = (size_t)KS * ST * kStage;
+  static_assert(8 * NT * kPartLd * 4 <= ST * kStage,
+                "a warp's partial fits its ring");
+};
+
+__device__ __forceinline__ void mma_cp16(void* smem, const void* gmem,
+                                         bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void mma_cp4(void* smem, const void* gmem,
+                                        bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void mma_m16n8k16(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The bf16 pair of byte `by` (already shifted down) of a word: the high
+// nibble's weight (the even column) in the low half, each
+// bf16_rn(table[code] * s) as K5 rounds it.
+__device__ __forceinline__ uint32_t decode_pair(const float* tbl, uint32_t by,
+                                                float s) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(
+      __fmul_rn(tbl[(by >> 4) & 15u], s), __fmul_rn(tbl[by & 15u], s));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int NT, int MT, int KS, int ST>
+__global__ void __launch_bounds__(32 * KS)
+planar_mma_kernel(const int32_t* __restrict__ wp,
+                  const void* __restrict__ scales, int scale_kind,
+                  const float* __restrict__ table,
+                  const __nv_bfloat16* __restrict__ x, float* __restrict__ y,
+                  int T, int M, int K8, int has_factor, float factor) {
+  using TL = MmaTile<NT, MT, KS, ST>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float tbl[16];
+
+  const int NB = K8 / 8;
+  const int K = 8 * K8;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;       // mma fragment coordinates
+  const int m0 = blockIdx.x * TL::kRows;
+  const int t0 = blockIdx.y * 8 * NT;
+  const int tv = min(T - t0, 8 * NT);           // the tile's tokens
+  const int b0 = (int)((long long)warp * NB / KS);
+  const int nblk = (int)((long long)(warp + 1) * NB / KS) - b0;
+  const __nv_bfloat16 fac = __float2bfloat16_rn(factor);
+  // bf16 scales come as the aligned 4-byte word holding them: which half
+  const unsigned s_half0 =
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(scales) >> 1);
+  unsigned char* ring = smem + (size_t)warp * ST * TL::kStage;
+
+  if (threadIdx.x < 16) tbl[threadIdx.x] = table[threadIdx.x];
+  // activation rows past the tile's tokens are never copied: zero them
+  // once in every stage
+  for (int q = lane; q < ST * (8 * NT - tv) * 9; q += 32) {
+    const int st = q / ((8 * NT - tv) * 9), r = q % ((8 * NT - tv) * 9);
+    *reinterpret_cast<uint4*>(ring + st * TL::kStage + 4 * TL::kWords +
+                              4 * TL::kRows +
+                              2 * (tv + r / 9) * kMmaLdx + 16 * (r % 9)) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+
+  // scale block b's copies into stage st, from sources fixed per lane:
+  // the words of the block's rows (two 16-byte halves a row, MT a lane),
+  // their scales (lanes below 16 MT; a bf16 scale as the aligned word that
+  // holds it, an fp32 one is aligned already), the tile's activation rows
+  // (8 lanes a token, 4 tokens a pass)
+  const int32_t* wsrc[MT];
+  bool wok[MT];
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+    const int r = (lane + 32 * j) >> 1, m = m0 + r;
+    wok[j] = m < M;
+    wsrc[j] = wp + (wok[j] ? (size_t)m * K8 + 4 * (lane & 1) : 0);
+  }
+  const int s_size = scale_kind == 0 ? 4 : 2;
+  const bool sok = lane < TL::kRows && m0 + lane < M;
+  const char* ssrc = static_cast<const char*>(scales) +
+                     (sok ? (size_t)(m0 + lane) * NB * s_size : 0);
+  const __nv_bfloat16* xsrc = x + (size_t)(t0 + (lane >> 3)) * K +
+                              8 * (lane & 7);
+  auto copy = [&](int b, int st) {
+    unsigned char* base = ring + st * TL::kStage;
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+      mma_cp16(base + 16 * (lane + 32 * j), wsrc[j] + (wok[j] ? 8 * b : 0),
+               wok[j]);
+    if (lane < TL::kRows)
+      mma_cp4(base + 4 * TL::kWords + 4 * lane,
+              reinterpret_cast<const void*>(
+                  reinterpret_cast<uintptr_t>(ssrc + (sok ? b * s_size : 0)) &
+                  ~static_cast<uintptr_t>(3)),
+              sok);
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
+        base + 4 * TL::kWords + 4 * TL::kRows);
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+      if (4 * j + (lane >> 3) < tv)
+        mma_cp16(xs + (4 * j + (lane >> 3)) * kMmaLdx + 8 * (lane & 7),
+                 xsrc + (size_t)4 * j * K + 64 * b, true);
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][n][c] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < ST - 1; ++st) {
+    if (st < nblk) copy(b0 + st, st);
+    mma_commit();
+  }
+
+  for (int i = 0; i < nblk; ++i) {
+    mma_wait<ST - 2>();       // this lane's copies of step i landed
+    __syncwarp();             // every lane's; and step i - 1's reads done
+    if (i + ST - 1 < nblk) copy(b0 + i + ST - 1, (i + ST - 1) % ST);
+    mma_commit();
+
+    const int b = b0 + i;
+    const unsigned char* base = ring + (i % ST) * TL::kStage;
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(base);
+    const uint32_t* sc = w + TL::kWords;
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(sc + TL::kRows);
+
+    // the bf16 scale of rows g and g + 8 of each 16-row tile, in fp32
+    float sv[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * mt + g + 8 * h;
+        const uint32_t u = sc[r];
+        __nv_bfloat16 sb;
+        if (scale_kind == 0) {
+          sb = __float2bfloat16_rn(__uint_as_float(u));
+        } else {
+          const unsigned half =
+              (s_half0 + (unsigned)(m0 + r) * (unsigned)NB + (unsigned)b) & 1u;
+          __nv_bfloat16_raw raw;
+          raw.x = static_cast<unsigned short>(u >> (16 * half));
+          sb = __nv_bfloat16(raw);
+        }
+        if (has_factor) sb = __hmul(sb, fac);
+        sv[mt][h] = __bfloat162float(sb);
+      }
+
+    float blk[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) blk[mt][n][c] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < 4; s += 2) {
+      // B fragments of steps s and s + 1: tokens 8n + (lane & 7), columns
+      // 16s + 8 (lane >> 3)
+      uint32_t bf[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        ldsm_x4(bf[n], xs + (8 * n + (lane & 7)) * kMmaLdx + 16 * s +
+                           8 * (lane >> 3));
+#pragma unroll
+      for (int ss = 0; ss < 2; ++ss) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          // words 2(s + ss) and 2(s + ss) + 1 of rows g and g + 8
+          const uint2 lo = *reinterpret_cast<const uint2*>(
+              w + 8 * (16 * mt + g) + 2 * (s + ss));
+          const uint2 hi = *reinterpret_cast<const uint2*>(
+              w + 8 * (16 * mt + g + 8) + 2 * (s + ss));
+          const int sh = 8 * tg;
+          const uint32_t a[4] = {decode_pair(tbl, lo.x >> sh, sv[mt][0]),
+                                 decode_pair(tbl, hi.x >> sh, sv[mt][1]),
+                                 decode_pair(tbl, lo.y >> sh, sv[mt][0]),
+                                 decode_pair(tbl, hi.y >> sh, sv[mt][1])};
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            mma_m16n8k16(blk[mt][n], a, &bf[n][2 * ss]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][n][c] += blk[mt][n][c];
+  }
+  mma_wait<0>();
+  __syncwarp();
+
+  // this warp's partial [8 NT tokens][kPartLd] into its own ring: c[2hh +
+  // e] at row g + 8hh of the 16-row tile, token 2tg + e of the n8 tile
+  float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        part[(8 * n + 2 * tg + (c & 1)) * TL::kPartLd + 16 * mt + g +
+             8 * (c >> 1)] = acc[mt][n][c];
+  __syncthreads();
+
+  for (int q = threadIdx.x; q < tv * TL::kRows; q += TL::kThreads) {
+    const int t = q / TL::kRows, r = q % TL::kRows;
+    if (m0 + r >= M) continue;
+    const float* p =
+        reinterpret_cast<const float*>(smem) + t * TL::kPartLd + r;
+    float v = p[0];
+#pragma unroll
+    for (int k = 1; k < KS; ++k)
+      v += p[(size_t)k * ST * TL::kStage / 4];
+    y[(size_t)(t0 + t) * M + m0 + r] = v;
+  }
+}
+
+template <int NT, int MT, int KS, int ST>
+cudaError_t launch_mma(const int32_t* wp, const void* scales, int scale_kind,
+                       const float* table, const __nv_bfloat16* x, float* y,
+                       int T, int M, int K8, int has_factor, float factor,
+                       cudaStream_t stream) {
+  using TL = MmaTile<NT, MT, KS, ST>;
+  if (TL::kSmem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        planar_mma_kernel<NT, MT, KS, ST>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TL::kSmem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((M + TL::kRows - 1) / TL::kRows, (T + 8 * NT - 1) / (8 * NT));
+  planar_mma_kernel<NT, MT, KS, ST><<<grid, TL::kThreads, TL::kSmem, stream>>>(
+      wp, scales, scale_kind, table, x, y, T, M, K8, has_factor, factor);
+  return cudaGetLastError();
+}
+
+// Up to 8 tokens, rows above this take 32-row blocks (the fused gate_up
+// and the lm_head: 896 blocks and more), fewer take 16-row blocks (qkv,
+// o, down: twice the blocks).
+constexpr int kWideM = 16384;
+
+}  // namespace
+
+// K5 through its tensor-core body: the arguments and layouts of
+// qt_planar_matmul. The block's shape (n8 tiles NT, 16-row tiles MT, K
+// slices KS, ring stages ST) from T and M, as timed on an H100: up to 8
+// tokens one n8 tile, 16 rows a block (32 above kWideM rows), 8 warps
+// and 4 stages; 16 and 32 tokens 2 and 4 n8 tiles, 48 and 64 6 and 8, all
+// with 32 rows; tiles of 64 tokens on grid y above. Returns
+// cudaGetLastError() after the launch.
+extern "C" int qt_planar_mma(const void* wp, const void* scales,
+                             int scale_kind, const void* table, const void* x,
+                             void* y, int T, int M, int K8, int has_factor,
+                             float factor, void* stream) {
+  auto w = static_cast<const int32_t*>(wp);
+  auto tb = static_cast<const float*>(table);
+  auto xx = static_cast<const __nv_bfloat16*>(x);
+  auto yy = static_cast<float*>(y);
+  auto st = static_cast<cudaStream_t>(stream);
+#define QT_MMA(NT_, MT_, KS_, ST_)                                          \
+  launch_mma<NT_, MT_, KS_, ST_>(w, scales, scale_kind, tb, xx, yy, T, M,  \
+                                 K8, has_factor, factor, st)
+  cudaError_t e;
+  if (T <= 8)
+    e = M > kWideM ? QT_MMA(1, 2, 8, 4) : QT_MMA(1, 1, 8, 4);
+  else if (T <= 16)
+    e = QT_MMA(2, 2, 8, 4);
+  else if (T <= 32)
+    e = QT_MMA(4, 2, 8, 2);
+  else if (T <= 48)
+    e = QT_MMA(6, 2, 8, 2);
+  else
+    e = QT_MMA(8, 2, 4, 2);
+#undef QT_MMA
   return static_cast<int>(e);
 }

@@ -1,8 +1,8 @@
 """Build, load and count the port's CUDA kernels.
 
 Each ``csrc/*.cu`` source holds one or more kernels with a plain C
-interface (``flash_decode.cu`` holds K3 and K4, ``planar_matmul.cu`` K5
-and K6, ``dequantize.cu`` K7 and K10, ``pair_matmul.cu`` K1's CUDA-core
+interface (``flash_decode.cu`` holds K3 and K4, ``planar_matmul.cu`` K5's
+two bodies and K6, ``dequantize.cu`` K7 and K10, ``pair_matmul.cu`` K1's CUDA-core
 body and K9,
 ``pair_prefill.cu`` the tensor-core body that K8 and K1 above 128 rows
 launch, each with its own :class:`Kernel` record and launch counter). A
@@ -30,7 +30,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["Kernel", "PAIR_MATMUL", "PAIR_MATMUL_MMA", "QUANTIZE_4BIT",
-           "FLASH_DECODE", "FLASH_DECODE_I8", "PLANAR_MATMUL", "GEMV_4BIT",
+           "FLASH_DECODE", "FLASH_DECODE_I8", "PLANAR_MATMUL",
+           "PLANAR_MATMUL_MMA", "GEMV_4BIT",
            "DEQUANTIZE_4BIT", "DEQUANTIZE_4BIT_PAIR", "PAIR_PREFILL",
            "PAIR_MANUAL", "KERNELS",
            "build", "launch", "nvcc_path", "NVCC_FLAGS"]
@@ -106,12 +107,18 @@ FLASH_DECODE_I8 = Kernel(
     "(flash_decode_attention_stacked_i8 :303, "
     "ops/paged_attention.py:141 paged_flash_decode_attention_i8)",
     {"qt_flash_decode_i8": [_P, _I, _P, _P, _P, _P] + _DECODE_TAIL})
+# (wp, scales, scale_kind, table, x, y, T, M, K8, has_factor, factor)
+_PLANAR_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P]
 PLANAR_MATMUL = Kernel(
     "planar_matmul", "quantizations_tpu_torch/csrc/planar_matmul.cu",
     "quantizations_tpu/ops/qmatmul.py:43 _kernel "
     "(matmul_4bit_pallas :93, matmul_4bit_pallas_stacked :154)",
-    # (wp, scales, scale_kind, table, x, y, T, M, K8, has_factor, factor)
-    {"qt_planar_matmul": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P]})
+    {"qt_planar_matmul": _PLANAR_ARGS})
+# K5 from PLANAR_MMA_MIN_TOKENS rows on (ops/qmatmul.py): its tensor-core
+# body, counted here and in PLANAR_MATMUL's count of every K5 launch.
+PLANAR_MATMUL_MMA = Kernel(
+    "planar_matmul_mma", "quantizations_tpu_torch/csrc/planar_matmul.cu",
+    PLANAR_MATMUL.replaces, {"qt_planar_mma": _PLANAR_ARGS})
 GEMV_4BIT = Kernel(
     "gemv_4bit", "quantizations_tpu_torch/csrc/planar_matmul.cu",
     "quantizations_tpu/ops/gemv.py:150 _gemv_kernel "
@@ -151,7 +158,8 @@ PAIR_MANUAL = Kernel(
     "(matmul_4bit_pair_manual :1103, matmul_4bit_pair_manual_stacked :1163)",
     {"qt_pair_manual": _PAIR_ARGS})
 KERNELS = (PAIR_MATMUL, PAIR_MATMUL_MMA, QUANTIZE_4BIT, FLASH_DECODE,
-           FLASH_DECODE_I8, PLANAR_MATMUL, GEMV_4BIT, DEQUANTIZE_4BIT,
+           FLASH_DECODE_I8, PLANAR_MATMUL, PLANAR_MATMUL_MMA, GEMV_4BIT,
+           DEQUANTIZE_4BIT,
            PAIR_PREFILL, PAIR_MANUAL, DEQUANTIZE_4BIT_PAIR)
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -2,13 +2,18 @@
 row-pair") weights and K5 over planar words (counterpart of
 ``quantizations_tpu/ops/qmatmul.py``).
 
-K5 (``csrc/planar_matmul.cu``, entry ``qt_planar_matmul``) is the TPU
-planar kernel's bf16 class, the class K1 reproduces too: the block scale
-rounded to bf16 (times bf16(1/12) in bf16 for FP4), each weight
-``bf16(decoded * scale)``, bf16 activations, fp32 products and sums. Its
-decode is the fp32 table of :func:`~quantizations_tpu_torch.ops.gemv.planar_table`:
-for NF4 the fp32 codebook, where K1's pair decode takes the bf16
-codebook, as the two TPU kernels do.
+K5 (``csrc/planar_matmul.cu``) is the TPU planar kernel's bf16 class,
+the class K1 reproduces too: the block scale rounded to bf16 (times
+bf16(1/12) in bf16 for FP4), each weight ``bf16(decoded * scale)``, bf16
+activations, fp32 products and sums. Its decode is the fp32 table of
+:func:`~quantizations_tpu_torch.ops.gemv.planar_table`: for NF4 the fp32
+codebook, where K1's pair decode takes the bf16 codebook, as the two TPU
+kernels do. It has two bodies, chosen by the token count alone
+(:func:`planar_body`): below ``PLANAR_MMA_MIN_TOKENS`` rows the CUDA-core
+body it shares with K6 (entry ``qt_planar_matmul``), from there on the
+tensor-core body (entry ``qt_planar_mma``: ``mma.sync`` bf16 with fp32
+sums, K split over the warps of a block). ``PLANAR_MATMUL`` counts every
+K5 launch, ``PLANAR_MATMUL_MMA`` those of the tensor-core body.
 
 Layout of ``wp2 [M/2, K/4]`` (same bytes as planar ``[M, K/8]``): the
 word axis is block-major, ``w = r*NB + b`` with ``b`` the 64-element quant
@@ -59,7 +64,7 @@ import torch
 
 from ..quant.codebooks import FP4_CODE, get_4bit_code
 from .cuda import (PAIR_MANUAL, PAIR_MATMUL, PAIR_MATMUL_MMA, PAIR_PREFILL,
-                   PLANAR_MATMUL, launch)
+                   PLANAR_MATMUL, PLANAR_MATMUL_MMA, launch)
 from .gemv import _SHIFTS, check_planar_args, device_planar_table, planar_table
 
 __all__ = [
@@ -93,6 +98,10 @@ __all__ = [
     "matmul_4bit_pair_stacked",
     "matmul_4bit_pair_plain",
     "matmul_4bit_pair_stacked_plain",
+    "PLANAR_MMA_MIN_TOKENS",
+    "planar_body",
+    "matmul_4bit_planar_cuda_core",
+    "matmul_4bit_planar_mma",
     "matmul_4bit_planar",
     "matmul_4bit_planar_stacked",
     "matmul_4bit_planar_plain",
@@ -635,19 +644,67 @@ def matmul_4bit_planar_stacked_plain(wp: torch.Tensor, scales: torch.Tensor,
                                     quant_type)
 
 
-def _launch_planar(wp, scales, x, quant_type):
-    check_planar_args("planar_matmul", wp, scales, x, (torch.bfloat16,))
+def _launch_planar(wp, scales, x, quant_type, kernel=PLANAR_MATMUL,
+                   entry="qt_planar_matmul"):
+    """Launch K5's CUDA-core body, or its tensor-core body through
+    ``entry="qt_planar_mma"``, counted in ``kernel``."""
+    check_planar_args(kernel.name, wp, scales, x, (torch.bfloat16,))
     M, K8 = wp.shape
     T = x.shape[0]
     y = torch.empty((T, M), dtype=torch.float32, device=x.device)
     if T == 0 or M == 0:
         return y
     _, out_factor = planar_table(quant_type)
-    launch(PLANAR_MATMUL, "qt_planar_matmul", x.device, wp.data_ptr(),
+    launch(kernel, entry, x.device, wp.data_ptr(),
            scales.data_ptr(), int(scales.dtype == torch.bfloat16),
            device_planar_table(quant_type, x.device).data_ptr(),
            x.data_ptr(), y.data_ptr(), T, M, K8, int(out_factor != 1.0),
            out_factor)
+    return y
+
+
+# K5 runs its CUDA-core body (``qt_planar_matmul``) below this many token
+# rows and its tensor-core body (``qt_planar_mma``) from here on: on an
+# H100 the tensor-core body is the faster per Llama3-8B forward from 2
+# rows on, not at 1 (``chip_smoke.py phase_planar_time``'s crossover).
+PLANAR_MMA_MIN_TOKENS = 2
+
+
+def planar_body(tokens: int) -> str:
+    """Which body K5 runs for ``tokens`` rows: ``"cuda_core"`` or
+    ``"mma"``."""
+    return "mma" if tokens >= PLANAR_MMA_MIN_TOKENS else "cuda_core"
+
+
+def matmul_4bit_planar_cuda_core(wp: torch.Tensor, scales: torch.Tensor,
+                                 x: torch.Tensor, quant_type: str = "fp4"
+                                 ) -> torch.Tensor:
+    """K5's CUDA-core body at any ``T``: what :func:`matmul_4bit_planar`
+    launches below ``PLANAR_MMA_MIN_TOKENS`` rows, counted in
+    ``PLANAR_MATMUL``. CPU tensors run the plain version."""
+    if x.device.type == "cpu":
+        return matmul_4bit_planar_plain(wp, scales, x, quant_type)
+    return _launch_planar(wp, scales, x, quant_type)
+
+
+def matmul_4bit_planar_mma(wp: torch.Tensor, scales: torch.Tensor,
+                           x: torch.Tensor, quant_type: str = "fp4"
+                           ) -> torch.Tensor:
+    """K5's tensor-core body at any ``T``: what :func:`matmul_4bit_planar`
+    launches from ``PLANAR_MMA_MIN_TOKENS`` rows on, counted in
+    ``PLANAR_MATMUL_MMA`` only. CPU tensors run the plain version (the
+    same function; the body sums in another fp32 order)."""
+    if x.device.type == "cpu":
+        return matmul_4bit_planar_plain(wp, scales, x, quant_type)
+    return _launch_planar(wp, scales, x, quant_type, PLANAR_MATMUL_MMA,
+                          "qt_planar_mma")
+
+
+def _launch_k5(wp, scales, x, quant_type):
+    if planar_body(x.shape[0]) == "cuda_core":
+        return matmul_4bit_planar_cuda_core(wp, scales, x, quant_type)
+    y = matmul_4bit_planar_mma(wp, scales, x, quant_type)
+    PLANAR_MATMUL.launches += 1      # K5's count holds both bodies
     return y
 
 
@@ -656,11 +713,13 @@ def matmul_4bit_planar(wp: torch.Tensor, scales: torch.Tensor,
                        ) -> torch.Tensor:
     """Fused 4-bit dequant + matmul over planar words: ``y [T, M] =
     x [T, K] @ dequant(wp [M, K/8], scales [M, K/64]).T`` in fp32, any
-    ``M`` and ``T``. CUDA tensors launch K5 (``x`` must be bf16); CPU
-    tensors run the plain version."""
+    ``M`` and ``T``. CUDA tensors launch K5 (``x`` must be bf16): its
+    CUDA-core body below ``PLANAR_MMA_MIN_TOKENS`` rows, its tensor-core
+    body from there on (:func:`planar_body`); CPU tensors run the plain
+    version."""
     if x.device.type == "cpu":
         return matmul_4bit_planar_plain(wp, scales, x, quant_type)
-    return _launch_planar(wp, scales, x, quant_type)
+    return _launch_k5(wp, scales, x, quant_type)
 
 
 def matmul_4bit_planar_stacked(wp: torch.Tensor, scales: torch.Tensor,
@@ -673,4 +732,4 @@ def matmul_4bit_planar_stacked(wp: torch.Tensor, scales: torch.Tensor,
                                                 quant_type)
     if wp.dim() != 3 or scales.dim() != 3:
         raise ValueError("planar_matmul stacked: wp/scales must be [L, ...]")
-    return _launch_planar(wp[layer_idx], scales[layer_idx], x, quant_type)
+    return _launch_k5(wp[layer_idx], scales[layer_idx], x, quant_type)

@@ -5,10 +5,11 @@
 - Entry points run on CUDA unless they are given ``device="cpu"``: with
   no card they raise rather than fall back to the CPU.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card,
-  and raises on a spill or a missing instantiation in K1/K9's
-  ``ptxas -v`` log.
-- Tests marked ``cuda`` hold each kernel (K1 to K10) against its plain
-  version on the card (K9 against K1, bit for bit; K1 above 128 rows,
+  and raises on a spill or a missing instantiation in the ``ptxas -v``
+  log of K1/K9 or of ``csrc/planar_matmul.cu`` (K5's two bodies, K6).
+- Tests marked ``cuda`` hold each kernel (K1 to K10, and both of K5's
+  bodies) against its plain version on the card (K9 against K1, bit for
+  bit; K1 above 128 rows,
   its tensor-core body, against its CUDA-core body and K8; K10 bit for
   bit, and the dense bands' bf16 products within 1e-5 * max|y| of their
   fp32 plain products), the per-body launch counts, and the wrappers'
@@ -170,6 +171,51 @@ def test_chip_smoke_checks_pair_matmul_ptxas(tiles, spilled, ok):
     assert {e["registers"] for e in results["ptxas_pair_matmul"]} == {64}
 
 
+def _planar_ptxas_log(cs, drop=None, spilled=None):
+    """A ``ptxas -v`` log of ``csrc/planar_matmul.cu`` with every
+    instantiation that its dispatch launches (less ``drop``; ``spilled``
+    with a spill)."""
+    names = {f"K5 TT={t}": f"13planar_kernelILi{t}ELb1EEEvPKiPKviPKfS4_iPfiiiiif"
+             for t in cs.K5_TILES}
+    names |= {f"K6 TT={t}": f"13planar_kernelILi{t}ELb0EEEvPKiPKviPKfS4_iPfiiiiif"
+              for t in cs.K6_TILES}
+    names |= {f"K5 mma NT={n} MT={m}":
+              f"17planar_mma_kernelILi{n}ELi{m}ELi8ELi2EEEvPKiPKviPKfPK13"
+              "__nv_bfloat16Pfiiiiif" for n, m in cs.PLANAR_MMA_TILES}
+    log = ""
+    for label, tail in names.items():
+        if label == drop:
+            continue
+        fn = "_ZN12_GLOBAL__N_1" + tail
+        sp = 8 * (label == spilled)
+        log += (f"ptxas info    : Compiling entry function '{fn}' for "
+                f"'sm_90a'\nptxas info    : Function properties for {fn}\n"
+                f"    0 bytes stack frame, {sp} bytes spill stores, {sp} "
+                f"bytes spill loads\nptxas info    : Used 96 registers, used 1 "
+                f"barriers, 64 bytes smem, 420 bytes cmem[0]\n")
+    return log, set(names)
+
+
+@pytest.mark.parametrize("case", ["complete", "missing", "spill"])
+def test_chip_smoke_checks_planar_matmul_ptxas(case):
+    """``chip_smoke.py`` reads ``csrc/planar_matmul.cu``'s ``ptxas -v``
+    log: every K5 and K6 token tile of the CUDA-core body and every tile
+    of K5's tensor-core body once, no spill, or it raises."""
+    cs = _chip_smoke()
+    mma = "K5 mma NT={} MT={}".format(*cs.PLANAR_MMA_TILES[-1])
+    log, labels = _planar_ptxas_log(
+        cs, drop=mma if case == "missing" else None,
+        spilled="K6 TT=8" if case == "spill" else None)
+    results = {}
+    if case != "complete":
+        with pytest.raises(AssertionError):
+            cs.read_ptxas_report({"planar_matmul": _DoneNvcc(log)}, results)
+        return
+    cs.read_ptxas_report({"planar_matmul": _DoneNvcc(log)}, results)
+    assert {e["kernel"] for e in results["ptxas_planar_matmul"]} == labels
+    assert {e["smem"] for e in results["ptxas_planar_matmul"]} == {64}
+
+
 # -- on the card ------------------------------------------------------------
 # A machine with a card may have no JAX, which tests/conftest.py imports:
 # there these tests run as ``python -m pytest --noconftest -m cuda
@@ -248,21 +294,65 @@ def _planar_operands(rng, M, K, L=3, scale_kind="fp32"):
     return wp, scales
 
 
+# K5's bodies on their tails: token tiles cut short (T 3, 5, 9, 17, 40 and
+# 100, above one 64-token tile), row tails (M 33 and 130 against 16- and
+# 32-row blocks), 9 scale blocks over 8 warps (K 576) and 72 (K 4608)
+K5_TAIL_T = [1, 2, 3, 5, 8, 9, 16, 17, 40, 48, 64, 100]
+K5_TAIL_MK = [(256, 512), (33, 576), (130, 4608)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("body", ["cuda_core", "mma"])
 @pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
 @pytest.mark.parametrize("scale_kind", ["fp32", "bf16"])
-@pytest.mark.parametrize("T", [1, 2, 5, 8, 16, 40])
-@pytest.mark.parametrize("M", [256, 33])
-def test_k5_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T, M):
-    K = 512
+@pytest.mark.parametrize("T", K5_TAIL_T)
+@pytest.mark.parametrize("M,K", K5_TAIL_MK)
+def test_k5_matches_plain_on_card(cuda, rng, body, quant_type, scale_kind, T,
+                                  M, K):
+    """Each of K5's bodies, launched directly on layer 1 of a stack (a
+    pointer offset), within 1e-5 * max|y| of the plain version, and two
+    launches give the same bits; the dispatch on the stack gives the bits
+    of the body ``planar_body`` names."""
     wp, scales = _planar_operands(rng, M, K, scale_kind=scale_kind)
     x = torch.from_numpy(rng.standard_normal((T, K)).astype(
         np.float32)).to(torch.bfloat16)
     ref = tqm.matmul_4bit_planar_stacked(wp, scales, x, 1, quant_type)
-    got = tqm.matmul_4bit_planar_stacked(wp.to(cuda), scales.to(cuda),
-                                         x.to(cuda), 1, quant_type)
+    on = [t.to(cuda) for t in (wp, scales, x)]
+    fn = getattr(tqm, f"matmul_4bit_planar_{body}")
+    got = fn(on[0][1], on[1][1], on[2], quant_type)
+    again = fn(on[0][1], on[1][1], on[2], quant_type)
     # the same bf16 rounding on both sides: fp32 summation order only
     _agree(got, ref)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if tqm.planar_body(T) == body:
+        assert torch.equal(tqm.matmul_4bit_planar_stacked(
+            *on, 1, quant_type).view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 48])
+def test_k5_counts_each_body_on_card(cuda, rng, T):
+    """``PLANAR_MATMUL`` counts every K5 launch, ``PLANAR_MATMUL_MMA``
+    those of the tensor-core body; a direct launch of either body counts
+    in its own record only."""
+    from quantizations_tpu_torch.ops import PLANAR_MATMUL, PLANAR_MATMUL_MMA
+
+    wp, scales = [t.to(cuda) for t in _planar_operands(rng, 64, 256)]
+    x = torch.zeros((T, 256), dtype=torch.bfloat16, device=cuda)
+    kerns = (PLANAR_MATMUL, PLANAR_MATMUL_MMA)
+
+    def counted(fn, *a):
+        before = [k.launches for k in kerns]
+        fn(*a)
+        return tuple(k.launches - b for k, b in zip(kerns, before))
+
+    mma = int(tqm.planar_body(T) == "mma")
+    assert counted(tqm.matmul_4bit_planar_stacked, wp, scales, x, 2) == (
+        1, mma)
+    assert counted(tqm.matmul_4bit_planar, wp[0], scales[0], x) == (1, mma)
+    assert counted(tqm.matmul_4bit_planar_cuda_core, wp[0], scales[0],
+                   x) == (1, 0)
+    assert counted(tqm.matmul_4bit_planar_mma, wp[0], scales[0], x) == (0, 1)
 
 
 @pytest.mark.cuda
@@ -300,9 +390,11 @@ def test_k7_bit_exact_on_card(cuda, rng, quant_type, scale_kind, dtype):
 @pytest.mark.cuda
 def test_planar_bands_launch_their_kernels_on_card(cuda, rng):
     """A planar weight on the card reaches K5 or K6 through apply_4bit,
-    Linear4bit and the bnb loader, and never a CPU path."""
+    Linear4bit and the bnb loader, and never a CPU path; at T = 48 K5
+    runs its tensor-core body."""
     from quantizations_tpu_torch.nn.linear import Linear4bit
-    from quantizations_tpu_torch.ops import GEMV_4BIT, PLANAR_MATMUL
+    from quantizations_tpu_torch.ops import (GEMV_4BIT, PLANAR_MATMUL,
+                                             PLANAR_MATMUL_MMA)
     from quantizations_tpu_torch.quant.bnb_io import (bnb_flat_tensors,
                                                       load_bnb_linear4bit)
 
@@ -313,12 +405,17 @@ def test_planar_bands_launch_their_kernels_on_card(cuda, rng):
     flat["l.bias"] = np.ones(96, np.float32)
     loaded = load_bnb_linear4bit(flat.__getitem__, set(flat), "l",
                                  device=cuda)
-    for T, kern in ((1, PLANAR_MATMUL), (3, GEMV_4BIT), (16, PLANAR_MATMUL)):
+    for T, kern in ((1, PLANAR_MATMUL), (3, GEMV_4BIT), (16, PLANAR_MATMUL),
+                    (48, PLANAR_MATMUL)):
         x = torch.from_numpy(rng.standard_normal((T, 512)).astype(
             np.float32)).to(cuda)
-        before = kern.launches
+        before, mma = kern.launches, PLANAR_MATMUL_MMA.launches
         y = lin(x)
         assert kern.launches == before + 1 and y.is_cuda
+        assert PLANAR_MATMUL_MMA.launches == mma + (
+            kern is PLANAR_MATMUL and tqm.planar_body(T) == "mma")
+        if T == 48:
+            assert PLANAR_MATMUL_MMA.launches == mma + 1
         assert torch.equal(loaded(x), y)
     y = lin(torch.zeros((100, 512), device=cuda))      # the dense band
     assert y.shape == (100, 96) and torch.isfinite(y).all()

@@ -107,7 +107,7 @@ def _bf16_rows(rng, T, pad_to=8):
 
 @pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
 @pytest.mark.parametrize("scale_kind", ["fp32", "bf16"])
-@pytest.mark.parametrize("T", [1, 3, 8, 16])
+@pytest.mark.parametrize("T", [1, 3, 8, 16, 48, 64])
 def test_k5_plain_matches_pallas(rng, quant_type, scale_kind, T):
     wp, s = _words(rng, ()), _scales(rng, (), kind=scale_kind)
     x, xj = _bf16_rows(rng, T)
@@ -121,6 +121,40 @@ def test_k5_plain_matches_pallas(rng, quant_type, scale_kind, T):
     # the wrapper takes the plain version for a CPU tensor
     assert torch.equal(tqm.matmul_4bit_planar(_t(wp), _t(s), xt, quant_type),
                        got)
+
+
+# K5's band (nn/linear.py): 1, 2, 4 and the multiples of 8 up to 64 rows
+K5_BAND = [1, 2, 4, 8, 16, 24, 32, 40, 48, 56, 64]
+
+
+@pytest.mark.parametrize("T", K5_BAND)
+def test_k5_body_routing(rng, monkeypatch, T):
+    """``planar_body`` picks the CUDA-core body below
+    ``PLANAR_MMA_MIN_TOKENS`` rows and the tensor-core body from there on;
+    the dispatch launches that body (and counts every launch in
+    ``PLANAR_MATMUL``); both entry points run the plain version on CPU
+    tensors."""
+    from quantizations_tpu_torch.ops import PLANAR_MATMUL
+
+    assert T <= tlin.QMATMUL_MAX_TOKENS and tlin.qmm_ok(T)
+    want = "mma" if T >= tqm.PLANAR_MMA_MIN_TOKENS else "cuda_core"
+    assert tqm.planar_body(T) == want
+    wp, s = _t(_words(rng, ())), _t(_scales(rng, ()))
+    x = _t(rng.standard_normal((T, K)).astype(np.float32)).to(torch.bfloat16)
+    plain = tqm.matmul_4bit_planar_plain(wp, s, x, "nf4")
+    for fn in (tqm.matmul_4bit_planar_cuda_core, tqm.matmul_4bit_planar_mma,
+               tqm.matmul_4bit_planar):
+        assert torch.equal(fn(wp, s, x, "nf4"), plain)
+    called = []
+    for body in ("cuda_core", "mma"):
+        monkeypatch.setattr(tqm, f"matmul_4bit_planar_{body}",
+                            lambda *a, body=body: called.append(body) or plain)
+    before = PLANAR_MATMUL.launches
+    assert tqm._launch_k5(wp, s, x, "nf4") is plain
+    assert called == [want]
+    # a launch of the CUDA-core body counts itself; the dispatch counts
+    # the tensor-core body's in PLANAR_MATMUL too
+    assert PLANAR_MATMUL.launches == before + (want == "mma")
 
 
 @pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
