@@ -66,7 +66,8 @@ Phases, each raising on failure:
 8. ``planar``: the planar layout. K5 (planar dequant-matmul: each of
    its two bodies launched directly, and the dispatch, which must give
    the bits of the body ``planar_body`` names; the tensor-core body
-   bit-identical across two launches) and K6 (planar fp32 GEMV) within
+   bit-identical across two launches) and K6 (planar fp32 GEMV,
+   bit-identical across two launches) within
    1e-5 * max|y| of their plain versions and K7 (dequantize) bit-exact
    at every planar Llama3-8B shape and an odd row count, FP4 and NF4,
    fp32 and bf16 scales, K5 at T in {1, 2, 4, 8, 16, 48, 64}, K6 at T in
@@ -198,10 +199,10 @@ ATTN_SWEEP_CHUNKS = (64, 128, 256, 512, 1024, 2048)   # the split sweep
 FD_ROW_TILES, FD_HEAD_DIMS = (4, 8), (64, 128)
 # the token tiles TT of csrc/pair_matmul.cu's body (K1 up to 128 rows, K9)
 PAIR_TILES = (1, 2, 4, 8, 16)
-# csrc/planar_matmul.cu: the CUDA-core body's token tiles (K5, K6) and the
-# tensor-core body's (NT n8 tiles, MT 16-row tiles) that its dispatch
-# launches
-K5_TILES, K6_TILES = (1, 2, 4, 8, 16), (1, 2, 4, 8)
+# csrc/planar_matmul.cu: the CUDA-core body's token tiles (K5, K6; above 8
+# tokens K5 loops over 8-token tiles) and the tensor-core body's (NT n8
+# tiles, MT 16-row tiles) that its dispatch launches
+K5_TILES, K6_TILES = (1, 2, 4, 8), (1, 2, 3, 4, 8)
 PLANAR_MMA_TILES = ((1, 1), (1, 2), (2, 2), (4, 2), (6, 2), (8, 2))
 # the paged phase: 7 prompt lengths, and an eighth request that shares
 # the 700-token prompt's first 512 tokens (two 256-token pages)
@@ -319,7 +320,8 @@ def _ptxas_label(stem, fn):
     row tile and head dim (and the combine) in ``flash_decode``; K1/K9's
     token tile TT in ``pair_matmul``; in ``planar_matmul`` the CUDA-core
     body's class (K5 or K6) and token tile, or K5's tensor-core body by
-    its n8 tiles NT and 16-row tiles MT."""
+    its n8 tiles NT and 16-row tiles MT (K6 on fp32 activations is its
+    own instantiation, "fp32 x")."""
     import re
 
     if stem == "pair_matmul":
@@ -329,8 +331,9 @@ def _ptxas_label(stem, fn):
         m = re.search(r"planar_mma_kernelILi(\d+)ELi(\d+)E", fn)
         if m:
             return f"K5 mma NT={m.group(1)} MT={m.group(2)}"
-        m = re.search(r"planar_kernelILi(\d+)ELb([01])E", fn)
-        return f"{'K5' if m.group(2) == '1' else 'K6'} TT={m.group(1)}"
+        m = re.search(r"planar_kernelILi(\d+)ELb([01])E(?:Li(\d)E)?", fn)
+        return (f"{'K5' if m.group(2) == '1' else 'K6'} TT={m.group(1)}"
+                + (" fp32 x" if m.group(3) == "4" else ""))
     if "combine" in fn:
         return "combine"
     m = re.search(r"(Ia|I13__nv_bfloat16)Li(\d+)ELi(\d+)E", fn)
@@ -366,14 +369,15 @@ def read_ptxas_report(procs, results):
     combine (``results["ptxas"]``), K1/K9's body at each token tile of
     PAIR_TILES (``results["ptxas_pair_matmul"]``; both entry points
     launch the same instantiations), and in ``planar_matmul`` K5's and
-    K6's CUDA-core body at K5_TILES and K6_TILES and K5's tensor-core body
+    K6's CUDA-core body at K5_TILES and K6_TILES (K6 on bf16 and on fp32
+    activations) and K5's tensor-core body
     at PLANAR_MMA_TILES (``results["ptxas_planar_matmul"]``)."""
     want = {"flash_decode": {f"{t} R={r} D={d}" for t in ("K3 bf16", "K4 int8")
                              for r in FD_ROW_TILES for d in FD_HEAD_DIMS}
             | {"combine"},
             "pair_matmul": {f"TT={t}" for t in PAIR_TILES},
             "planar_matmul": {f"K5 TT={t}" for t in K5_TILES}
-            | {f"K6 TT={t}" for t in K6_TILES}
+            | {f"K6 TT={t}{x}" for t in K6_TILES for x in ("", " fp32 x")}
             | {f"K5 mma NT={n} MT={m}" for n, m in PLANAR_MMA_TILES}}
     outs = {stem: proc.communicate(timeout=600)[0]
             for stem, proc in procs.items()}
@@ -1107,8 +1111,8 @@ def phase_planar_check(dev, gen, results):
     bodies launched directly and through the dispatch (which must give
     the bits of the body ``planar_body`` names), the tensor-core body
     launched twice (the same bits); K6 at K6_TOKENS (bf16 activations, as
-    the model passes them), K7 to fp32 and bf16. The layer shapes are
-    stacked and read at layer 1."""
+    the model passes them; launched twice, the same bits), K7 to fp32
+    and bf16. The layer shapes are stacked and read at layer 1."""
     from quantizations_tpu_torch.ops import gemv as gv
     from quantizations_tpu_torch.ops import qmatmul as qm
     from quantizations_tpu_torch.ops import quantize as qz
@@ -1162,19 +1166,25 @@ def phase_planar_check(dev, gen, results):
                         raise AssertionError(f"K5 tensor-core body {what}: "
                                              "two launches differ")
                 for T in K6_TOKENS:
-                    xt = x[:T]
-                    got = (gv.gemv_4bit_stacked(wp, s, xt, 1, qt) if stacked
-                           else gv.gemv_4bit(wp[0], s[0], xt, qt))
-                    check("gemv_4bit", f"{name} [{M},{K}] {qt} {sk} T={T}",
-                          got, gv.gemv_4bit_plain(wp[-1], s[-1], xt, qt))
+                    xt, what = x[:T], f"{name} [{M},{K}] {qt} {sk} T={T}"
+                    got, again = ((gv.gemv_4bit_stacked(wp, s, xt, 1, qt)
+                                   if stacked else
+                                   gv.gemv_4bit(wp[0], s[0], xt, qt))
+                                  for _ in range(2))
+                    check("gemv_4bit", what, got,
+                          gv.gemv_4bit_plain(wp[-1], s[-1], xt, qt))
+                    if not torch.equal(again.view(torch.int32),
+                                       got.view(torch.int32)):
+                        raise AssertionError(f"K6 {what}: two launches "
+                                             "differ")
                 for dt in (torch.float32, torch.bfloat16):
                     check("dequantize_4bit", f"{name} {qt} {sk} {dt}",
                           qz.dequantize_4bit_kernel(wp[-1], s[-1], qt, dt),
                           qz.dequantize_4bit_kernel_plain(wp[-1], s[-1], qt,
                                                           dt), exact=True)
         log(f"  {name} [{M}, {K}]: K5 (both bodies, the dispatch) and K6 "
-            f"within 1e-5 * max|y|, K7 bit-exact, the tensor-core body "
-            f"bit-identical across launches "
+            f"within 1e-5 * max|y|, K7 bit-exact, K5's tensor-core body "
+            f"and K6 bit-identical across launches "
             f"({sum(w[2] for w in worst.values())} cases so far)")
         del wp, s32, x
         torch.cuda.empty_cache()

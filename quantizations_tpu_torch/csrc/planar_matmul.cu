@@ -28,25 +28,35 @@
 // [28672, 4096] moves 58.7 MB of words and 7.3 MB of fp32 scales, 19.7 us
 // at 3.35 TB/s; K6's fp32 products are 2*T*M*K flops over 67 TFLOP/s
 // (at T = 8 about 14 us there). The design reads every weight byte once
-// per token tile with 16-byte loads:
+// per token tile with 16-byte copies, and no K step waits on a global
+// load:
 //  - a block of 8 warps owns 16 rows, two per warp; lane l of a warp
-//    reads words 4l..4l+3 of each of its rows in a 128-word K step (one
-//    int4 load a row), so the 4 words lie in one quant block, and a warp
-//    reads 512 contiguous bytes a row per step;
-//  - each K step stages the token tile's activations in shared memory as
-//    fp32 planes xs[t][j][c] = x[t, 8c + j]: a lane reads one float4 per
-//    (t, j) for its 4 words, conflict-free, and the two rows of a warp
-//    share it;
+//    takes words 4l..4l+3 of each of its rows in a 128-word K step, so
+//    the 4 words lie in one quant block;
+//  - a step's words (512 contiguous bytes a row) and the 4-byte words
+//    that hold their 16 scales a row come through a cp.async ring of two
+//    9 KB stages: the next step's copies fly while a step is decoded,
+//    one barrier a step. Two stages beat three and four on an H100: the
+//    smaller ring leaves room for more blocks an SM;
+//  - the token tile's activations go through registers one step ahead
+//    (__ldg of 16-byte chunks, zeros past T and K8) into fp32 planes
+//    xs[t][j][c] = x[t, 8c + j], double-buffered: a lane reads one
+//    float4 per (t, j) for its 4 words, conflict-free, and the two rows of
+//    a warp share it;
 //  - the 16-entry decode table sits in shared memory;
 //  - K6 sums a quant block's 64 products over the lane pair that holds it
 //    (one shuffle), then scales; K5 scales every weight before its
 //    product, as the TPU kernel does.
-// A tile of TT <= 16 tokens (K5) or 8 (K6) lives in registers; larger T
-// loops over token tiles in blockIdx.x (fastest), so the tiles of one row
-// block run together and re-read its words from L2. This CUDA-core body
-// is K5's below PLANAR_MMA_MIN_TOKENS rows and all of K6; K5's
-// tensor-core body (mma.sync, a cp.async ring a warp) is at the end of
-// the file.
+// Each lane's fp32 order is that of the body before the ring: per
+// accumulator, the step's planes j in order, then its words q; K6's pair
+// sum times the scale per step; the same shuffle tree at the end. So the
+// output is that body's bit for bit, at any token tile.
+// A tile of TT <= 8 tokens lives in registers (3 for K6 at three tokens,
+// else 1, 2, 4 or 8); larger T loops over token tiles in blockIdx.x
+// (fastest), so the tiles of one row block run together and re-read its
+// words from L2. This CUDA-core body is K5's below PLANAR_MMA_MIN_TOKENS
+// rows and all of K6; K5's tensor-core body (mma.sync, a cp.async ring a
+// warp) is at the end of the file.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,11 +69,47 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 2;
 constexpr int kRows = kWarps * kRowsPerWarp;   // rows per block
 constexpr int kStep = 128;                     // words per K step
+constexpr int kStepBlocks = kStep / 8;         // quant blocks per K step
+constexpr int kStages = 2;
+constexpr int kMaxDevices = 64;
+// A ring stage: the block's words [kRows][kStep], then the 4-byte words
+// that hold their scales [kRows][kStepBlocks].
+constexpr int kWordBytes = kRows * kStep * 4;
+constexpr int kStageBytes = kWordBytes + kRows * kStepBlocks * 4;
+// 16-byte word copies a thread makes a step
+constexpr int kWordCopies = kRows * kStep / 4 / kThreads;
+static_assert(kWordCopies * kThreads == kRows * kStep / 4, "whole copies");
+static_assert(kRows * kStepBlocks <= kThreads, "one scale copy a thread");
 
-__device__ __forceinline__ float load_scale(const void* scales, int kind,
-                                            size_t idx) {
-  if (kind == 0) return __ldg(static_cast<const float*>(scales) + idx);
-  return __bfloat162float(static_cast<const __nv_bfloat16*>(scales)[idx]);
+// Dynamic shared memory: the ring, then the fp32 planes [2][TT][8][kStep].
+__host__ __device__ constexpr size_t smem_bytes(int TT) {
+  return (size_t)kStages * kStageBytes +
+         (size_t)2 * TT * 8 * kStep * sizeof(float);
+}
+
+// cp.async of 16 or 4 bytes; zeros when !ok (both bodies of this file).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float bf16_lo(uint32_t u) {
@@ -73,86 +119,187 @@ __device__ __forceinline__ float bf16_hi(uint32_t u) {
   return __uint_as_float(u & 0xFFFF0000u);
 }
 
-// x_kind: 0 = fp32, 1 = bf16. kBf16 selects K5's class, else K6's.
-template <int TT, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
+// Blocks an SM holds at once (the register cap, 65536 / (kThreads x
+// blocks)), as high as the tile goes without spills: the fp32 activations
+// held a step ahead take twice the registers of bf16 ones.
+__host__ __device__ constexpr int min_blocks(int TT, int XB) {
+  return TT <= 2 ? 4 : XB == 2 ? (TT <= 4 ? 3 : 2) : (TT <= 3 ? 2 : 1);
+}
+
+// kBf16 selects K5's class, else K6's; XB is the activation's size in
+// bytes (2: bf16, 4: fp32; K5 takes bf16 only).
+template <int TT, bool kBf16, int XB>
+__global__ void __launch_bounds__(kThreads, min_blocks(TT, XB))
 planar_kernel(const int32_t* __restrict__ wp, const void* __restrict__ scales,
               int scale_kind, const float* __restrict__ table,
-              const void* __restrict__ x, int x_kind, float* __restrict__ y,
-              int T, int M, int K8, int has_factor, float factor) {
-  extern __shared__ float xs[];                  // [TT][8][kStep]
+              const void* __restrict__ x, float* __restrict__ y, int T, int M,
+              int K8, int has_factor, float factor) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float tbl[16];
 
   const int NB = K8 / 8;
-  const int K = 8 * K8;
+  const size_t K = 8 * (size_t)K8;
+  const int nsteps = (K8 + kStep - 1) / kStep;
+  const int tid = threadIdx.x;
   const int t0 = blockIdx.x * TT;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = blockIdx.y * kRows + warp * kRowsPerWarp;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int row_blk = blockIdx.y * kRows;
+  const int row0 = row_blk + warp * kRowsPerWarp;
+  float* planes = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+
+  // This thread's ring copies of a step, fixed but for the step's offset:
+  // words 4wc..4wc+3 of rows wr, wr + kWr, ...; the (aligned 4-byte word
+  // holding the) scale of quant block sb of row sr
+  constexpr int kWr = kThreads / (kStep / 4);
+  const int wr = tid / (kStep / 4), wc = tid % (kStep / 4);
+  const int32_t* wsrc =
+      wp + (row_blk + wr < M ? (size_t)(row_blk + wr) * K8 : 0) + 4 * wc;
+  const int sr = tid / kStepBlocks, sb = tid % kStepBlocks;
+  const bool s_row = row_blk + sr < M;
+  const int s_size = scale_kind == 0 ? 4 : 2;
+  const uintptr_t ssrc =
+      reinterpret_cast<uintptr_t>(scales) +
+      (s_row ? (size_t)(row_blk + sr) * NB * s_size : 0) + sb * s_size;
+  // bf16 scales: which half of its word holds scale (m, b)
+  const unsigned s_half0 =
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(scales) >> 1);
+
+  auto fetch = [&](int u) {
+    unsigned char* stage = smem + (u % kStages) * kStageBytes;
+    const int c0 = u * kStep;
+    if (4 * wc + c0 < K8) {                        // K8 % 4 == 0
+#pragma unroll
+      for (int k = 0; k < kWordCopies; ++k)
+        if (row_blk + wr + k * kWr < M)
+          cp_async16(stage + 16 * (tid + k * kThreads),
+                     wsrc + (size_t)k * kWr * K8 + c0, true);
+    }
+    if (tid < kRows * kStepBlocks && s_row && c0 / 8 + sb < NB)
+      cp_async4(stage + kWordBytes + 4 * tid,
+                reinterpret_cast<const void*>(
+                    (ssrc + (size_t)(c0 / 8) * s_size) &
+                    ~static_cast<uintptr_t>(3)),
+                true);
+  };
+
+  // The activations go to fp32 planes[p][t][j][c] = x[t0 + t, 8(c0 + c) +
+  // j] through registers, one step ahead: this thread's 16-byte chunks q =
+  // tid + k kThreads of the tile's step (a chunk is the 8 values of one
+  // word column in bf16, half of them in fp32); zeros past T and K8.
+  constexpr int kTokChunks = kStep * XB / 2;      // a token's chunks a step
+  constexpr int kXc = (TT * kTokChunks + kThreads - 1) / kThreads;
+  const unsigned char* x8 = static_cast<const unsigned char*>(x);
+  uint4 xr[kXc];
+  auto load_x = [&](int u) {
+    const int c0 = u * kStep;
+#pragma unroll
+    for (int k = 0; k < kXc; ++k) {
+      const int q = tid + k * kThreads;
+      const int t = q / kTokChunks, i = q % kTokChunks;
+      const int c = i / (XB / 2);
+      xr[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (q < TT * kTokChunks && t0 + t < T && c0 + c < K8)
+        xr[k] = __ldg(reinterpret_cast<const uint4*>(
+            x8 + ((t0 + t) * K + 8 * (size_t)(c0 + c)) * XB +
+            16 * (i % (XB / 2))));
+    }
+  };
+  auto store_x = [&](int p) {
+    float* pl = planes + p * TT * 8 * kStep;
+#pragma unroll
+    for (int k = 0; k < kXc; ++k) {
+      const int q = tid + k * kThreads;
+      if (q >= TT * kTokChunks) break;
+      const int t = q / kTokChunks, i = q % kTokChunks;
+      const int c = i / (XB / 2), j0 = 4 * (i % (XB / 2));
+      const uint32_t v[4] = {xr[k].x, xr[k].y, xr[k].z, xr[k].w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        if (XB == 2) {
+          pl[(t * 8 + 2 * h) * kStep + c] = bf16_lo(v[h]);
+          pl[(t * 8 + 2 * h + 1) * kStep + c] = bf16_hi(v[h]);
+        } else {
+          pl[(t * 8 + j0 + h) * kStep + c] = __uint_as_float(v[h]);
+        }
+      }
+    }
+  };
+
+  // steps 0 .. kStages - 2 in flight
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) fetch(s);
+    cp_async_commit();
+  }
+  if (tid < 16) tbl[tid] = table[tid];
+  load_x(0);
+  store_x(0);
+  if (nsteps > 1) load_x(1);
+
   const __nv_bfloat16 fac = __float2bfloat16_rn(factor);
-
-  if (threadIdx.x < 16) tbl[threadIdx.x] = table[threadIdx.x];
-
   float acc[kRowsPerWarp][TT];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r)
 #pragma unroll
     for (int t = 0; t < TT; ++t) acc[r][t] = 0.f;
 
-  for (int c0 = 0; c0 < K8; c0 += kStep) {
-    __syncthreads();   // the previous step's reads of xs are done
-    for (int q = threadIdx.x; q < TT * kStep; q += kThreads) {
-      const int t = q / kStep, cl = q - t * kStep, c = c0 + cl;
-      float v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = 0.f;
-      if (t0 + t < T && c < K8) {
-        const size_t at = (size_t)(t0 + t) * K + 8 * (size_t)c;
-        if (x_kind == 1) {
-          const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-              static_cast<const __nv_bfloat16*>(x) + at));
-          const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-          for (int h = 0; h < 4; ++h) {
-            v[2 * h] = bf16_lo(w4[h]);
-            v[2 * h + 1] = bf16_hi(w4[h]);
-          }
-        } else {
-          const float4* p =
-              reinterpret_cast<const float4*>(static_cast<const float*>(x) + at);
-          const float4 a = __ldg(p), b = __ldg(p + 1);
-          v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-          v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) xs[(t * 8 + j) * kStep + cl] = v[j];
+  for (int u = 0; u < nsteps; ++u) {
+    cp_async_wait<kStages - 2>();     // step u landed for this thread ...
+    __syncthreads();   // ... and every thread, and planes[u & 1] hold its
+                       // activations; step u - 1's stage and planes are
+                       // free: refill the stage with step u + kStages - 1,
+                       // the planes with step u + 1
+    if (u + kStages - 1 < nsteps) fetch(u + kStages - 1);
+    cp_async_commit();
+    if (u + 1 < nsteps) {
+      store_x((u + 1) & 1);
+      if (u + 2 < nsteps) load_x(u + 2);
     }
-    __syncthreads();
 
-    const int cw = c0 + 4 * lane;                 // this lane's first word
+    const unsigned char* stage = smem + (u % kStages) * kStageBytes;
+    const uint32_t* s_words =
+        reinterpret_cast<const uint32_t*>(stage + kWordBytes);
+    const float* xs = planes + (u & 1) * TT * 8 * kStep;
+    const int cw = u * kStep + 4 * lane;          // this lane's first word
     uint32_t w[kRowsPerWarp][4];
     float s[kRowsPerWarp];
     bool ok[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int m = row0 + r;
-      ok[r] = cw < K8 && m < M;
-      int4 v = make_int4(0, 0, 0, 0);
+      const int rl = warp * kRowsPerWarp + r;    // row in the block
+      ok[r] = cw < K8 && row0 + r < M;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
       s[r] = 0.f;
       if (ok[r]) {
-        v = __ldg(reinterpret_cast<const int4*>(wp + (size_t)m * K8 + cw));
-        s[r] = load_scale(scales, scale_kind, (size_t)m * NB + (cw >> 3));
-        if (kBf16) {
-          __nv_bfloat16 sb = __float2bfloat16_rn(s[r]);
-          if (has_factor) sb = __hmul(sb, fac);
-          s[r] = __bfloat162float(sb);
+        v = *reinterpret_cast<const uint4*>(stage + 4 * rl * kStep +
+                                            16 * lane);
+        // the scale of quant block cw / 8 (slot lane / 2 of the step): K5
+        // rounds it to bf16 (times bf16(factor)), K6 takes it in fp32
+        const uint32_t sw = s_words[rl * kStepBlocks + (lane >> 1)];
+        __nv_bfloat16 sbf;
+        float sf;
+        if (scale_kind == 0) {
+          sf = __uint_as_float(sw);
+          sbf = __float2bfloat16_rn(sf);
+        } else {
+          const unsigned half =
+              (s_half0 + (unsigned)(row0 + r) * (unsigned)NB +
+               (unsigned)(cw >> 3)) & 1u;
+          __nv_bfloat16_raw raw;
+          raw.x = static_cast<unsigned short>(sw >> (16 * half));
+          sbf = __nv_bfloat16(raw);
+          sf = __bfloat162float(sbf);
         }
+        if (kBf16) {
+          if (has_factor) sbf = __hmul(sbf, fac);
+          sf = __bfloat162float(sbf);
+        }
+        s[r] = sf;
       }
-      w[r][0] = static_cast<uint32_t>(v.x);
-      w[r][1] = static_cast<uint32_t>(v.y);
-      w[r][2] = static_cast<uint32_t>(v.z);
-      w[r][3] = static_cast<uint32_t>(v.w);
+      w[r][0] = v.x;
+      w[r][1] = v.y;
+      w[r][2] = v.z;
+      w[r][3] = v.w;
     }
 
     float part[kRowsPerWarp][TT];    // K6: this lane's half-block sums
@@ -222,23 +369,65 @@ planar_kernel(const int32_t* __restrict__ wp, const void* __restrict__ scales,
     }
 }
 
-template <int TT, bool kBf16>
+// Allow planar_kernel<TT, kBf16, XB> all the dynamic shared memory the
+// device gives one block, once per instantiation and device.
+template <int TT, bool kBf16, int XB>
+cudaError_t allow_smem() {
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < kMaxDevices && allowed[dev])) return e;
+  int optin = 0;
+  cudaFuncAttributes fa;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&fa, planar_kernel<TT, kBf16, XB>);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(planar_kernel<TT, kBf16, XB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(fa.sharedSizeBytes));
+  if (e == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
+  return e;
+}
+
+template <int TT, bool kBf16, int XB>
 cudaError_t launch_tt(const int32_t* wp, const void* scales, int scale_kind,
-                      const float* table, const void* x, int x_kind, float* y,
-                      int T, int M, int K8, int has_factor, float factor,
+                      const float* table, const void* x, float* y, int T,
+                      int M, int K8, int has_factor, float factor,
                       cudaStream_t stream) {
-  const size_t smem = (size_t)TT * 8 * kStep * sizeof(float);
+  constexpr size_t smem = smem_bytes(TT);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        planar_kernel<TT, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    const cudaError_t e = allow_smem<TT, kBf16, XB>();
     if (e != cudaSuccess) return e;
   }
   dim3 grid((T + TT - 1) / TT, (M + kRows - 1) / kRows);
-  planar_kernel<TT, kBf16><<<grid, kThreads, smem, stream>>>(
-      wp, scales, scale_kind, table, x, x_kind, y, T, M, K8, has_factor,
-      factor);
+  planar_kernel<TT, kBf16, XB><<<grid, kThreads, smem, stream>>>(
+      wp, scales, scale_kind, table, x, y, T, M, K8, has_factor, factor);
   return cudaGetLastError();
+}
+
+// The token tile for T tokens: 1, 2, 4 or 8, and 3 for K6 (B = 3 decode);
+// larger T loops over tiles of 8 in blockIdx.x.
+template <bool kBf16, int XB>
+cudaError_t launch_planar(const void* wp, const void* scales, int scale_kind,
+                          const void* table, const void* x, void* y, int T,
+                          int M, int K8, int has_factor, float factor,
+                          void* stream) {
+  auto w = static_cast<const int32_t*>(wp);
+  auto tb = static_cast<const float*>(table);
+  auto yy = static_cast<float*>(y);
+  auto st = static_cast<cudaStream_t>(stream);
+#define QT_TT(TT_)                                                           \
+  launch_tt<TT_, kBf16, XB>(w, scales, scale_kind, tb, x, yy, T, M, K8,     \
+                            has_factor, factor, st)
+  if (T <= 1) return QT_TT(1);
+  if (T <= 2) return QT_TT(2);
+  if constexpr (!kBf16)
+    if (T == 3) return QT_TT(3);
+  if (T <= 4) return QT_TT(4);
+  return QT_TT(8);
+#undef QT_TT
 }
 
 }  // namespace
@@ -251,27 +440,9 @@ extern "C" int qt_planar_matmul(const void* wp, const void* scales,
                                 int scale_kind, const void* table,
                                 const void* x, void* y, int T, int M, int K8,
                                 int has_factor, float factor, void* stream) {
-  auto w = static_cast<const int32_t*>(wp);
-  auto tb = static_cast<const float*>(table);
-  auto yy = static_cast<float*>(y);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (T <= 1)
-    e = launch_tt<1, true>(w, scales, scale_kind, tb, x, 1, yy, T, M, K8,
-                           has_factor, factor, st);
-  else if (T <= 2)
-    e = launch_tt<2, true>(w, scales, scale_kind, tb, x, 1, yy, T, M, K8,
-                           has_factor, factor, st);
-  else if (T <= 4)
-    e = launch_tt<4, true>(w, scales, scale_kind, tb, x, 1, yy, T, M, K8,
-                           has_factor, factor, st);
-  else if (T <= 8)
-    e = launch_tt<8, true>(w, scales, scale_kind, tb, x, 1, yy, T, M, K8,
-                           has_factor, factor, st);
-  else
-    e = launch_tt<16, true>(w, scales, scale_kind, tb, x, 1, yy, T, M, K8,
-                            has_factor, factor, st);
-  return static_cast<int>(e);
+  return static_cast<int>(launch_planar<true, 2>(
+      wp, scales, scale_kind, table, x, y, T, M, K8, has_factor, factor,
+      stream));
 }
 
 // K6: y[T, M] fp32 = x[T, 8*K8] . dequant(wp[M, K8], scales)^T in the fp32
@@ -280,24 +451,12 @@ extern "C" int qt_gemv_4bit(const void* wp, const void* scales,
                             int scale_kind, const void* table, const void* x,
                             int x_kind, void* y, int T, int M, int K8,
                             int has_factor, float factor, void* stream) {
-  auto w = static_cast<const int32_t*>(wp);
-  auto tb = static_cast<const float*>(table);
-  auto yy = static_cast<float*>(y);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (T <= 1)
-    e = launch_tt<1, false>(w, scales, scale_kind, tb, x, x_kind, yy, T, M,
-                            K8, has_factor, factor, st);
-  else if (T <= 2)
-    e = launch_tt<2, false>(w, scales, scale_kind, tb, x, x_kind, yy, T, M,
-                            K8, has_factor, factor, st);
-  else if (T <= 4)
-    e = launch_tt<4, false>(w, scales, scale_kind, tb, x, x_kind, yy, T, M,
-                            K8, has_factor, factor, st);
-  else
-    e = launch_tt<8, false>(w, scales, scale_kind, tb, x, x_kind, yy, T, M,
-                            K8, has_factor, factor, st);
-  return static_cast<int>(e);
+  return static_cast<int>(
+      x_kind == 1
+          ? launch_planar<false, 2>(wp, scales, scale_kind, table, x, y, T, M,
+                                    K8, has_factor, factor, stream)
+          : launch_planar<false, 4>(wp, scales, scale_kind, table, x, y, T, M,
+                                    K8, has_factor, factor, stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -355,29 +514,6 @@ struct MmaTile {
   static_assert(8 * NT * kPartLd * 4 <= ST * kStage,
                 "a warp's partial fits its ring");
 };
-
-__device__ __forceinline__ void mma_cp16(void* smem, const void* gmem,
-                                         bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void mma_cp4(void* smem, const void* gmem,
-                                        bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void mma_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void mma_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* smem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -469,21 +605,21 @@ planar_mma_kernel(const int32_t* __restrict__ wp,
     unsigned char* base = ring + st * TL::kStage;
 #pragma unroll
     for (int j = 0; j < MT; ++j)
-      mma_cp16(base + 16 * (lane + 32 * j), wsrc[j] + (wok[j] ? 8 * b : 0),
-               wok[j]);
+      cp_async16(base + 16 * (lane + 32 * j), wsrc[j] + (wok[j] ? 8 * b : 0),
+                 wok[j]);
     if (lane < TL::kRows)
-      mma_cp4(base + 4 * TL::kWords + 4 * lane,
-              reinterpret_cast<const void*>(
-                  reinterpret_cast<uintptr_t>(ssrc + (sok ? b * s_size : 0)) &
-                  ~static_cast<uintptr_t>(3)),
-              sok);
+      cp_async4(base + 4 * TL::kWords + 4 * lane,
+                reinterpret_cast<const void*>(
+                    reinterpret_cast<uintptr_t>(ssrc + (sok ? b * s_size : 0)) &
+                    ~static_cast<uintptr_t>(3)),
+                sok);
     __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
         base + 4 * TL::kWords + 4 * TL::kRows);
 #pragma unroll
     for (int j = 0; j < 2 * NT; ++j)
       if (4 * j + (lane >> 3) < tv)
-        mma_cp16(xs + (4 * j + (lane >> 3)) * kMmaLdx + 8 * (lane & 7),
-                 xsrc + (size_t)4 * j * K + 64 * b, true);
+        cp_async16(xs + (4 * j + (lane >> 3)) * kMmaLdx + 8 * (lane & 7),
+                   xsrc + (size_t)4 * j * K + 64 * b, true);
   };
 
   float acc[MT][NT][4];
@@ -497,14 +633,14 @@ planar_mma_kernel(const int32_t* __restrict__ wp,
 #pragma unroll
   for (int st = 0; st < ST - 1; ++st) {
     if (st < nblk) copy(b0 + st, st);
-    mma_commit();
+    cp_async_commit();
   }
 
   for (int i = 0; i < nblk; ++i) {
-    mma_wait<ST - 2>();       // this lane's copies of step i landed
+    cp_async_wait<ST - 2>();  // this lane's copies of step i landed
     __syncwarp();             // every lane's; and step i - 1's reads done
     if (i + ST - 1 < nblk) copy(b0 + i + ST - 1, (i + ST - 1) % ST);
-    mma_commit();
+    cp_async_commit();
 
     const int b = b0 + i;
     const unsigned char* base = ring + (i % ST) * TL::kStage;
@@ -579,7 +715,7 @@ planar_mma_kernel(const int32_t* __restrict__ wp,
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[mt][n][c] += blk[mt][n][c];
   }
-  mma_wait<0>();
+  cp_async_wait<0>();
   __syncwarp();
 
   // this warp's partial [8 NT tokens][kPartLd] into its own ring: c[2hh +

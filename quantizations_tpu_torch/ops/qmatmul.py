@@ -665,9 +665,9 @@ def _launch_planar(wp, scales, x, quant_type, kernel=PLANAR_MATMUL,
 
 # K5 runs its CUDA-core body (``qt_planar_matmul``) below this many token
 # rows and its tensor-core body (``qt_planar_mma``) from here on: on an
-# H100 the tensor-core body is the faster per Llama3-8B forward from 2
-# rows on, not at 1 (``chip_smoke.py phase_planar_time``'s crossover).
-PLANAR_MMA_MIN_TOKENS = 2
+# H100 the tensor-core body is the faster per Llama3-8B forward from 4
+# rows on, not at 1 or 2 (``chip_smoke.py phase_planar_time``'s crossover).
+PLANAR_MMA_MIN_TOKENS = 4
 
 
 def planar_body(tokens: int) -> str:

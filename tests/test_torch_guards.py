@@ -175,10 +175,11 @@ def _planar_ptxas_log(cs, drop=None, spilled=None):
     """A ``ptxas -v`` log of ``csrc/planar_matmul.cu`` with every
     instantiation that its dispatch launches (less ``drop``; ``spilled``
     with a spill)."""
-    names = {f"K5 TT={t}": f"13planar_kernelILi{t}ELb1EEEvPKiPKviPKfS4_iPfiiiiif"
+    tail = "EEvPKiPKviPKfS4_Pfiiiiif"
+    names = {f"K5 TT={t}": f"13planar_kernelILi{t}ELb1ELi2E{tail}"
              for t in cs.K5_TILES}
-    names |= {f"K6 TT={t}": f"13planar_kernelILi{t}ELb0EEEvPKiPKviPKfS4_iPfiiiiif"
-              for t in cs.K6_TILES}
+    names |= {f"K6 TT={t}{x}": f"13planar_kernelILi{t}ELb0ELi{xb}E{tail}"
+              for t in cs.K6_TILES for x, xb in (("", 2), (" fp32 x", 4))}
     names |= {f"K5 mma NT={n} MT={m}":
               f"17planar_mma_kernelILi{n}ELi{m}ELi8ELi2EEEvPKiPKviPKfPK13"
               "__nv_bfloat16Pfiiiiif" for n, m in cs.PLANAR_MMA_TILES}
@@ -359,18 +360,109 @@ def test_k5_counts_each_body_on_card(cuda, rng, T):
 @pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
 @pytest.mark.parametrize("scale_kind", ["fp32", "bf16"])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", [1, 3, 6, 8])
+@pytest.mark.parametrize("B", [1, 2, 3, 5, 6, 7, 8])
+@pytest.mark.parametrize("M,K", K5_TAIL_MK + [(256, 1024)])
 def test_k6_matches_plain_on_card(cuda, rng, quant_type, scale_kind, x_dtype,
-                                  B):
-    M, K = 33 if B == 3 else 256, 1024
+                                  B, M, K):
+    """K6 on layer 2 of a stack within 1e-5 * max|y| of the plain version,
+    on its ring's tails (token tiles cut short, row tails, K8 = 72 and
+    576: a part step), and two launches give the same bits."""
     wp, scales = _planar_operands(rng, M, K, scale_kind=scale_kind)
     x = torch.from_numpy(rng.standard_normal((B, K)).astype(
         np.float32)).to(x_dtype)
     ref = tgv.gemv_4bit_stacked(wp, scales, x, 2, quant_type)
-    got = tgv.gemv_4bit_stacked(wp.to(cuda), scales.to(cuda), x.to(cuda), 2,
-                                quant_type)
+    on = [t.to(cuda) for t in (wp, scales, x)]
+    got = tgv.gemv_4bit_stacked(*on, 2, quant_type)
+    again = tgv.gemv_4bit_stacked(*on, 2, quant_type)
     # fp32 throughout on both sides: summation order only
     _agree(got, ref)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+# The planar CUDA-core body's bits (K6 at T = 3 and 8, bf16 and fp32
+# activations; K5's CUDA-core body at T = 1) at two shapes, FP4/NF4,
+# fp32/bf16 scales, from default_rng(0) inputs: the first 16 hex digits of
+# the SHA-256 of y.view(torch.int32).
+PLANAR_GOLDEN_MK = [(256, 4096), (130, 4608)]
+PLANAR_GOLDEN_CASES = [("k5", 1, "bf16"), ("k6", 3, "bf16"), ("k6", 3, "fp32"),
+                       ("k6", 8, "bf16"), ("k6", 8, "fp32")]
+PLANAR_GOLDEN = {
+    "k5 T=1 x=bf16 [256,4096] fp4 fp32": "25e0069ef3f6400a",
+    "k6 T=3 x=bf16 [256,4096] fp4 fp32": "f4bc71508fd00d47",
+    "k6 T=3 x=fp32 [256,4096] fp4 fp32": "95c77990da9940f3",
+    "k6 T=8 x=bf16 [256,4096] fp4 fp32": "ddcc76bf815e6cf1",
+    "k6 T=8 x=fp32 [256,4096] fp4 fp32": "19b5fe8e5f73ed56",
+    "k5 T=1 x=bf16 [256,4096] fp4 bf16": "25e0069ef3f6400a",
+    "k6 T=3 x=bf16 [256,4096] fp4 bf16": "e9cc00aa6b3baef9",
+    "k6 T=3 x=fp32 [256,4096] fp4 bf16": "78d4a9d744169773",
+    "k6 T=8 x=bf16 [256,4096] fp4 bf16": "fd8469e9b2cdcfe4",
+    "k6 T=8 x=fp32 [256,4096] fp4 bf16": "9f8bf5e2cf60f279",
+    "k5 T=1 x=bf16 [256,4096] nf4 fp32": "0abafff3881b5fba",
+    "k6 T=3 x=bf16 [256,4096] nf4 fp32": "0e84547fbf7e3e42",
+    "k6 T=3 x=fp32 [256,4096] nf4 fp32": "f0ebb2e5d4a3cb06",
+    "k6 T=8 x=bf16 [256,4096] nf4 fp32": "77ffd5b265917725",
+    "k6 T=8 x=fp32 [256,4096] nf4 fp32": "d2edf49ed1f8911e",
+    "k5 T=1 x=bf16 [256,4096] nf4 bf16": "0abafff3881b5fba",
+    "k6 T=3 x=bf16 [256,4096] nf4 bf16": "7939065efdc3a5ab",
+    "k6 T=3 x=fp32 [256,4096] nf4 bf16": "de30213d68fd1f4f",
+    "k6 T=8 x=bf16 [256,4096] nf4 bf16": "19186ab0e23e5ef6",
+    "k6 T=8 x=fp32 [256,4096] nf4 bf16": "8934fb4938a16516",
+    "k5 T=1 x=bf16 [130,4608] fp4 fp32": "ff5d7d485e4033d3",
+    "k6 T=3 x=bf16 [130,4608] fp4 fp32": "b2f38d348e4adcfc",
+    "k6 T=3 x=fp32 [130,4608] fp4 fp32": "b32724504ba100a3",
+    "k6 T=8 x=bf16 [130,4608] fp4 fp32": "dfc9b64e42c65745",
+    "k6 T=8 x=fp32 [130,4608] fp4 fp32": "1a183747059de582",
+    "k5 T=1 x=bf16 [130,4608] fp4 bf16": "ff5d7d485e4033d3",
+    "k6 T=3 x=bf16 [130,4608] fp4 bf16": "654adb784007aab6",
+    "k6 T=3 x=fp32 [130,4608] fp4 bf16": "1651d904d28bf8d3",
+    "k6 T=8 x=bf16 [130,4608] fp4 bf16": "b8fbace18441cc78",
+    "k6 T=8 x=fp32 [130,4608] fp4 bf16": "31bc816598e7e20b",
+    "k5 T=1 x=bf16 [130,4608] nf4 fp32": "14e0ac2a903aa925",
+    "k6 T=3 x=bf16 [130,4608] nf4 fp32": "7ba5f200693e971e",
+    "k6 T=3 x=fp32 [130,4608] nf4 fp32": "e6d305166f6553a7",
+    "k6 T=8 x=bf16 [130,4608] nf4 fp32": "eff5fbef22927502",
+    "k6 T=8 x=fp32 [130,4608] nf4 fp32": "b02e9b3430648d92",
+    "k5 T=1 x=bf16 [130,4608] nf4 bf16": "14e0ac2a903aa925",
+    "k6 T=3 x=bf16 [130,4608] nf4 bf16": "7555f06841b9439d",
+    "k6 T=3 x=fp32 [130,4608] nf4 bf16": "5957bd182a959761",
+    "k6 T=8 x=bf16 [130,4608] nf4 bf16": "0c304ca3faba70fc",
+    "k6 T=8 x=fp32 [130,4608] nf4 bf16": "ae359720e089c3e8"}
+
+
+def planar_golden_digests(device):
+    """{case: digest} of every PLANAR_GOLDEN case on ``device``. To record
+    them anew on a card: ``python3 -c "import sys, json, torch;
+    sys.path[:0] = ['.', 'tests']; import test_torch_guards as g;
+    print(json.dumps(g.planar_golden_digests(torch.device('cuda')),
+    indent=1))"``."""
+    import hashlib
+
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    out = {}
+    for M, K in PLANAR_GOLDEN_MK:
+        rng = np.random.default_rng(0)
+        wp, s32 = _planar_operands(rng, M, K, L=1)
+        x = torch.from_numpy(rng.standard_normal((8, K)).astype(np.float32))
+        wp, s32, x = wp[0].to(device), s32[0].to(device), x.to(device)
+        for qt in ("fp4", "nf4"):
+            for sk, s in (("fp32", s32), ("bf16", s32.to(torch.bfloat16))):
+                for kern, T, xk in PLANAR_GOLDEN_CASES:
+                    xt = x[:T].to(dtypes[xk])
+                    y = (tqm.matmul_4bit_planar_cuda_core(wp, s, xt, qt)
+                         if kern == "k5" else tgv.gemv_4bit(wp, s, xt, qt))
+                    out[f"{kern} T={T} x={xk} [{M},{K}] {qt} {sk}"] = (
+                        hashlib.sha256(y.view(torch.int32).cpu().numpy()
+                                       .tobytes()).hexdigest()[:16])
+    return out
+
+
+@pytest.mark.cuda
+def test_planar_cuda_core_golden_bits_on_card(cuda):
+    """K6 and K5's CUDA-core body give the bits of the body at commit
+    f995fc3 (before its ``cp.async`` ring), recorded on an H100 from that
+    body: the ring changes when data arrives, not each lane's fp32
+    order."""
+    assert planar_golden_digests(cuda) == PLANAR_GOLDEN
 
 
 @pytest.mark.cuda

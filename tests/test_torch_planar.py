@@ -130,13 +130,16 @@ K5_BAND = [1, 2, 4, 8, 16, 24, 32, 40, 48, 56, 64]
 @pytest.mark.parametrize("T", K5_BAND)
 def test_k5_body_routing(rng, monkeypatch, T):
     """``planar_body`` picks the CUDA-core body below
-    ``PLANAR_MMA_MIN_TOKENS`` rows and the tensor-core body from there on;
-    the dispatch launches that body (and counts every launch in
+    ``PLANAR_MMA_MIN_TOKENS`` rows (the band's 1 and 2, the crossover
+    measured on an H100) and the tensor-core body from there on; the
+    dispatch launches that body (and counts every launch in
     ``PLANAR_MATMUL``); both entry points run the plain version on CPU
     tensors."""
     from quantizations_tpu_torch.ops import PLANAR_MATMUL
 
     assert T <= tlin.QMATMUL_MAX_TOKENS and tlin.qmm_ok(T)
+    assert [t for t in K5_BAND if tqm.planar_body(t) == "cuda_core"] == [
+        1, 2]
     want = "mma" if T >= tqm.PLANAR_MMA_MIN_TOKENS else "cuda_core"
     assert tqm.planar_body(T) == want
     wp, s = _t(_words(rng, ())), _t(_scales(rng, ()))
