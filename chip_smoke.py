@@ -8,16 +8,20 @@ Phases, each raising on failure:
 1. the device: its name, and ``nvidia-smi``'s name and power limit;
 2. ``build``: compile every kernel from ``quantizations_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and time it; beside it
-   ``nvcc -Xptxas -v`` on ``flash_decode.cu``, ``pair_matmul.cu`` and
-   ``planar_matmul.cu`` logs the registers and spills of every K3/K4
-   instantiation, of K1/K9's body at each token tile and of K5's two
-   bodies and K6 at each of theirs, and a spill or a missing
-   instantiation fails the run;
-3. ``k2``: the quantize kernel against its plain version, bit-exact,
-   FP4 and NF4, at every shape that model build quantizes (and the fused
-   gate|up's ``[28672, 4096]``), with values placed exactly on the code
-   thresholds, then timed at each shape (inputs rotating so that they do
-   not sit in the 50 MB L2) and summed over one model build's launches;
+   ``nvcc -Xptxas -v`` on ``flash_decode.cu``, ``pair_matmul.cu``,
+   ``planar_matmul.cu`` and ``quantize.cu`` logs the registers and
+   spills of every K3/K4 instantiation, of K1/K9's body at each token
+   tile, of K5's two bodies and K6 at each of theirs and of K2's two
+   bodies by lanes a block, input type and code, and a spill or a
+   missing instantiation fails the run;
+3. ``k2``: the quantize kernel against its plain version, bit-exact
+   (absmax NaN-aware), FP4 and NF4, at every shape that model build
+   quantizes (and the fused gate|up's ``[28672, 4096]``; bf16 input at
+   ``[4096, 4096]``), with the blocks of ``k2_special_blocks``: values
+   exactly on the code thresholds, a zero block, NaN, inf, -0.0 and a
+   subnormal absmax; then timed at each shape (inputs rotating so that
+   they do not sit in the 50 MB L2) with its TB/s and share of the
+   bound, and summed over one model build's launches;
 4. ``k1``: the pair dequant-matmul kernel against its plain version at
    every Llama3-8B main-path shape, T in {1, 4, 8, 16, 64, 128, 256}
    (its CUDA-core body up to 128 rows, its tensor-core body above),
@@ -51,9 +55,13 @@ Phases, each raising on failure:
    over the same keys laid out contiguously; 32 query rows over the
    pool; and the pool cases again with each chunk of
    ``ATTN_SWEEP_CHUNKS`` forced (the split sweep);
-7. ``model``: Llama3-8B at full width and depth with a 4-bit embedding
-   and lm_head, random weights from seed 0 quantized by K2, fused q|k|v
-   and gate|up, then greedy generation of 60 tokens after a 16-token
+7. ``model``: first one FP4 model build under ``torch.profiler``: the
+   host and device time of K2, ``torch.randn``, the plain double
+   quantization, ``planar_to_pair`` and ``fuse_projections``, and the
+   device kernels that took the most. Then Llama3-8B at full width and
+   depth with a 4-bit embedding and lm_head, random weights from seed 0
+   quantized by K2 (exactly 226 launches a build), fused q|k|v and
+   gate|up, then greedy generation of 60 tokens after a 16-token
    prompt at batch 1, 4 and 8: FP4 on the einsum path, with
    ``use_flash_attention`` (K3) and with flash and an int8 KV cache
    (K4); NF4 at batch 1. Every generate must launch K1 exactly
@@ -175,6 +183,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 L2_BYTES = 50 * 2**20
+FP4_THRESHOLDS = (0.29166667, 0.583333, 0.8333333, 0.4166667, 0.0859375,
+                  0.20833333, 0.00260417)
 
 K1_SHAPES = (("qkv", 6144, 4096), ("o", 4096, 4096),
              ("gate_up", 28672, 4096), ("down", 4096, 14336),
@@ -249,6 +259,10 @@ LONG_PROMPT = 1024             # the QT_PREFILL_PAIR generate
 K2_SHAPES = {(4096, 4096): 2 * LAYERS, (1024, 4096): 2 * LAYERS,
              (14336, 4096): 2 * LAYERS, (4096, 14336): LAYERS,
              (128256, 4096): 2, (28672, 4096): 0}
+# csrc/quantize.cu: lanes a quant block of its group body (blocksize / 8,
+# every power of two from blocksize 8 to 256); other blocksizes take its
+# one-warp-a-block body
+K2_GROUP_LANES = (1, 2, 4, 8, 16, 32)
 
 
 def log(msg: str) -> None:
@@ -300,19 +314,21 @@ def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 
 def start_ptxas_report():
     """Start ``nvcc -Xptxas -v`` with the build's flags on
-    ``csrc/flash_decode.cu``, ``csrc/pair_matmul.cu`` and
-    ``csrc/planar_matmul.cu`` (beside the build, which it does not
-    replace), all at once, and return ``{source stem: process}``."""
+    ``csrc/flash_decode.cu``, ``csrc/pair_matmul.cu``,
+    ``csrc/planar_matmul.cu`` and ``csrc/quantize.cu`` (beside the build,
+    which it does not replace), all at once, and return ``{source stem:
+    process}``."""
     from quantizations_tpu_torch.ops.cuda import (BUILD, FLASH_DECODE,
                                                   NVCC_FLAGS, PAIR_MATMUL,
-                                                  PLANAR_MATMUL, nvcc_path)
+                                                  PLANAR_MATMUL,
+                                                  QUANTIZE_4BIT, nvcc_path)
 
     BUILD.mkdir(parents=True, exist_ok=True)
     return {k.path.stem: subprocess.Popen(
         [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
          str(BUILD / f"{k.path.stem}_ptxas.so"), str(k.path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for k in (FLASH_DECODE, PAIR_MATMUL, PLANAR_MATMUL)}
+        for k in (FLASH_DECODE, PAIR_MATMUL, PLANAR_MATMUL, QUANTIZE_4BIT)}
 
 
 def _ptxas_label(stem, fn):
@@ -321,9 +337,17 @@ def _ptxas_label(stem, fn):
     token tile TT in ``pair_matmul``; in ``planar_matmul`` the CUDA-core
     body's class (K5 or K6) and token tile, or K5's tensor-core body by
     its n8 tiles NT and 16-row tiles MT (K6 on fp32 activations is its
-    own instantiation, "fp32 x")."""
+    own instantiation, "fp32 x"); in ``quantize`` K2's group body by its
+    lanes a quant block L, or its one-warp-a-block body, by input type
+    and code."""
     import re
 
+    if stem == "quantize":
+        m = re.search(r"quantize_(group|block)_kernelI(f|13__nv_bfloat16)"
+                      r"(?:Li(\d+)E)?Lb([01])E", fn)
+        body = f"L={m.group(3)}" if m.group(1) == "group" else "warp"
+        return (f"{body} {'fp32' if m.group(2) == 'f' else 'bf16'} "
+                f"{'nf4' if m.group(4) == '1' else 'fp4'}")
     if stem == "pair_matmul":
         tile = re.search(r"pair_matmul_kernelILi(\d+)E", fn).group(1)
         return f"TT={tile}"
@@ -371,14 +395,19 @@ def read_ptxas_report(procs, results):
     launch the same instantiations), and in ``planar_matmul`` K5's and
     K6's CUDA-core body at K5_TILES and K6_TILES (K6 on bf16 and on fp32
     activations) and K5's tensor-core body
-    at PLANAR_MMA_TILES (``results["ptxas_planar_matmul"]``)."""
+    at PLANAR_MMA_TILES (``results["ptxas_planar_matmul"]``), and K2's
+    group body at each K2_GROUP_LANES and its one-warp body, each for fp32
+    and bf16 input and FP4 and NF4 (``results["ptxas_quantize"]``)."""
     want = {"flash_decode": {f"{t} R={r} D={d}" for t in ("K3 bf16", "K4 int8")
                              for r in FD_ROW_TILES for d in FD_HEAD_DIMS}
             | {"combine"},
             "pair_matmul": {f"TT={t}" for t in PAIR_TILES},
             "planar_matmul": {f"K5 TT={t}" for t in K5_TILES}
             | {f"K6 TT={t}{x}" for t in K6_TILES for x in ("", " fp32 x")}
-            | {f"K5 mma NT={n} MT={m}" for n, m in PLANAR_MMA_TILES}}
+            | {f"K5 mma NT={n} MT={m}" for n, m in PLANAR_MMA_TILES},
+            "quantize": {f"{b} {t} {q}"
+                         for b in [f"L={n}" for n in K2_GROUP_LANES] + ["warp"]
+                         for t in ("fp32", "bf16") for q in ("fp4", "nf4")}}
     outs = {stem: proc.communicate(timeout=600)[0]
             for stem, proc in procs.items()}
     for stem, out in outs.items():
@@ -403,56 +432,119 @@ def read_ptxas_report(procs, results):
             raise AssertionError(f"{stem}.cu: spills in {spills}")
 
 
-def phase_k2(dev, gen, results):
-    from quantizations_tpu_torch.ops import (quantize_4bit_kernel,
-                                             quantize_4bit_kernel_plain)
+def k2_special_blocks(blocksize: int = 64):
+    """fp32 ``[n, blocksize]`` quant blocks for K2's bit checks (numpy,
+    normal values of scale 0.02 from seed 0 around the cases): values
+    exactly on every FP4 threshold and NF4 midpoint and their fp32
+    neighbours, in blocks whose absmax is 1 (so w * (1/absmax) = w); a
+    zero block; then the non-finite and tiny cases: a NaN among normal
+    values, an all-zero block with one NaN, +inf, -inf, both infinities,
+    a NaN beside an inf, -0.0 among normal values, an all -0.0 block, and
+    a block whose absmax is subnormal (1/absmax overflows to inf)."""
+    import numpy as np
+
     from quantizations_tpu_torch.quant.codebooks import (NF4_CODE,
                                                          code_midpoints)
 
-    # values exactly on every FP4 threshold and NF4 midpoint (and their
-    # fp32 neighbours), in a block whose absmax is 1 so w * (1/absmax) = w
-    th = [0.29166667, 0.583333, 0.8333333, 0.4166667, 0.0859375,
-          0.20833333, 0.00260417] + [float(m) for m in code_midpoints(NF4_CODE)]
-    t = torch.tensor(th, dtype=torch.float32)
-    edge = torch.cat([t, torch.nextafter(t, torch.full_like(t, 2.0)),
-                      torch.nextafter(t, torch.zeros_like(t))])
-    edge = torch.cat([edge, -edge])[:63]
-    edge = torch.cat([torch.ones(1), edge]).to(dev)
+    th = np.array(FP4_THRESHOLDS + tuple(code_midpoints(NF4_CODE).tolist()),
+                  np.float32)
+    edge = np.concatenate([th, np.nextafter(th, np.float32(2)),
+                           np.nextafter(th, np.float32(0))])
+    edge = np.concatenate([edge, -edge])
+    per = blocksize - 1
+    n_edge = -(-len(edge) // per)
+    B = (np.random.default_rng(0).standard_normal((n_edge + 10, blocksize))
+         * 0.02).astype(np.float32)
+    for i in range(n_edge):
+        chunk = edge[i * per:(i + 1) * per]
+        B[i, 0] = 1.0
+        B[i, 1:1 + len(chunk)] = chunk
+    r = n_edge
+    B[r] = 0.0
+    B[r + 1, blocksize // 3] = np.nan
+    B[r + 2] = 0.0
+    B[r + 2, -1] = np.nan
+    B[r + 3, 0] = np.inf
+    B[r + 4, blocksize // 2] = -np.inf
+    B[r + 5, 1], B[r + 5, -2] = np.inf, -np.inf
+    B[r + 6, 2], B[r + 6, 3] = np.nan, np.inf
+    B[r + 7, ::3] = -0.0
+    B[r + 8] = -0.0
+    # absmax exactly 2**-129, subnormal in fp32 and bf16: 1/absmax = inf
+    B[r + 9] = B[r + 9] / np.abs(B[r + 9]).max() * np.float32(2.0 ** -129)
+    return B
+
+
+def nan_equal(a, b) -> bool:
+    """The same bits where neither holds a NaN, and NaN at the same
+    places (a NaN's payload is not compared)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(torch.int32),
+        b.masked_fill(nb, 0).view(torch.int32))
+
+
+def k2_bytes(M: int, K: int, in_bytes: int = 4) -> int:
+    """K2's bytes: W read once, the words and the fp32 absmax written."""
+    return M * K * in_bytes + M * K // 2 + M * (K // 64) * 4
+
+
+def k2_inputs(M, K, dev, gen):
+    """fp32 ``[M, K]`` weights for K2: normal values of scale 0.02, as
+    model build draws them, in enough copies to exceed the 50 MB L2 four
+    times (at least 2), the first starting with ``k2_special_blocks``."""
+    R = max(2, math.ceil(4 * L2_BYTES / (M * K * 4)))
+    Ws = [torch.randn(M, K, generator=gen, device=dev) * 0.02
+          for _ in range(R)]
+    special = torch.from_numpy(k2_special_blocks()).to(dev)
+    Ws[0].view(-1, 64)[:special.shape[0]] = special
+    return Ws
+
+
+def phase_k2(dev, gen, results):
+    from quantizations_tpu_torch.ops import (quantize_4bit_kernel,
+                                             quantize_4bit_kernel_plain)
+
     shapes = []
     for (M, K), per_build in K2_SHAPES.items():
-        # model build draws fp32 normal weights of scale 0.02
-        R = max(2, math.ceil(4 * L2_BYTES / (M * K * 4)))
-        Ws = [torch.randn(M, K, generator=gen, device=dev) * 0.02
-              for _ in range(R)]
-        W = Ws[0]
-        W[0, :64] = edge
-        W[1, :64] = 0.0                      # a zero block
-        for qt in ("fp4", "nf4"):
-            wp, am = quantize_4bit_kernel(W, 64, qt)
-            wpp, amp = quantize_4bit_kernel_plain(W, 64, qt)
-            torch.cuda.synchronize()
-            if not (torch.equal(wp, wpp) and torch.equal(am, amp)):
-                bad = (wp != wpp).sum().item()
-                raise AssertionError(
-                    f"K2 {qt} [{M},{K}]: {bad} words differ from plain")
-            log(f"  K2 {qt} [{M}, {K}]: bit-exact with the plain version")
+        Ws = k2_inputs(M, K, dev, gen)
+        R, W = len(Ws), Ws[0]
+        ins = [W] + ([W.to(torch.bfloat16)] if (M, K) == (4096, 4096)
+                     else [])
+        for Wi in ins:
+            for qt in ("fp4", "nf4"):
+                wp, am = quantize_4bit_kernel(Wi, 64, qt)
+                wpp, amp = quantize_4bit_kernel_plain(Wi, 64, qt)
+                torch.cuda.synchronize()
+                if not (torch.equal(wp, wpp) and nan_equal(am, amp)):
+                    bad = (wp != wpp).sum().item()
+                    raise AssertionError(
+                        f"K2 {qt} {Wi.dtype} [{M},{K}]: {bad} words differ "
+                        "from plain, or the absmax does")
+                log(f"  K2 {qt} {Wi.dtype} [{M}, {K}]: bit-exact with the "
+                    "plain version (NaN, inf, -0.0 and subnormal blocks)")
         ms = device_ms(lambda i: quantize_4bit_kernel(Ws[i % R], 64, "fp4"),
                        20)
         pms = device_ms(lambda i: quantize_4bit_kernel_plain(W, 64, "fp4"),
                         2, warmup=1)
-        nbytes = M * K * 4 + M * K // 2 + M * (K // 64) * 4
+        nbytes = k2_bytes(M, K)
         bms, by = bound(nbytes, 0)
+        tbs = nbytes / ms / 1e9
         shapes.append(dict(M=M, K=K, launches_per_build=per_build, ms=ms,
-                           plain_ms=pms, bound_ms=bms))
-        log(f"  K2 fp4 [{M}, {K}] fp32 in: {ms:.4f} ms (bound {bms:.4f}, "
-            f"plain {pms:.3f}), {per_build} launches per model build")
-        del W, Ws, wp, am, wpp, amp
+                           plain_ms=pms, bound_ms=bms, tb_per_s=tbs,
+                           share_of_bound=bms / ms))
+        log(f"  K2 fp4 [{M}, {K}] fp32 in: {ms * 1e3:.2f} us (bound "
+            f"{bms * 1e3:.2f} us, {tbs:.3f} TB/s, {100 * bms / ms:.1f}% of "
+            f"the bound; plain {pms:.3f} ms), {per_build} launches per "
+            "model build")
+        del W, Ws, ins, wp, am, wpp, amp
         torch.cuda.empty_cache()
     per_build = {k: sum(s["launches_per_build"] * s[k] for s in shapes)
                  for k in ("ms", "plain_ms", "bound_ms")}
     log(f"  K2 per model build ({sum(K2_SHAPES.values())} launches): "
-        f"{per_build['ms']:.3f} ms, bound {per_build['bound_ms']:.3f} ms, "
-        f"plain {per_build['plain_ms']:.3f} ms")
+        f"{per_build['ms']:.3f} ms, bound {per_build['bound_ms']:.3f} ms "
+        f"({100 * per_build['bound_ms'] / per_build['ms']:.1f}%), plain "
+        f"{per_build['plain_ms']:.3f} ms")
     results["k2"] = dict(max_abs_err=0.0, shapes=shapes, bound_by="bytes",
                          **per_build)
 
@@ -901,6 +993,9 @@ def phase_model(dev, results):
                 ("nf4", "einsum", {}, (1,)))
     runs = []
     fp4_params = params = None
+    per_build_k2 = sum(K2_SHAPES.values())
+    results["build_profile"] = _profile_build(dataclasses.replace(
+        LLAMA3_8B, quant=QuantConfig(quantize_embedding=True)), dev)
     for k in KERNELS:
         k.launches = 0
     for qt, attn, knobs, batches in variants:
@@ -913,11 +1008,17 @@ def phase_model(dev, results):
         else:
             params = None
             torch.cuda.synchronize()
+            before = QUANTIZE_4BIT.launches
             t0 = time.perf_counter()
             params = fuse_projections(init_llama_params(cfg, seed=0,
                                                         device=dev))
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
+            if QUANTIZE_4BIT.launches - before != per_build_k2:
+                raise AssertionError(
+                    f"{qt} build: K2 launched "
+                    f"{QUANTIZE_4BIT.launches - before} times, expected "
+                    f"{per_build_k2}")
             wbytes = sum(t.numel() * t.element_size()
                          for _, t in named_tensors(params))
             log(f"  {qt} Llama3-8B ({layers} layers) built in {build_s:.2f} "
@@ -1056,6 +1157,109 @@ def phase_model(dev, results):
             raise AssertionError("TINY_LLAMA flash decode disagrees with the "
                                  "CPU")
     return fp4_params
+
+
+def _profile_build(cfg, dev):
+    """Where one FP4 model build (``init_llama_params`` then
+    ``fuse_projections``) spends its time: ``torch.profiler`` over one
+    build, with ``record_function`` spans around K2
+    (``quantize_4bit_kernel``), ``torch.randn``, the plain double
+    quantization of the absmax (``quantize_blockwise`` and
+    ``dequantize_blockwise``), ``planar_to_pair`` and
+    ``fuse_projections``, put in for this pass only. Per span: the host
+    time inside it and the device time of the kernels it launched; beside
+    them the build's wall (host clock to a synchronize; the profiler
+    slows the host), the device's busy time, the device time outside the
+    spans (the scale multiply, the copies into the stacks), the host's
+    waits in stream and device synchronizes, and the device kernels that
+    took the most time overall."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from quantizations_tpu_torch.models import llama
+    from quantizations_tpu_torch.ops import QUANTIZE_4BIT
+
+    spans = {(llama, "quantize_4bit_kernel"): "K2",
+             (torch, "randn"): "randn",
+             (llama, "quantize_blockwise"): "double quantization",
+             (llama, "dequantize_blockwise"): "double quantization",
+             (llama, "planar_to_pair"): "planar_to_pair"}
+    saved = {key: getattr(*key) for key in spans}
+
+    def in_span(label, fn):
+        def run(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return run
+
+    torch.cuda.synchronize()
+    before = QUANTIZE_4BIT.launches
+    try:
+        for (mod, name), label in spans.items():
+            setattr(mod, name, in_span(label, saved[(mod, name)]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params = llama.init_llama_params(cfg, seed=0, device=dev)
+            with record_function("fuse_projections"):
+                params = llama.fuse_projections(params)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    del params
+    torch.cuda.empty_cache()
+    if QUANTIZE_4BIT.launches - before != sum(K2_SHAPES.values()):
+        raise AssertionError(f"profiled build: K2 launched "
+                             f"{QUANTIZE_4BIT.launches - before} times")
+    labels = sorted(set(spans.values())) + ["fuse_projections"]
+    by_span = {lb: dict(host_s=0.0, device_s=0.0, calls=0) for lb in labels}
+    kernels, syncs = {}, [0, 0.0]
+    for e in prof.events():
+        if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            syncs[0] += 1
+            syncs[1] += e.cpu_time_total / 1e6
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            # a span's own device-side annotation is no kernel
+            if not (e.is_user_annotation or e.name in by_span):
+                kernels[e.name] = kernels.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us() / 1e6
+        elif e.name in by_span:
+            by_span[e.name]["host_s"] += e.cpu_time_total / 1e6
+            by_span[e.name]["device_s"] += e.device_time_total / 1e6
+            by_span[e.name]["calls"] += 1
+    busy_s = sum(kernels.values())
+    if busy_s == 0.0:
+        raise AssertionError("the profiler saw no device time in the build")
+    # K2 launches through ctypes, which the profiler links to no span: its
+    # device time is its kernels' by name
+    by_span["K2"]["device_s"] = sum(t for n, t in kernels.items()
+                                    if "quantize_group_kernel" in n
+                                    or "quantize_block_kernel" in n)
+    # a renamed kernel or a function that llama reaches another way would
+    # read 0 here, not fail
+    empty = [lb for lb, d in by_span.items()
+             if d["calls"] == 0 or d["device_s"] == 0.0]
+    if empty:
+        raise AssertionError(f"profiled build: no calls or no device time "
+                             f"in the spans {empty}")
+    outside_s = busy_s - sum(d["device_s"] for d in by_span.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  fp4 build under torch.profiler: wall {wall_s:.4f} s, device "
+        f"busy {busy_s:.4f} s ({100 * busy_s / wall_s:.1f}% of wall)")
+    for lb, d in by_span.items():
+        log(f"    {lb:>20}: {d['calls']:4d} calls, host {d['host_s']:.4f} s "
+            f"({100 * d['host_s'] / wall_s:.1f}% of wall), device "
+            f"{d['device_s'] * 1e3:.3f} ms")
+    log(f"    {'outside the spans':>20}: device {outside_s * 1e3:.3f} ms")
+    log(f"    the host waited in {syncs[0]} stream or device synchronizes, "
+        f"{syncs[1]:.4f} s")
+    for n, t in top:
+        log(f"    device {t * 1e3:9.3f} ms  {n[:90]}")
+    return dict(wall_s=wall_s, device_busy_s=busy_s, spans=by_span,
+                device_outside_spans_s=outside_s, synchronizes=syncs[0],
+                synchronize_s=syncs[1],
+                top=[dict(name=n[:120], s=t) for n, t in top])
 
 
 def _decode_logit_check(params, dev):

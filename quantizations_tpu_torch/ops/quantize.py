@@ -85,7 +85,7 @@ def quantize_4bit_kernel(W: torch.Tensor, blocksize: int = 64,
     wp = torch.empty((M, K // 8), dtype=torch.int32, device=W.device)
     absmax = torch.empty((M, K // blocksize), dtype=torch.float32,
                          device=W.device)
-    if M == 0:
+    if W.numel() == 0:
         return wp, absmax
     launch(QUANTIZE_4BIT, "qt_quantize_4bit", W.device, W.data_ptr(),
            int(W.dtype == torch.bfloat16), _device_mids(W.device).data_ptr(),

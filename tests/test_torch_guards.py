@@ -34,7 +34,8 @@ from quantizations_tpu_torch.bridge import (cache_from_numpy,
 from quantizations_tpu_torch.models import llama as tl
 from quantizations_tpu_torch.nn.linear import Linear4bit
 from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
-                                         PAIR_MANUAL, PAIR_PREFILL)
+                                         PAIR_MANUAL, PAIR_PREFILL,
+                                         QUANTIZE_4BIT)
 from quantizations_tpu_torch.ops import attention as tat
 from quantizations_tpu_torch.ops import gemv as tgv
 from quantizations_tpu_torch.ops import paged_attention as tpa
@@ -217,6 +218,52 @@ def test_chip_smoke_checks_planar_matmul_ptxas(case):
     assert {e["smem"] for e in results["ptxas_planar_matmul"]} == {64}
 
 
+def _quantize_ptxas_log(cs, drop=None, spilled=None):
+    """A ``ptxas -v`` log of ``csrc/quantize.cu`` with every K2
+    instantiation that its dispatch launches (less ``drop``; ``spilled``
+    with a spill)."""
+    args = "EEEvPKT_PKfPiPfx"
+    names = {}
+    for t, mt in (("fp32", "f"), ("bf16", "13__nv_bfloat16")):
+        for q, b in (("fp4", 0), ("nf4", 1)):
+            names |= {f"L={n} {t} {q}":
+                      f"21quantize_group_kernelI{mt}Li{n}ELb{b}{args}"
+                      for n in cs.K2_GROUP_LANES}
+            names[f"warp {t} {q}"] = (f"21quantize_block_kernelI{mt}Lb{b}"
+                                      f"{args}i")
+    log = ""
+    for label, tail in names.items():
+        if label == drop:
+            continue
+        fn = "_ZN12_GLOBAL__N_1" + tail
+        sp = 8 * (label == spilled)
+        log += (f"ptxas info    : Compiling entry function '{fn}' for "
+                f"'sm_90a'\nptxas info    : Function properties for {fn}\n"
+                f"    0 bytes stack frame, {sp} bytes spill stores, {sp} "
+                f"bytes spill loads\nptxas info    : Used 40 registers, "
+                f"used 0 barriers, 420 bytes cmem[0]\n")
+    return log, set(names)
+
+
+@pytest.mark.parametrize("case", ["complete", "missing", "spill"])
+def test_chip_smoke_checks_quantize_ptxas(case):
+    """``chip_smoke.py`` reads ``csrc/quantize.cu``'s ``ptxas -v`` log:
+    K2's group body at every lane count and its one-warp body, each for
+    fp32 and bf16 input and FP4 and NF4, once, no spill, or it raises."""
+    cs = _chip_smoke()
+    log, labels = _quantize_ptxas_log(
+        cs, drop="warp bf16 nf4" if case == "missing" else None,
+        spilled="L=8 fp32 fp4" if case == "spill" else None)
+    results = {}
+    if case != "complete":
+        with pytest.raises(AssertionError):
+            cs.read_ptxas_report({"quantize": _DoneNvcc(log)}, results)
+        return
+    cs.read_ptxas_report({"quantize": _DoneNvcc(log)}, results)
+    assert {e["kernel"] for e in results["ptxas_quantize"]} == labels
+    assert len(labels) == 4 * (len(cs.K2_GROUP_LANES) + 1)
+
+
 # -- on the card ------------------------------------------------------------
 # A machine with a card may have no JAX, which tests/conftest.py imports:
 # there these tests run as ``python -m pytest --noconftest -m cuda
@@ -271,18 +318,60 @@ def test_k1_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T, M,
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
+def _k2_check(W, blocksize, quant_type, cuda):
+    """K2 on the card against its plain version on the CPU: the same
+    words, and the same absmax (NaN at the same places)."""
+    cs = _chip_smoke()
+    ref = tqz.quantize_4bit_kernel(W, blocksize, quant_type)
+    before = QUANTIZE_4BIT.launches
+    got = tqz.quantize_4bit_kernel(W.to(cuda), blocksize, quant_type)
+    torch.cuda.synchronize()
+    assert QUANTIZE_4BIT.launches == before + 1
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert cs.nan_equal(got[1].cpu(), ref[1])
+
+
+# K2's bodies and their tails: every blocksize path (the group body at 8
+# to 256, L = blocksize / 8 lanes a block; the one-warp body at 512, 1024,
+# 4096 and at 72, not a power of two), M = 1, 3 and 130, and quant-block
+# counts that are no multiple of a warp's groups or of its two segments
+# (9 blocks a row up to blocksize 64, 3 at 128-512); the threshold edges
+# and the non-finite blocks of chip_smoke.k2_special_blocks first. The
+# last case is the earlier [128, 512] check at blocksize 64.
+K2_TAIL_K = {8: 72, 16: 144, 32: 288, 64: 576, 128: 384, 256: 768,
+             512: 1536, 1024: 2048, 4096: 4096, 72: 576}
+K2_CASES = [(bs, M, K) for bs, K in sorted(K2_TAIL_K.items())
+            for M in (1, 3, 130)] + [(64, 128, 512)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k2_bit_exact_on_card(cuda, rng, quant_type, dtype):
-    W = torch.from_numpy((rng.standard_normal((128, 512)) * 0.02).astype(
-        np.float32)).to(dtype)
-    W[1] = 0.0
-    ref = tqz.quantize_4bit_kernel(W, 64, quant_type)
-    got = tqz.quantize_4bit_kernel(W.to(cuda), 64, quant_type)
-    torch.cuda.synchronize()
-    for g, r in zip(got, ref):
-        assert torch.equal(g.cpu(), r)
+@pytest.mark.parametrize("blocksize,M,K", K2_CASES)
+def test_k2_bit_exact_on_card(cuda, rng, quant_type, dtype, blocksize, M, K):
+    W = (rng.standard_normal((M, K)) * 0.02).astype(np.float32)
+    special = _chip_smoke().k2_special_blocks(blocksize)
+    flat = W.reshape(-1, blocksize)
+    n = min(len(flat), len(special))
+    flat[:n] = special[:n]
+    _k2_check(torch.from_numpy(W).to(dtype), blocksize, quant_type, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blocksize", [64, 512])
+def test_k2_non_finite_blocks_on_card(cuda, quant_type, dtype, blocksize):
+    """C.3: a block that holds a NaN gets a NaN absmax and the plain
+    version's words (every finite element the code of 0), as the plain
+    version and the JAX functional give; likewise +inf, -inf, -0.0, an
+    all-zero block with one NaN and a subnormal absmax (1/absmax = inf).
+    The ``eb81530`` body took the absmax with ``fmaxf``, which drops a
+    NaN, and failed here."""
+    special = _chip_smoke().k2_special_blocks(blocksize)
+    W = np.concatenate([special, special[::-1]]).reshape(-1, 2 * blocksize)
+    _k2_check(torch.from_numpy(np.ascontiguousarray(W)).to(dtype),
+              blocksize, quant_type, cuda)
 
 
 def _planar_operands(rng, M, K, L=3, scale_kind="fp32"):

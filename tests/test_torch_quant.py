@@ -5,6 +5,8 @@ Every input is drawn with numpy from a seed and handed to both packages.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -236,6 +238,55 @@ def test_quantize_kernel_plain_matches_pallas(rng, quant_type, blocksize,
         assert wp.dtype == torch.int32 and wp.shape == (M, K // 8)
         np.testing.assert_array_equal(wp.numpy(), _j(jwp))
         np.testing.assert_array_equal(am.numpy(), _j(jam))
+
+
+def _k2_special_blocks():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.k2_special_blocks(64)
+
+
+@pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
+@pytest.mark.parametrize("bf16_in", [False, True])
+def test_quantize_kernel_plain_non_finite_matches_functional(quant_type,
+                                                             bf16_in):
+    """C.3: K2's plain version on the blocks the card tests feed K2 (the
+    threshold edges, a zero block, a NaN, an all-zero block with one NaN,
+    +inf, -inf, NaN beside inf, -0.0, a subnormal absmax) against the JAX
+    functional ``quantize_4bit(..., compress_statistics=False)``: the same
+    words, and the same absmax with NaN at the same places. A NaN poisons
+    its block's absmax and makes every finite element the code of 0.
+
+    The functional path, not ``quantize_4bit_pallas``: the Pallas kernel's
+    one-hot selection ``_select_stride`` (``ops/quantize.py:82-90``)
+    multiplies 0 by the NaN or inf, and in interpret mode one non-finite
+    value turns every absmax of its row NaN and changes the row's other
+    words, a fault of the reference that the port does not copy.
+
+    The subnormal block is held to the IEEE result instead: XLA's CPU
+    backend flushes subnormal inputs to zero (absmax 0, every code of 0),
+    where PyTorch and K2 keep them (absmax the largest |w|, 1/absmax =
+    inf)."""
+    special = _k2_special_blocks()
+    sub = len(special) - 1
+    W = special.reshape(1, -1)
+    jw, tw = jnp.asarray(W), _t(W)
+    if bf16_in:
+        jw, tw = jw.astype(jnp.bfloat16), tw.to(torch.bfloat16)
+    wp, am = quantize_4bit_kernel_plain(tw, 64, quant_type)
+    jp, js = jq.quantize_4bit(jw, blocksize=64, quant_type=quant_type,
+                              compress_statistics=False)
+    words = wp.view(torch.uint8).numpy().reshape(-1, 32)
+    jwords = _j(jp).reshape(-1, 32)
+    absmax, jabsmax = am.numpy().reshape(-1), _j(js.absmax)
+    keep = np.arange(len(special)) != sub
+    np.testing.assert_array_equal(words[keep], jwords[keep])
+    np.testing.assert_array_equal(absmax[keep], jabsmax[keep])
+    assert np.isnan(absmax).sum() == 3               # the three NaN blocks
+    tiny = tw.float().numpy().reshape(-1, 64)[sub]
+    assert absmax[sub] == np.abs(tiny).max() > 0 and jabsmax[sub] == 0
 
 
 @pytest.mark.parametrize("field,value", [
