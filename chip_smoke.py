@@ -155,7 +155,30 @@ Phases, each raising on failure:
    tokens and return every page but the prefix cache's pins. Printed:
    aggregate new tokens per second, steps, admission group sizes, and
    the wall time split into admission and decode;
-11. ``profile``: one FP4 batch-1 generate of 8 new tokens under
+11. ``spec``: speculative decoding and the slot ``Engine`` on the same
+   FP4 model. First the paged verify window on a tiny model with 4
+   query heads per kv head (windows of 4 and 8 tokens, 32 query rows at
+   8) against the CPU's plain path: logits within 2e-2 * max|logit|, bf16
+   and int8 pools, one row across a page boundary, the window write
+   bit-equal. Then ``PagedEngine`` (the paged phase's configuration and
+   requests) through ``step_spec(8)`` twice (the same tokens),
+   ``step_spec_multi(8, 4)`` and ``step_spec(8)`` on an int8 pool: K3 (K4)
+   exactly 32 per forward (verify windows at q_span 8 and plain
+   fallback steps), K1's CUDA-core body exactly 129 per forward and per
+   admission forward of at most 128 rows (one per larger one), its
+   tensor-core body and K10 as in the paged phase, 32 tokens a request,
+   pages returned; printed beside the paged phase's plain run, with the
+   tokens that agree with it. One verify window (B = 4, T = 8) is timed
+   against one plain step at 1900 tokens. The slot ``Engine(slots=4,
+   max_seq=2048, prefill_buckets=(16, 64, 256))`` serves the same
+   requests: ``run()`` twice (the same tokens),
+   ``run(steps_per_dispatch=4)``, ``run(spec_k=8)``, and ``run()`` with
+   flash (K3) and with flash and an int8 cache (K4), each with exact
+   K1/K3/K4/K10 counts. Last ``make_speculative_generate_fn`` at B = 1,
+   k = 8, 60 tokens after the model phase's prompt (K1 exactly 129 per
+   forward, the same tokens every run; tok/s the median of 3) beside the
+   model phase's generate;
+12. ``profile``: one FP4 batch-1 generate of 8 new tokens under
    ``torch.profiler``: device kernel time by name, kernels per forward,
    the device's busy share of the wall time, the host's enqueue time.
 
@@ -2546,12 +2569,27 @@ def _paged_prompts(vocab_size):
     return prompts
 
 
-def _serve_paged(params, base, prompts, kv):
+def _k1_cuda_core_launches(admission_rows, forwards, layers):
+    """K1's CUDA-core launches (``PAIR_MATMUL`` less ``PAIR_MATMUL_MMA``)
+    in a serving run: ``4 * layers + 1`` per decode forward (a plain step
+    or a verify window of at most ``PAIR_MMA_MIN_TOKENS - 1`` rows), as
+    many per admission forward of that many rows, and one per larger
+    admission forward (its lm_head samples one row per request)."""
+    from quantizations_tpu_torch.ops import PAIR_MMA_MIN_TOKENS
+
+    per = 4 * layers + 1
+    return per * forwards + sum(per if r < PAIR_MMA_MIN_TOKENS else 1
+                                for r in admission_rows)
+
+
+def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
     """One ``PagedEngine`` run over ``prompts`` (the paged phase's
-    configuration) with a ``kv`` pool. Counts are zeroed just before the
-    run and read just after it. Returns the run's record: wall time split
-    into admission and decode, steps, admission group sizes, the rows of
-    every admission forward, launches, stats and tokens."""
+    configuration) with a ``kv`` pool, driven by ``step`` or, with
+    ``spec_k``, by ``step_spec`` (``step_spec_multi`` with
+    ``steps_per_dispatch`` > 1). Counts are zeroed just before the run and
+    read just after it. Returns the run's record: wall time split into
+    admission and decode, steps, admission group sizes, the rows of every
+    admission forward, launches, stats and tokens."""
     from quantizations_tpu_torch.models.llama import prefill_pair_enabled
     from quantizations_tpu_torch.nn.linear import pair_max_tokens
     from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
@@ -2602,12 +2640,18 @@ def _serve_paged(params, base, prompts, kv):
     eng._admit_one, eng._prefix_lookup = counted_one, seen_lookup
     eng._prefill_round = counted_round
     uids = [eng.submit(p, max_new_tokens=PAGED_NEW) for p in prompts]
+    if spec_k and steps_per_dispatch > 1:
+        step = lambda: eng.step_spec_multi(spec_k, steps_per_dispatch)  # noqa
+    elif spec_k:
+        step = lambda: eng.step_spec(spec_k)                          # noqa
+    else:
+        step = eng.step
     for k in KERNELS:
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while eng.has_work():
-        eng.step()
+        step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in KERNELS}
@@ -2626,13 +2670,16 @@ def _serve_paged(params, base, prompts, kv):
                              f"{st['steps']} steps")
     if launches[other.name] != 0:
         raise AssertionError(f"{other.name} launched on a {kv} pool")
-    if launches[PAIR_MATMUL.name] < (4 * layers + 1) * st["steps"]:
-        raise AssertionError(f"K1 launched {launches[PAIR_MATMUL.name]} "
-                             f"times in {st['steps']} steps")
     # K1's tensor-core body: every projection of an admission forward of
     # PAIR_MMA_MIN_TOKENS .. pair_max_tokens() rows (4 per layer; its
     # lm_head samples one row)
     mma = launches[PAIR_MATMUL_MMA.name]
+    core = launches[PAIR_MATMUL.name] - mma
+    want_core = _k1_cuda_core_launches(spent["rows"], st["steps"], layers)
+    if core != want_core:
+        raise AssertionError(f"K1's CUDA-core body launched {core} times in "
+                             f"{st['steps']} forwards, expected {want_core} "
+                             f"(admission rows {spent['rows']})")
     want_mma = 4 * layers * sum(
         1 for r in spent["rows"]
         if PAIR_MMA_MIN_TOKENS <= r <= pair_max_tokens())
@@ -2660,17 +2707,22 @@ def _serve_paged(params, base, prompts, kv):
                              f"{spent['hits'].get(uids[-1])} prefix "
                              "positions, expected 512")
     new = PAGED_NEW * len(prompts)
-    run = dict(kv_cache_dtype=kv, wall_s=wall, new_tokens=new,
-               tok_per_s=new / wall, admit_s=spent["admit_s"],
+    run = dict(kv_cache_dtype=kv, spec_k=spec_k,
+               steps_per_dispatch=steps_per_dispatch, wall_s=wall,
+               new_tokens=new, tok_per_s=new / wall, admit_s=spent["admit_s"],
                decode_s=wall - spent["admit_s"], steps=st["steps"],
                admissions=spent["groups"], admission_rows=spent["rows"],
-               mma_launches=mma, k10_launches=k10, launches=launches,
-               stats=st, tokens=toks)
-    log(f"  {kv} pool: {new} new tokens in {wall:.3f} s = "
-        f"{new / wall:.2f} tok/s aggregate; {st['steps']} steps; "
+               mma_launches=mma, k1_cuda_core_launches=core,
+               k10_launches=k10, launches=launches, stats=st, tokens=toks)
+    how = (f"spec_k={spec_k} x {steps_per_dispatch}: {st['spec_windows']} "
+           f"windows, accept rate {st['spec_accept_rate']:.3f}, "
+           if spec_k else "")
+    log(f"  {kv} pool, {how}{new} new tokens in {wall:.3f} s = "
+        f"{new / wall:.2f} tok/s aggregate; {st['steps']} forwards; "
         f"admission {spent['admit_s']:.3f} s (groups {spent['groups']}),"
-        f" decode {wall - spent['admit_s']:.3f} s; K1's tensor-core body "
-        f"{mma} launches, K10 {k10} (as reckoned); launches {launches}; "
+        f" decode {wall - spent['admit_s']:.3f} s; K1's CUDA-core body "
+        f"{core} launches, its tensor-core body {mma}, K10 {k10} (as "
+        f"reckoned); launches {launches}; "
         f"pages free {st['pages_free']} of {usable} "
         f"({st['prefix_cache_pages']} pinned by the prefix cache)")
     return run
@@ -2699,6 +2751,357 @@ def phase_paged(dev, params, results):
     results["paged"] = dict(runs=runs, int8_agree=agree)
     results["launches_paged"] = runs[0]["launches"]
     results["launches_paged_int8"] = runs[2]["launches"]
+
+
+def _spec_window_tiny(dev, results):
+    """The paged verify window on a tiny GQA model (TINY_LLAMA with 2 kv
+    heads: 4 query heads each, Llama3-8B's ratio) on the card against
+    the CPU's plain path on the same parameters and pool: bf16 and int8
+    pools of random pages, windows of 4 and 8 tokens (8 x 4 = 32 query
+    rows, K3/K4's most), row 0's across a page boundary. Logits within
+    2e-2 * max|logit| (the model phase's tiny check); the positions
+    outside the windows untouched; ``write_window`` on the same rows
+    bit-equal to the CPU's; K3/K4 launched once per layer."""
+    from quantizations_tpu_torch.config import QuantConfig
+    from quantizations_tpu_torch.models.llama import (
+        TINY_LLAMA, fuse_projections, init_llama_params, map_tensors)
+    from quantizations_tpu_torch.ops import FLASH_DECODE, FLASH_DECODE_I8
+    from quantizations_tpu_torch.serve.paged import (PagedKVCache,
+                                                     paged_verify_step,
+                                                     write_window)
+
+    out = []
+    base = dataclasses.replace(TINY_LLAMA, num_key_value_heads=2,
+                               quant=QuantConfig(quantize_embedding=True))
+    p_gpu = fuse_projections(init_llama_params(base, seed=1, device=dev))
+    p_cpu = map_tensors(lambda t: t.cpu(), p_gpu)
+    page = 16
+    table = torch.tensor([[3, 6, 0, 0], [5, 0, 0, 0]], dtype=torch.int32)
+    for kv in ("bf16", "int8"):
+        cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+        kern = FLASH_DECODE_I8 if kv == "int8" else FLASH_DECODE
+        for k in (4, 8):
+            g = torch.Generator().manual_seed(k)
+            pool_c = PagedKVCache.create(cfg, 8, page, device="cpu")
+            for t in pool_c.tensors():
+                t.copy_(torch.randint(-127, 128, t.shape, generator=g)
+                        if t.dtype == torch.int8 else
+                        torch.rand(t.shape, generator=g)
+                        * (0.02 if t.dim() == 4 else 1.0))
+            before = [t.clone() for t in pool_c.tensors()]
+            pool_g = PagedKVCache(*[t.to(dev) for t in pool_c.tensors()])
+            pos = torch.tensor([page - k // 2, 3])   # row 0 crosses a page
+            feed = torch.randint(1, cfg.vocab_size, (2, k), generator=g)
+            n0 = kern.launches
+            lg, pool_g = paged_verify_step(p_gpu, feed.to(dev), pool_g,
+                                           table.to(dev), pos.to(dev), cfg, 2)
+            torch.cuda.synchronize()
+            n = kern.launches - n0
+            lc, pool_c = paged_verify_step(p_cpu, feed, pool_c, table, pos,
+                                           cfg, 2)
+            err = (lg.cpu() - lc).abs().max().item()
+            scale = lc.abs().max().item()
+            if n != cfg.num_hidden_layers or not err <= 2e-2 * scale:
+                raise AssertionError(
+                    f"tiny {kv} window of {k}: {kern.name} launched {n} "
+                    f"times, max|err| {err:.3e} of max|logit| {scale:.3f}")
+            written = torch.zeros((8, page), dtype=torch.bool)
+            for b in range(2):
+                for q in range(int(pos[b]), int(pos[b]) + k):
+                    written[table[b, q // page], q % page] = True
+            for tg, tc, tb in zip(pool_g.tensors(), pool_c.tensors(),
+                                  before):
+                keep = ~written[None, :, None, :].expand(tb.shape[:4])
+                if not (torch.equal(tg.cpu()[keep], tb[keep])
+                        and torch.equal(tc[keep], tb[keep])):
+                    raise AssertionError(f"tiny {kv} window of {k} wrote "
+                                         "outside its positions")
+            kk = torch.randn((2, k, 2, 64), generator=g)
+            vv = torch.randn((2, k, 2, 64), generator=g)
+            qpos = pos[:, None] + torch.arange(k)[None]
+            page_of = table.long().gather(1, qpos // page)
+            for pool, d in ((pool_g, dev), (pool_c, "cpu")):
+                write_window(pool, 0, page_of.to(d), (qpos % page).to(d),
+                             kk.to(d), vv.to(d))
+            torch.cuda.synchronize()
+            if not all(torch.equal(tg[0].cpu(), tc[0]) for tg, tc in zip(
+                    pool_g.tensors(), pool_c.tensors())):
+                raise AssertionError(f"tiny {kv} window write of {k} rows "
+                                     "differs from the CPU's")
+            out.append(dict(kv=kv, k=k, launches=n, max_abs_err=err,
+                            max_abs_logit=scale))
+            log(f"  TINY_LLAMA (G = 4) {kv} window of {k} ({4 * k} query "
+                f"rows), CUDA vs CPU plain: max|err| {err:.3e} (max|logit| "
+                f"{scale:.3f}); {kern.name} {n} launches; the window write "
+                "bit-equal")
+    results["spec_tiny"] = out
+
+
+def _forward_ms(fn, reps=5):
+    """Median wall of ``fn()`` in ms, from CUDA events (the host's
+    enqueue included), after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _window_times(params, base, dev):
+    """One verify window (B = 4, T = 8) against one plain step (T = 1)
+    over the paged phase's pool at 1900 live tokens a row: ms per
+    forward, the median of 5 (CUDA events; the host included). The
+    window's logits at its first position must be within 2e-2 *
+    max|logit| of the step's on the same token and pool (the tiny check's
+    tolerance): the same position through K3/K4 at q_span 8 and 1."""
+    from quantizations_tpu_torch.serve.paged import (PagedKVCache,
+                                                     paged_decode_step,
+                                                     paged_verify_step)
+
+    out = {}
+    for kv in ("bf16", "int8"):
+        cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+        pages = PagedKVCache.create(cfg, 40, 256, device=dev)
+        table = (torch.arange(32, dtype=torch.int32).reshape(4, 8) + 1).to(dev)
+        pos = torch.full((4,), 1900, dtype=torch.int64, device=dev)
+        feed = ((torch.arange(32, device=dev) * 7 + 11) % cfg.vocab_size
+                ).reshape(4, 8).to(torch.int32)
+        win = _forward_ms(lambda: paged_verify_step(
+            params, feed, pages, table, pos, cfg, 8))
+        one = _forward_ms(lambda: paged_decode_step(
+            params, feed[:, :1], pages, table, pos, cfg, 8))
+        lw, _ = paged_verify_step(params, feed, pages, table, pos, cfg, 8)
+        ls, _ = paged_decode_step(params, feed[:, :1], pages, table, pos, cfg,
+                                  8)
+        err = (lw[:, 0] - ls).abs().max().item()
+        scale = ls.abs().max().item()
+        if not err <= 2e-2 * scale:
+            raise AssertionError(f"{kv} window's first position: max|err| "
+                                 f"{err:.3e} against the step's, max|logit| "
+                                 f"{scale:.3f}")
+        out[kv] = dict(window_ms=win, step_ms=one, ratio=win / one,
+                       logits_max_err=err, max_logit=scale)
+        log(f"  {kv} pool, B=4 at 1900 tokens: one verify window (T=8) "
+            f"{win:.3f} ms, one plain step {one:.3f} ms ({win / one:.2f}x; "
+            "CUDA events, the host included); the window's first position "
+            f"against the step: max|err| {err:.3e} (max|logit| {scale:.3f})")
+        del pages
+    return out
+
+
+def _serve_slot(params, base, prompts, knobs, run):
+    """One slot ``Engine(slots=4, max_seq=2048, prefill_buckets=(16, 64,
+    256))`` run over ``prompts`` with config ``knobs`` and ``run``'s
+    arguments. Counts are zeroed just before the run and read just after
+    it: K1's CUDA-core body, its tensor-core body, K10 and K3/K4 exactly as
+    the admission forwards' rows and the counted forwards say. Returns the
+    run's record."""
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.nn.linear import pair_max_tokens
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+                                             FLASH_DECODE, FLASH_DECODE_I8,
+                                             KERNELS, PAIR_MATMUL,
+                                             PAIR_MATMUL_MMA,
+                                             PAIR_MMA_MIN_TOKENS)
+    from quantizations_tpu_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(base, **knobs)
+    eng = Engine(params, cfg, ServeConfig(max_seq_len=2048), slots=4,
+                 prefill_buckets=(16, 64, 256))
+    rows, spent = [], {"admit_s": 0.0}
+    rnd, admit = eng._prefill_round, eng._admit
+
+    def counted_round(ids, *a):
+        rows.append(int(ids.shape[0] * ids.shape[1]))
+        return rnd(ids, *a)
+
+    def timed_admit():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        spent["admit_s"] += time.perf_counter() - t
+
+    eng._prefill_round, eng._admit = counted_round, timed_admit
+    uids = [eng.submit(p, max_new_tokens=PAGED_NEW) for p in prompts]
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(**run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    st = eng.stats()
+    toks = [eng.finished[u].output_ids for u in uids]
+    for u, t in zip(uids, toks):
+        if len(t) != PAGED_NEW or min(t) < 0 or max(t) >= base.vocab_size:
+            raise AssertionError(f"slot engine, request {u}: {len(t)} "
+                                 f"tokens, range {min(t)}..{max(t)}")
+    layers = base.num_hidden_layers
+    band = pair_max_tokens()
+    mma = launches[PAIR_MATMUL_MMA.name]
+    want = dict(
+        core=_k1_cuda_core_launches(rows, st["steps"], layers),
+        mma=4 * layers * sum(1 for r in rows
+                             if PAIR_MMA_MIN_TOKENS <= r <= band),
+        k10=4 * layers * sum(1 for r in rows if r > band))
+    got = dict(core=launches[PAIR_MATMUL.name] - mma, mma=mma,
+               k10=launches[DEQUANTIZE_4BIT_PAIR.name])
+    # K3/K4 in every plain decode step with the flash knob (a verify
+    # window stays on the einsum path)
+    flash = FLASH_DECODE_I8 if knobs.get("kv_cache_dtype") else FLASH_DECODE
+    want_attn = {FLASH_DECODE.name: 0, FLASH_DECODE_I8.name: 0}
+    if knobs.get("use_flash_attention"):
+        want_attn[flash.name] = layers * (st["steps"] - st["spec_windows"])
+    got_attn = {n: launches[n] for n in want_attn}
+    if got != want or got_attn != want_attn or st["finished"] != len(
+            prompts):
+        raise AssertionError(f"slot engine {knobs} {run}: launches {got} "
+                             f"{got_attn}, expected {want} {want_attn} "
+                             f"(admission rows {rows}); {st}")
+    new = PAGED_NEW * len(prompts)
+    rec = dict(knobs=knobs, run=run, wall_s=wall, new_tokens=new,
+               tok_per_s=new / wall, admit_s=spent["admit_s"],
+               decode_s=wall - spent["admit_s"], admission_rows=rows,
+               launches=launches, stats=st, tokens=toks)
+    log(f"  slot Engine {knobs or 'einsum'} run({run}): {new / wall:.2f} "
+        f"tok/s ({wall:.3f} s; admission {spent['admit_s']:.3f} s, decode "
+        f"{wall - spent['admit_s']:.3f} s); {st['steps']} forwards"
+        + (f", {st['spec_windows']} windows, accept rate "
+           f"{st['spec_accept_rate']:.3f}" if st["spec_windows"] else "")
+        + f"; K1 CUDA-core {got['core']}, tensor-core {got['mma']}, K10 "
+        f"{got['k10']}, K3/K4 {got_attn} (as reckoned; admission rows "
+        f"{rows})")
+    return rec
+
+
+def _agree(a, b):
+    return sum(x == y for r, q in zip(a, b) for x, y in zip(r, q))
+
+
+def phase_spec(dev, params, results):
+    """Speculative decoding and the slot ``Engine`` at full Llama3-8B
+    (the model phase's FP4 parameters): (a) the verify window on a tiny
+    model against the CPU; (b) ``PagedEngine`` with the paged phase's
+    configuration and 8 prompts through ``step_spec(8)`` (twice, fresh
+    engines: the same tokens), ``step_spec_multi(8, 4)`` and
+    ``step_spec(8)`` on an int8 pool, beside the paged phase's plain
+    runs, and one verify window against one plain step; (c) the slot
+    ``Engine(slots=4, max_seq=2048, prefill_buckets=(16, 64, 256))`` on
+    the same prompts: ``run()`` twice (the same tokens),
+    ``run(steps_per_dispatch=4)`` and ``run(spec_k=8)`` on the einsum
+    path, ``run()`` with flash (K3) and with flash and an int8 cache
+    (K4); (d) ``make_speculative_generate_fn`` at B = 1, k = 8, 60 new
+    tokens after the model phase's prompt. Exact launch counts
+    throughout; agreement with the plain streams is printed, not gated
+    (bf16 near-ties flip between a T = 8 and a T = 1 forward)."""
+    from quantizations_tpu_torch.config import QuantConfig, ServeConfig
+    from quantizations_tpu_torch.models.llama import LLAMA3_8B, KVCache
+    from quantizations_tpu_torch.ops import KERNELS, PAIR_MATMUL
+    from quantizations_tpu_torch.serve.speculative import (
+        make_speculative_generate_fn)
+
+    _spec_window_tiny(dev, results)
+
+    base = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
+        quantize_embedding=True))
+    prompts = _paged_prompts(base.vocab_size)
+    plain = results["paged"]["runs"][1]            # the warm bf16 run
+    paged = [_serve_paged(params, base, prompts, "bf16", spec_k=8),
+             _serve_paged(params, base, prompts, "bf16", spec_k=8),
+             _serve_paged(params, base, prompts, "bf16", spec_k=8,
+                          steps_per_dispatch=4),
+             _serve_paged(params, base, prompts, "int8", spec_k=8)]
+    if paged[1]["tokens"] != paged[0]["tokens"]:
+        raise AssertionError("a fresh speculative engine gave other tokens")
+    for r in paged:
+        r["plain_agree"] = _agree(r["tokens"], (
+            results["paged"]["runs"][2] if r["kv_cache_dtype"] == "int8"
+            else plain)["tokens"])
+        log(f"  paged spec_k={r['spec_k']} x {r['steps_per_dispatch']} "
+            f"{r['kv_cache_dtype']}: {r['tok_per_s']:.2f} tok/s against the "
+            f"plain run's {plain['tok_per_s']:.2f}; {r['plain_agree']} of "
+            f"{r['new_tokens']} tokens agree with the plain stream")
+    window = _window_times(params, base, dev)
+
+    slot = [_serve_slot(params, base, prompts, {}, {}),
+            _serve_slot(params, base, prompts, {}, {}),
+            _serve_slot(params, base, prompts, {}, dict(
+                steps_per_dispatch=4)),
+            _serve_slot(params, base, prompts, {}, dict(spec_k=8)),
+            _serve_slot(params, base, prompts,
+                        dict(use_flash_attention=True), {}),
+            _serve_slot(params, base, prompts,
+                        dict(use_flash_attention=True,
+                             kv_cache_dtype="int8"), {})]
+    if slot[1]["tokens"] != slot[0]["tokens"]:
+        raise AssertionError("a fresh slot engine gave other tokens")
+    for r in slot[2:]:
+        r["plain_agree"] = _agree(r["tokens"], slot[0]["tokens"])
+    log("  slot Engine tokens agreeing with its plain run: "
+        + ", ".join(f"{r['knobs'] or 'einsum'} {r['run'] or 'run()'} "
+                    f"{r['plain_agree']}" for r in slot[2:])
+        + f" of {slot[0]['new_tokens']}; with the paged engine's plain "
+        f"run: {_agree(slot[0]['tokens'], plain['tokens'])}")
+
+    serve = ServeConfig(max_seq_len=128, max_new_tokens=60)
+    fn = make_speculative_generate_fn(base, serve, draft_k=8)
+    ids = ((torch.arange(16, device=dev) * 7 + 11) % base.vocab_size
+           ).to(torch.int32)[None, :]
+    times, first = [], None
+    for it in range(4):
+        cache = KVCache.create(base, 1, serve.max_seq_len, dev)
+        for k in KERNELS:
+            k.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        toks, steps, _ = fn(params, ids, cache, None)
+        end.record()
+        end.synchronize()
+        n = PAIR_MATMUL.launches
+        if n != (4 * base.num_hidden_layers + 1) * (1 + steps):
+            raise AssertionError(f"speculative generate: K1 launched {n} "
+                                 f"times for {steps} windows")
+        if toks.shape != (1, 60) or int(toks.min()) < 0 or int(
+                toks.max()) >= base.vocab_size:
+            raise AssertionError(f"speculative generate tokens bad: "
+                                 f"{toks.shape}")
+        if first is None:
+            first = toks.cpu()
+        elif not torch.equal(first, toks.cpu()):
+            raise AssertionError("speculative generate: tokens differ "
+                                 "between runs")
+        if it:
+            times.append(start.elapsed_time(end) / 1e3)
+        del cache
+    t = statistics.median(times)
+    ref = next(r for r in results["generate"] if r["quant_type"] == "fp4"
+               and r["attention"] == "einsum" and r["batch"] == 1)
+    agree = _agree(first.tolist(), ref["tokens"])
+    log(f"  speculative generate B=1, k=8: {steps} verify windows for 60 "
+        f"tokens, {60 / t:.2f} tok/s (median of {len(times)}, {t:.4f} s) "
+        f"against the plain generate's {ref['tok_per_s']:.2f}; {agree} of 60 "
+        "tokens agree with it; K1 "
+        f"{(4 * base.num_hidden_layers + 1) * (1 + steps)} launches a run")
+    results["spec"] = dict(
+        paged=paged, paged_plain=dict(tok_per_s=plain["tok_per_s"],
+                                      admit_s=plain["admit_s"],
+                                      decode_s=plain["decode_s"],
+                                      steps=plain["steps"]),
+        window_vs_step=window, slot=slot,
+        generate=dict(windows=steps, tok_per_s=60 / t, generate_s=t,
+                      generate_s_all=times, plain_tok_per_s=ref["tok_per_s"],
+                      plain_agree=agree, tokens=first.tolist()))
+    results["launches_spec"] = paged[0]["launches"]
+    results["launches_spec_int8"] = paged[3]["launches"]
 
 
 def phase_profile(dev, results):
@@ -2954,6 +3357,10 @@ def kernel_entries(results, kernels_seq):
                               + ("int8" if "i8" in k.name else "first bf16")
                               + " run",
                          by_shape=rows)
+        # the speculative path's first bf16 run (the int8 run for K4)
+        entry["spec_launches"] = results.get(
+            "launches_spec_int8" if "i8" in k.name else "launches_spec",
+            {}).get(k.name, 0)
         kernels.append(entry)
     return kernels
 
@@ -3003,8 +3410,10 @@ def main() -> int:
                                                    held["params"])),
                    ("pair_variants", lambda: phase_pair_variants(
                        dev, gen, results, held["params"])),
-                   ("paged", lambda: phase_paged(dev, held.pop("params"),
+                   ("paged", lambda: phase_paged(dev, held["params"],
                                                  results)),
+                   ("spec", lambda: phase_spec(dev, held.pop("params"),
+                                               results)),
                    ("profile", lambda: phase_profile(dev, results))):
         t0 = time.perf_counter()
         log(f"[{ph}]")

@@ -1,20 +1,21 @@
-"""Paged KV serving: page pool, block tables and the paged decode step
+"""Paged KV serving: page pool, block tables and the paged forward
 (counterpart of ``quantizations_tpu/serve/paged.py``).
 
 - :class:`PagedKVCache`: the device pool ``[L, P, KVH, page, D]`` (bf16,
   or int8 codes with bf16 steps ``[L, P, KVH, page]``), updated in place.
 - :class:`PageAllocator`: the host's refcounted free list; page 0 is the
   junk page that unused block-table entries and empty slots point at.
-- :func:`paged_decode_step`: one ``T = 1`` decode step: one indexed write
-  per layer of every row's new K/V, then K3 (K4 for an int8 pool) through
-  the block table.
+- :func:`paged_decode_step` (``T = 1``) and :func:`paged_verify_step`
+  (a speculative verify window of ``T <= page_size`` tokens): one indexed
+  write per layer of every row's new K/V rows, then K3 (K4 for an int8
+  pool) through the block table with ``q_span = T``.
 - :func:`insert_prefill`: scatter a slot-layout scratch prefill into
   pages (prefill itself is the dense path of ``models/llama.py``).
 - :class:`PagedEngine`: continuous batching over the pool with batched
-  admission, a prefix cache, OOM rollback and multi-step windows.
+  admission, a prefix cache, OOM rollback, multi-step windows and
+  speculative decoding (``step_spec``, ``step_spec_multi``).
 
-Speculative decoding over the pool (``paged_verify_step``, ``step_spec``,
-``step_spec_multi``) and ``mesh=`` are not ported yet; they raise.
+``mesh=`` is not ported; it raises.
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from ..models.llama import (
     layer_params,
     layer_window,
     lm_head_logits,
-    prefill,
     rope_cos_sin,
 )
 from ..ops.paged_attention import (
@@ -47,9 +47,17 @@ from ..ops.paged_attention import (
 from .engine import (
     Request,
     clamp_buckets,
+    draft_lookup_host,
     iter_prefill_chunks,
+    prefill_round,
     run_chunk_rounds,
     sample_rows_samp,
+)
+from .speculative import (
+    append_window,
+    draft_prompt_lookup,
+    spec_accept_sample_vec,
+    spec_window_tokens,
 )
 
 __all__ = ["PagedKVCache", "PageAllocator", "PagedEngine",
@@ -157,30 +165,46 @@ class PageAllocator:
         return len(self._free)
 
 
+def write_window(pages: PagedKVCache, idx: int, page_of: torch.Tensor,
+                 off: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write layer ``idx``'s new K/V rows ``k, v [B, T, KVH, D]`` into the
+    pool at (``page_of[b, t]``, ``off[b, t]``) with one indexed assignment
+    per plane; an int8 pool quantizes all ``T`` rows on write. A window of
+    ``T <= page_size`` rows lies in at most two pages (the JAX package
+    writes it as two slabs, ``paged.py:151 _write_row_window``: the same
+    values land at the same places). Rows of empty slots write to the
+    junk page 0; duplicate writes there are harmless, since no live row
+    attends page 0."""
+    int8 = pages.k_scale is not None
+    kn, vn, ks, vs = _kv_rows(k, v, int8, pages.pages_k.dtype)
+    pages.pages_k[idx][page_of, :, off] = kn
+    pages.pages_v[idx][page_of, :, off] = vn
+    if int8:
+        pages.k_scale[idx][page_of, :, off] = ks
+        pages.v_scale[idx][page_of, :, off] = vs
+
+
 def _paged_attend(pages: PagedKVCache, idx: int, table: torch.Tensor,
                   page_of: torch.Tensor, off: torch.Tensor,
                   lengths: torch.Tensor, cfg: LlamaConfig):
-    """Attention of layer ``idx`` over the pool at ``T == 1``: one indexed
-    write of every row's new K/V (and steps) at (``page_of[b]``,
-    ``off[b]``), then K3/K4 through ``table [B, max_pages]``. Rows of
-    empty slots write to the junk page 0; duplicate writes there are
-    harmless, since no live row attends page 0."""
+    """Attention of layer ``idx`` over the pool: :func:`write_window`,
+    then K3/K4 through ``table [B, max_pages]`` with the ``T`` query
+    positions packed position-major (row ``t*G + g`` is position
+    ``pos + t``, grouped head ``g``) and masked causally inside the
+    window."""
     int8 = pages.k_scale is not None
     _, win_eff = layer_window(cfg, idx)
 
     def attend(q, k, v):
         B, T, n_q, D = q.shape
         n_kv = k.shape[2]
-        kn, vn, ks, vs = _kv_rows(k[:, 0], v[:, 0], int8, pages.pages_k.dtype)
-        pages.pages_k[idx][page_of, :, off] = kn
-        pages.pages_v[idx][page_of, :, off] = vn
-        if int8:
-            pages.k_scale[idx][page_of, :, off] = ks
-            pages.v_scale[idx][page_of, :, off] = vs
-        qs = q.reshape(B, n_kv, n_q // n_kv, D)
+        G = n_q // n_kv
+        write_window(pages, idx, page_of, off, k, v)
+        qs = q.reshape(B, T, n_kv, G, D).transpose(1, 2).reshape(
+            B, n_kv, T * G, D)
         common = dict(scale=(cfg.query_scale or D) ** -0.5,
                       softcap=cfg.attn_logit_softcap, window=win_eff,
-                      q_span=1, pages_per_step=cfg.paged_pages_per_step)
+                      q_span=T, pages_per_step=cfg.paged_pages_per_step)
         if int8:
             attn = paged_flash_decode_attention_i8(
                 qs, pages.pages_k, pages.pages_v, pages.k_scale,
@@ -189,33 +213,56 @@ def _paged_attend(pages: PagedKVCache, idx: int, table: torch.Tensor,
             attn = paged_flash_decode_attention(
                 qs, pages.pages_k, pages.pages_v, table, idx, lengths,
                 **common)
-        return attn.reshape(B, n_q * D)
+        return attn.reshape(B, n_kv, T, G, D).transpose(1, 2).reshape(
+            B * T, n_q * D)
 
     return attend
+
+
+# K3/K4 take at most this many query rows (q_span x G) per kv head
+MAX_QUERY_ROWS = 32
+
+
+def check_window(cfg: LlamaConfig, T: int, page_size: int,
+                 device: torch.device) -> None:
+    """Raise ``ValueError`` for a window the paged forward cannot take:
+    longer than a page (the JAX package refuses it too), or, on the card,
+    more than :data:`MAX_QUERY_ROWS` query rows per kv head for K3/K4
+    (``T * G``; at Llama3-8B's G = 4, ``T <= 8``)."""
+    if T > page_size:
+        raise ValueError(f"verify window {T} exceeds page_size {page_size}")
+    G = cfg.num_attention_heads // cfg.num_key_value_heads
+    if device.type == "cuda" and T * G > MAX_QUERY_ROWS:
+        raise ValueError(
+            f"verify window {T} x {G} query heads per kv head is "
+            f"{T * G} query rows; K3/K4 take at most {MAX_QUERY_ROWS}")
 
 
 def _paged_forward(params: LlamaParams, token_ids: torch.Tensor,
                    pages: PagedKVCache, block_table: torch.Tensor,
                    pos: torch.Tensor, cfg: LlamaConfig, max_pages: int
                    ) -> Tuple[torch.Tensor, PagedKVCache]:
-    """The paged forward at ``T == 1``: row ``b``'s token sits at position
-    ``pos[b]``, written at (page ``block_table[b, pos // page]``, offset
-    ``pos % page``); attention covers the first ``max_pages`` table
-    entries with ``lengths = pos + 1``. Returns (logits [B, 1, vocab],
-    pages), the pool updated in place."""
+    """The paged forward of ``T`` tokens per row (decode at ``T = 1``, a
+    verify window above): row ``b``'s token ``t`` sits at position
+    ``pos[b] + t``, written at (page ``block_table[b, (pos + t) // page]``,
+    offset ``(pos + t) % page``); attention covers the first ``max_pages``
+    table entries with ``lengths = pos + 1`` and ``q_span = T``. A
+    position past the table (an empty slot's stale position) reads its
+    last entry. Raises ``ValueError`` before any launch for a window
+    :func:`check_window` refuses. Returns (logits [B, T, vocab], pages),
+    the pool updated in place."""
     B, T = token_ids.shape
-    if T != 1:
-        raise _not_ported(f"the paged verify window (T = {T})",
-                          "paged.py:443 paged_verify_step")
     dev = token_ids.device
     psz = pages.page_size
+    check_window(cfg, T, psz, dev)
     pos = pos.to(dev, torch.int64).reshape(B)
-    positions = pos[:, None]
+    positions = pos[:, None] + torch.arange(T, device=dev)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     table = block_table.to(dev, torch.int32)
-    page_of = table.long()[torch.arange(B, device=dev), pos // psz]
-    off = pos % psz
+    page_of = table.long().gather(
+        1, (positions // psz).clamp(max=table.shape[1] - 1))
+    off = positions % psz
     lengths = (pos + 1).to(torch.int32)
     attn_table = table[:, :max_pages].contiguous()
     x = embed_tokens(params, token_ids, cfg)
@@ -239,9 +286,70 @@ def paged_decode_step(params: LlamaParams, token_ids: torch.Tensor,
     return logits[:, 0], pages
 
 
-def paged_verify_step(*args, **kwargs):
-    """Not ported: the speculative verify window over the pool."""
-    raise _not_ported("paged_verify_step", "paged.py:443 paged_verify_step")
+def paged_verify_step(params: LlamaParams, token_ids: torch.Tensor,
+                      pages: PagedKVCache, block_table: torch.Tensor,
+                      pos: torch.Tensor, cfg: LlamaConfig, max_pages: int
+                      ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """A speculative verify window over the pool: ``token_ids [B, K]``
+    (the pending token and ``K - 1`` drafts) written at ``pos .. pos +
+    K - 1`` and attended in one forward. Keys of rejected drafts above the
+    committed position are overwritten by the next window before any
+    query attends them. Returns (logits [B, K, vocab], pages)."""
+    with torch.inference_mode():
+        return _paged_forward(params, token_ids, pages, block_table, pos,
+                              cfg, max_pages)
+
+
+def _paged_spec(params: LlamaParams, feed: torch.Tensor, pages: PagedKVCache,
+                block_table: torch.Tensor, pos: torch.Tensor,
+                draft: torch.Tensor, samp: torch.Tensor,
+                generator: Optional[torch.Generator], cfg: LlamaConfig,
+                max_pages: int):
+    """A verify window and its accept step: (g [B, K] window tokens, a [B]
+    accepted drafts, pages). ``samp [B, 3]`` is the host sampling matrix;
+    acceptance reads its temperatures only (exact speculative sampling is
+    defined against the untruncated distribution)."""
+    with torch.inference_mode():
+        logits, pages = _paged_forward(params, feed, pages, block_table, pos,
+                                       cfg, max_pages)
+        okk, corr = spec_accept_sample_vec(logits, draft, generator,
+                                           samp[:, 0])
+        g, a = spec_window_tokens(okk, corr, draft)
+    return g, a, pages
+
+
+def _paged_spec_multi(params: LlamaParams, pending: torch.Tensor,
+                      pages: PagedKVCache, block_table: torch.Tensor,
+                      pos: torch.Tensor, hist: torch.Tensor,
+                      hcnt: torch.Tensor, samp: torch.Tensor,
+                      generator: Optional[torch.Generator], cfg: LlamaConfig,
+                      max_pages: int, n: int, k: int):
+    """``n`` verify windows with no host read in between: each window's
+    drafts come from :func:`draft_prompt_lookup` over the per-slot history
+    ``hist [B, H]`` (prompt, outputs and the pending token; ``hcnt [B]``
+    its valid length), which takes each window's accepted tokens and new
+    pending token. Returns (g [n, B, k], a [n, B], pages); the host walks
+    the windows in order. Rows that finish inside the dispatch overshoot
+    into their own pages."""
+    pending = pending.to(torch.int32)
+    pos_v = pos.to(pending.device, torch.int64)
+    hist = hist.clone()
+    hcnt = hcnt.to(pending.device, torch.int64)
+    gs, accs = [], []
+    with torch.inference_mode():
+        for _ in range(n):
+            draft = draft_prompt_lookup(hist, hcnt, k)
+            feed = torch.cat([pending[:, None], draft[:, :k - 1]], dim=1)
+            g, a, pages = _paged_spec(params, feed, pages, block_table,
+                                      pos_v, draft, samp, generator, cfg,
+                                      max_pages)
+            append_window(hist, hcnt, g, a + 1)
+            pending = g.gather(1, a[:, None])[:, 0]
+            pos_v = pos_v + a + 1
+            hcnt = hcnt + a + 1
+            gs.append(g)
+            accs.append(a)
+    return torch.stack(gs), torch.stack(accs), pages
 
 
 def _paged_multi(params: LlamaParams, tokens: torch.Tensor,
@@ -329,8 +437,9 @@ class PagedEngine:
     Admission prefills through the dense chunked path into a scratch slot
     cache (groups of up to ``admit_width`` requests share one prefill per
     chunk round), scatters it into freshly allocated pages, then decode
-    runs :func:`paged_decode_step` over the batched block table. The
-    engine runs on its parameters' device."""
+    runs :func:`paged_decode_step` (or verify windows: :meth:`step_spec`,
+    :meth:`step_spec_multi`) over the batched block table. The engine
+    runs on its parameters' device."""
 
     def __init__(self, params: LlamaParams, cfg: LlamaConfig, *,
                  num_pages: int, page_size: Optional[int] = None,
@@ -365,6 +474,9 @@ class PagedEngine:
         self.queue = deque()
         self.finished = {}
         self.on_token = None   # optional callable(Request, token_id)
+        # speculative drafter: (history tokens, k) -> k draft ids; the
+        # on-device drafting of step_spec_multi does not use it
+        self.draft_fn = draft_lookup_host
         self._uid = 0
         self._buckets = clamp_buckets(prefill_buckets, max_seq)
         self._temp = temperature
@@ -589,19 +701,9 @@ class PagedEngine:
     def _prefill_round(self, ids: np.ndarray, scratch: KVCache,
                        starts: np.ndarray, plens: np.ndarray
                        ) -> torch.Tensor:
-        """One prefill chunk over the scratch rows, each at its own start;
-        returns the logits ``[rows, vocab]`` of each row's last valid
-        position (only those are computed), on the device. Attention reads
-        the scratch up to the furthest written position."""
-        blen = ids.shape[1]
-        attend = min(self.max_seq, int(starts.max()) + blen)
-        with torch.inference_mode():
-            logits, _ = prefill(self.params, self._dev(ids), scratch,
-                                self.cfg, pos=self._dev(starts.astype(
-                                    np.int64)), attend_len=attend,
-                                logits_at=self._dev(plens.astype(np.int64)
-                                                    - 1))
-        return logits[:, 0]
+        """:func:`prefill_round` over the scratch rows."""
+        return prefill_round(self.params, self.cfg, scratch, ids, starts,
+                             plens, self.max_seq)
 
     def _sample_first(self, logits: torch.Tensor,
                       samp: torch.Tensor) -> np.ndarray:
@@ -700,16 +802,8 @@ class PagedEngine:
                                self._gen).cpu().numpy()
         self._steps += 1
         for i in act:
-            r = self.active[i]
-            r.output_ids.append(int(self._cur[i]))
-            if self.on_token is not None:
-                self.on_token(r, r.output_ids[-1])
-            self.pos[i] += 1
-            self._cur[i] = nxt[i]
-            full = len(r.output_ids) >= r.max_new_tokens
-            hit_eos = r.eos_id is not None and r.output_ids[-1] == r.eos_id
-            if full or hit_eos or self.pos[i] >= self.max_seq - 1:
-                self._retire(i, r)
+            if not self._commit(i, [int(self._cur[i])]):
+                self._cur[i] = nxt[i]
         return len(act)
 
     def step_window(self, n: int) -> int:
@@ -735,30 +829,117 @@ class PagedEngine:
         emitted = emitted.cpu().numpy()    # [slots, n]
         self._steps += n
         for i in act:
-            r = self.active[i]
-            done = False
-            for j in range(n):
-                t = int(emitted[i, j])
-                r.output_ids.append(t)
-                if self.on_token is not None:
-                    self.on_token(r, t)
-                self.pos[i] += 1
-                full = len(r.output_ids) >= r.max_new_tokens
-                hit_eos = r.eos_id is not None and t == r.eos_id
-                if full or hit_eos or self.pos[i] >= self.max_seq - 1:
-                    self._retire(i, r)
-                    done = True
-                    break
-            if not done:
+            if not self._commit(i, [int(t) for t in emitted[i]]):
                 self._cur[i] = int(nxt[i])
         return len(act)
 
+    def _commit(self, i: int, toks) -> bool:
+        """Append ``toks`` to slot ``i``'s request one at a time, retiring
+        it at its length, its eos or the cache end. Returns True when it
+        retired."""
+        r = self.active[i]
+        for t in toks:
+            r.output_ids.append(t)
+            if self.on_token is not None:
+                self.on_token(r, t)
+            self.pos[i] += 1
+            full = len(r.output_ids) >= r.max_new_tokens
+            hit_eos = r.eos_id is not None and t == r.eos_id
+            if full or hit_eos or self.pos[i] >= self.max_seq - 1:
+                self._retire(i, r)
+                return True
+        return False
+
     def step_spec(self, k: int = 8) -> int:
-        raise _not_ported("PagedEngine.step_spec", "paged.py:1344 step_spec")
+        """One speculative verify window across the pool: each slot's
+        pending token and ``k - 1`` drafts from ``draft_fn`` go through
+        one :func:`paged_verify_step`-shaped forward, and each slot
+        commits 1 to ``k`` tokens. Greedy slots stream the tokens of the
+        plain step. Near the sequence end it falls back to a plain step."""
+        check_window(self.cfg, k, self.page_size, self.device)
+        self._admit()
+        act = [i for i, r in enumerate(self.active) if r is not None]
+        if not act:
+            return 0
+        if any(self.pos[i] + k > self.max_seq - 1 for i in act):
+            return self.step()
+        for i in act:
+            self._ensure_pages(i, int(self.pos[i]) + k)
+        feed = np.zeros((self.slots, k), np.int32)
+        draft = np.zeros((self.slots, k), np.int32)
+        for i in act:
+            r = self.active[i]
+            d = self.draft_fn(r.prompt_ids + r.output_ids + [int(self._cur[i])],
+                              k)
+            draft[i] = d
+            feed[i, 0] = self._cur[i]
+            feed[i, 1:] = d[:k - 1]
+        mp = self._attend_pages(act, k)
+        g, a, self.pages = _paged_spec(
+            self.params, self._dev(feed), self.pages, self._dev(self.table),
+            self._dev(self.pos), self._dev(draft), self._slot_samp(),
+            self._gen, self.cfg, mp)
+        g = g.cpu().numpy()
+        a = a.cpu().numpy()
+        self._steps += 1
+        self._spec_windows += 1
+        self._spec_drafted += (k - 1) * len(act)
+        self._spec_accepted += int(sum(min(int(a[i]), k - 1) for i in act))
+        for i in act:
+            toks = [int(self._cur[i])] + [int(t) for t in g[i, :int(a[i])]]
+            if not self._commit(i, toks):
+                self._cur[i] = int(g[i, int(a[i])])
+        return len(act)
 
     def step_spec_multi(self, k: int, n: int) -> int:
-        raise _not_ported("PagedEngine.step_spec_multi",
-                          "paged.py:1422 step_spec_multi")
+        """``n`` speculative verify windows with no host read in between
+        (``spec_k`` x ``steps_per_dispatch``): the drafts come from the
+        device's bigram rule over each slot's history, so window ``j + 1``
+        drafts from window ``j``'s tokens; the host walks the windows
+        afterwards. Near the sequence end it falls back to
+        :meth:`step_spec` (and that to a plain step)."""
+        check_window(self.cfg, k, self.page_size, self.device)
+        self._admit()
+        act = [i for i, r in enumerate(self.active) if r is not None]
+        if not act:
+            return 0
+        if any(self.pos[i] + n * k > self.max_seq - 1 for i in act):
+            return self.step_spec(k)
+        for i in act:
+            self._ensure_pages(i, int(self.pos[i]) + n * k)
+        H = self.max_seq + k + 2
+        hist = np.zeros((self.slots, H), np.int32)
+        hcnt = np.full(self.slots, 2, np.int32)
+        pending = np.zeros(self.slots, np.int32)
+        for i in act:
+            r = self.active[i]
+            h = r.prompt_ids + r.output_ids + [int(self._cur[i])]
+            hist[i, :len(h)] = h
+            hcnt[i] = len(h)
+            pending[i] = self._cur[i]
+        mp = self._attend_pages(act, n * k)
+        gs, accs, self.pages = _paged_spec_multi(
+            self.params, self._dev(pending), self.pages,
+            self._dev(self.table), self._dev(self.pos), self._dev(hist),
+            self._dev(hcnt), self._slot_samp(), self._gen, self.cfg, mp, n, k)
+        gs = gs.cpu().numpy()            # [n, slots, k]
+        accs = accs.cpu().numpy()        # [n, slots]
+        self._steps += n
+        self._spec_windows += n
+        for i in act:
+            cur = int(self._cur[i])
+            for j in range(n):
+                # drafted and accepted count the windows a slot walks: a
+                # slot that finishes mid-dispatch drafts no more
+                self._spec_drafted += k - 1
+                a = int(accs[j, i])
+                self._spec_accepted += min(a, k - 1)
+                if self._commit(i, [cur] + [int(t) for t in gs[j, i, :a]]):
+                    break
+                cur = int(gs[j, i, a])
+            else:
+                self._cur[i] = cur
+        return len(act)
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self.active)
@@ -815,15 +996,18 @@ class PagedEngine:
 
     def run(self, max_steps: int = 100000, spec_k: int = 0,
             steps_per_dispatch: int = 1):
-        """Drive to completion; ``steps_per_dispatch > 1`` runs
-        :meth:`step_window` windows. ``spec_k > 0`` (speculative decoding)
-        is not ported."""
-        if spec_k > 0:
-            raise _not_ported("PagedEngine.run(spec_k > 0)",
-                              "paged.py:1572 run, speculative decoding")
+        """Drive to completion. ``spec_k`` and ``steps_per_dispatch``
+        compose: ``spec_k=8, steps_per_dispatch=4`` runs 4 verify windows
+        per dispatch (:meth:`step_spec_multi`); ``spec_k`` alone runs
+        :meth:`step_spec`, ``steps_per_dispatch`` alone
+        :meth:`step_window`."""
         steps = 0
         while (self.queue or any(self.active)) and steps < max_steps:
-            if steps_per_dispatch > 1:
+            if spec_k > 0 and steps_per_dispatch > 1:
+                self.step_spec_multi(spec_k, steps_per_dispatch)
+            elif spec_k > 0:
+                self.step_spec(spec_k)
+            elif steps_per_dispatch > 1:
                 self.step_window(steps_per_dispatch)
             else:
                 self.step()

@@ -34,8 +34,8 @@ from quantizations_tpu_torch.bridge import (cache_from_numpy,
 from quantizations_tpu_torch.models import llama as tl
 from quantizations_tpu_torch.nn.linear import Linear4bit
 from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
-                                         PAIR_MANUAL, PAIR_PREFILL,
-                                         QUANTIZE_4BIT)
+                                         PAIR_MANUAL, PAIR_MATMUL,
+                                         PAIR_PREFILL, QUANTIZE_4BIT)
 from quantizations_tpu_torch.ops import attention as tat
 from quantizations_tpu_torch.ops import gemv as tgv
 from quantizations_tpu_torch.ops import paged_attention as tpa
@@ -76,7 +76,8 @@ def test_import_guard_covers_every_module():
     for mod in ("quant/bnb_io.py", "quant/state.py", "quant/functional.py",
                 "nn/linear.py", "ops/gemv.py", "ops/qmatmul.py",
                 "ops/quantize.py", "ops/cuda.py", "bridge.py",
-                "models/llama.py"):
+                "models/llama.py", "serve/speculative.py",
+                "serve/engine.py", "serve/paged.py"):
         assert f"quantizations_tpu_torch/{mod}" in names, mod
 
 
@@ -816,6 +817,77 @@ def test_flash_and_int8_generate_on_card(cuda):
         assert kern.launches - before == 5 * cfg.num_hidden_layers
         assert toks.shape == (2, 6)
         assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+
+
+def _random_pool(cfg, pages, page, gen):
+    pool = tpg.PagedKVCache.create(cfg, pages, page, device="cpu")
+    for t in pool.tensors():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen))
+        else:
+            t.copy_(torch.rand(t.shape, generator=gen) * (
+                0.02 if t.dim() == 4 else 1.0))
+    return pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_verify_window_on_card(cuda, kv):
+    """One verify window of 8 tokens at 4 query heads per kv head (32
+    query rows, Llama3-8B's q_span x G) over a pool of random pages, row
+    0's window across a page boundary: K3 (K4 over an int8 pool) launched
+    once per layer, the logits within 2e-2 * max|logit| of the CPU's plain
+    path on the same parameters and pool, the positions outside the
+    windows untouched, and the window write bit-equal to the CPU's on the
+    same rows. A window of 9 (36 query rows) raises before any launch."""
+    cfg = dataclasses.replace(tl.TINY_LLAMA, num_key_value_heads=2,
+                              kv_cache_dtype=kv, quant=QuantConfig(
+                                  quantize_embedding=True))
+    p = tl.fuse_projections(tl.init_llama_params(cfg, seed=1, device=cuda))
+    pc = tl.map_tensors(lambda t: t.cpu(), p)
+    gen = torch.Generator().manual_seed(0)
+    pool_c = _random_pool(cfg, 8, 16, gen)
+    before_pool = [t.clone() for t in pool_c.tensors()]
+    pool_g = tpg.PagedKVCache(*[t.to(cuda) for t in pool_c.tensors()])
+    table = torch.tensor([[3, 6, 0, 0], [5, 0, 0, 0]], dtype=torch.int32)
+    pos = torch.tensor([12, 3])
+    feed = torch.randint(1, cfg.vocab_size, (2, 8), generator=gen)
+    kern = FLASH_DECODE_I8 if kv == "int8" else FLASH_DECODE
+    before = kern.launches
+    lg, pool_g = tpg.paged_verify_step(p, feed.to(cuda), pool_g,
+                                       table.to(cuda), pos.to(cuda), cfg, 2)
+    torch.cuda.synchronize()
+    assert kern.launches - before == cfg.num_hidden_layers
+    assert kern.last_grid[2] > 0
+    lc, pool_c = tpg.paged_verify_step(pc, feed, pool_c, table, pos, cfg, 2)
+    assert lg.shape == (2, 8, cfg.vocab_size) and torch.isfinite(lg).all()
+    assert (lg.cpu() - lc).abs().max() <= 2e-2 * lc.abs().max()
+    written = torch.zeros((8, 16), dtype=torch.bool)      # [pages, page]
+    for b in range(2):
+        for q in range(int(pos[b]), int(pos[b]) + 8):
+            written[table[b, q // 16], q % 16] = True
+    for g_, c_, b_ in zip(pool_g.tensors(), pool_c.tensors(), before_pool):
+        keep = ~written[None, :, None, :].expand(b_.shape[:4])
+        assert torch.equal(g_.cpu()[keep], b_[keep])
+        assert torch.equal(c_[keep], b_[keep])
+    # the window write alone: the same rows, the same bits
+    k = torch.randn((2, 8, 2, 64), generator=gen)
+    v = torch.randn((2, 8, 2, 64), generator=gen)
+    page_of = torch.tensor([[3] * 4 + [6] * 4, [5] * 8])
+    off = torch.tensor([list(range(12, 16)) + list(range(4)),
+                        list(range(3, 11))])
+    tpg.write_window(pool_g, 1, page_of.to(cuda), off.to(cuda), k.to(cuda),
+                     v.to(cuda))
+    tpg.write_window(pool_c, 1, page_of, off, k, v)
+    torch.cuda.synchronize()
+    for g_, c_ in zip(pool_g.tensors(), pool_c.tensors()):
+        assert torch.equal(g_[1].cpu(), c_[1])
+    k1, k3 = PAIR_MATMUL.launches, kern.launches
+    with pytest.raises(ValueError, match="query rows"):
+        tpg.paged_verify_step(p, torch.zeros((2, 9), dtype=torch.int32,
+                                             device=cuda), pool_g,
+                              table.to(cuda), pos.to(cuda), cfg, 2)
+    assert (PAIR_MATMUL.launches, kern.launches) == (k1, k3)
 
 
 def _pair_operands(rng, M, K, L=3, scale_kind="fp32"):
