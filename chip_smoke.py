@@ -178,7 +178,26 @@ Phases, each raising on failure:
    k = 8, 60 tokens after the model phase's prompt (K1 exactly 129 per
    forward, the same tokens every run; tok/s the median of 3) beside the
    model phase's generate;
-12. ``profile``: one FP4 batch-1 generate of 8 new tokens under
+12. ``load``: the checkpoint path and the command line. A synthetic HF
+   checkpoint at Llama3-8B's width cut to 4 of its 32 layers (3.85 GB of
+   bf16, 4 shards and an index, the port's own writer, in a temporary
+   directory; it raises when the disk has less than 10 GB free) loaded
+   with ``load_hf_llama``: exactly 7 K2 launches a layer and two more
+   (the embedding and the lm_head), every word and scale equal to
+   ``quantize_linear`` of the regenerated weight on the card. Then
+   ``convert.main`` to bnb (without and with double quantization; K10 on
+   the lm_head) and native, each reloaded (the layers' words equal, their
+   scales equal or within the double quantization's 1e-2 of the largest)
+   and deleted, and ``save_checkpoint``/``load_checkpoint`` (equal). The
+   serving CLI with ``--model`` (generate, ``--fuse``, ``--engine slot``,
+   ``--engine paged`` with 128-row pages, with ``--kv-dtype int8``,
+   ``--speculative``), each run's tokens and launches equal to a direct
+   call of the same function on the same loaded parameters, whose counts
+   the formulas give. Last the ``Watchdog`` over a slot ``Engine`` that
+   raises, a ``PagedEngine`` that hangs past the deadline and a healthy
+   one: every request finishes, the pages return, the healthy engine's
+   own requests equal an undisturbed run;
+13. ``profile``: one FP4 batch-1 generate of 8 new tokens under
    ``torch.profiler``: device kernel time by name, kernels per forward,
    the device's busy share of the wall time, the host's enqueue time.
 
@@ -2569,15 +2588,16 @@ def _paged_prompts(vocab_size):
     return prompts
 
 
-def _k1_cuda_core_launches(admission_rows, forwards, layers):
+def _k1_cuda_core_launches(admission_rows, forwards, layers, proj=4):
     """K1's CUDA-core launches (``PAIR_MATMUL`` less ``PAIR_MATMUL_MMA``)
-    in a serving run: ``4 * layers + 1`` per decode forward (a plain step
-    or a verify window of at most ``PAIR_MMA_MIN_TOKENS - 1`` rows), as
-    many per admission forward of that many rows, and one per larger
-    admission forward (its lm_head samples one row per request)."""
+    in a serving run: ``proj * layers + 1`` per decode forward (a plain
+    step or a verify window of at most ``PAIR_MMA_MIN_TOKENS - 1`` rows;
+    ``proj`` 4 with fused projections, 7 without), as many per admission
+    forward of that many rows, and one per larger admission forward (its
+    lm_head samples one row per request)."""
     from quantizations_tpu_torch.ops import PAIR_MMA_MIN_TOKENS
 
-    per = 4 * layers + 1
+    per = proj * layers + 1
     return per * forwards + sum(per if r < PAIR_MMA_MIN_TOKENS else 1
                                 for r in admission_rows)
 
@@ -3104,6 +3124,567 @@ def phase_spec(dev, params, results):
     results["launches_spec_int8"] = paged[3]["launches"]
 
 
+# the load phase: a synthetic HF checkpoint at Llama3-8B's width cut to 4
+# of its 32 layers, written in 4 shards with an index (the per-layer code
+# is the same at any depth; 32 layers would be 16.06 GB of bf16)
+LOAD_LAYERS = 4
+LOAD_SHARDS = 4
+LOAD_SEED = 1000
+LOAD_DISK_BYTES = 10 * 10 ** 9   # the source and one bnb export at a time
+LOAD_NEW = 60
+LOAD_PROMPT_LENS = (16, 37, 64, 150)     # the engines' 4 requests
+WATCHDOG_NEW = 32
+WATCHDOG_TIMEOUT_S = 5.0
+# re-double-quantized scales move by at most half the dynamic map's widest
+# gap times a block's largest |scale - mean|: under 1e-2 of the largest
+# scale (tests/test_torch_hf_loader.py)
+REDQ_TOL = 1e-2
+LOAD_PROJ = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+             ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+             ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+             ("down", "mlp.down_proj"))
+
+
+def _load_specs(base, layers=LOAD_LAYERS):
+    """(name, shape, shard) of every tensor of the synthetic checkpoint,
+    in write order: the embedding, the layers (two shards), the final
+    norm and the lm_head."""
+    H, V = base.hidden_size, base.vocab_size
+    shapes = {"q": (base.q_size, H), "k": (base.kv_size, H),
+              "v": (base.kv_size, H), "o": (H, base.q_size),
+              "gate": (base.intermediate_size, H),
+              "up": (base.intermediate_size, H),
+              "down": (H, base.intermediate_size)}
+    specs = [("model.embed_tokens.weight", (V, H), 1)]
+    for i in range(layers):
+        p, shard = f"model.layers.{i}.", 2 if i < layers // 2 else 3
+        specs += [(p + "input_layernorm.weight", (H,), shard),
+                  (p + "post_attention_layernorm.weight", (H,), shard)]
+        specs += [(f"{p}{hf}.weight", shapes[a], shard) for a, hf in LOAD_PROJ]
+    return specs + [("model.norm.weight", (H,), 4),
+                    ("lm_head.weight", (V, H), 4)]
+
+
+def _load_tensor(idx, name, shape, dev):
+    """Tensor ``idx`` of the checkpoint: a norm is ones, a weight bf16
+    normal of scale 0.02 from a generator seeded ``LOAD_SEED + idx`` (so
+    the check regenerates it bit for bit)."""
+    if name.endswith("norm.weight"):
+        return torch.ones(shape, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(LOAD_SEED + idx)
+    return (torch.randn(shape, generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+
+
+def _write_checkpoint(base, src, dev):
+    """Write the HF directory: config.json, the shards through the port's
+    own writer, model.safetensors.index.json. Returns the tensor bytes."""
+    from quantizations_tpu_torch.models.safetensors_io import save_file
+
+    specs = _load_specs(base)
+    weight_map, total = {}, 0
+    for shard in range(1, LOAD_SHARDS + 1):
+        fname = f"model-{shard:05d}-of-{LOAD_SHARDS:05d}.safetensors"
+        tensors = {name: _load_tensor(i, name, shape, dev).cpu()
+                   for i, (name, shape, s) in enumerate(specs) if s == shard}
+        save_file(tensors, os.path.join(src, fname),
+                  metadata={"format": "pt"})
+        for name, t in tensors.items():
+            weight_map[name] = fname
+            total += t.numel() * t.element_size()
+        del tensors
+    with open(os.path.join(src, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(src, "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"],
+                   "model_type": "llama", "vocab_size": base.vocab_size,
+                   "hidden_size": base.hidden_size,
+                   "intermediate_size": base.intermediate_size,
+                   "num_hidden_layers": LOAD_LAYERS,
+                   "num_attention_heads": base.num_attention_heads,
+                   "num_key_value_heads": base.num_key_value_heads,
+                   "head_dim": base.head_dim, "rope_theta": base.rope_theta,
+                   "rms_norm_eps": base.rms_norm_eps,
+                   "max_position_embeddings":
+                       base.max_position_embeddings,
+                   "tie_word_embeddings": False,
+                   "torch_dtype": "bfloat16"}, f, indent=1)
+    return total
+
+
+def _loaded_qlinears(params):
+    """The checkpoint name of every 4-bit tensor of loaded params, with
+    its (words, scales)."""
+    lay = params.layers
+    for i in range(LOAD_LAYERS):
+        for attr, hf in LOAD_PROJ:
+            ql = getattr(lay, attr)
+            yield f"model.layers.{i}.{hf}.weight", ql.wp[i], ql.scales[i]
+    for name, ql in (("model.embed_tokens.weight", params.embed),
+                     ("lm_head.weight", params.lm_head)):
+        yield name, ql.wp, ql.scales
+
+
+def _counted(fn):
+    """``(fn(), wall s, {kernel: launches})``: the counts zeroed just
+    before the call and read just after it, the card synchronized around
+    it."""
+    from quantizations_tpu_torch.ops import KERNELS
+
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k.name: k.launches for k in KERNELS if k.launches}
+
+
+def _main_json(main, argv):
+    """Run a CLI ``main(argv)`` in process; its last JSON line, captured so
+    that this script's own last line stays last."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _expect(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def _same_layers(a, b, what, scale_tol=0.0):
+    """Every projection's words equal; scales equal, or within
+    ``scale_tol`` of the largest scale."""
+    for attr, _ in LOAD_PROJ:
+        x, y = getattr(a.layers, attr), getattr(b.layers, attr)
+        if not torch.equal(x.wp, y.wp):
+            raise AssertionError(f"{what}: layers.{attr} words differ")
+        err = (x.scales - y.scales).abs().max().item()
+        if err > scale_tol * x.scales.abs().max().item():
+            raise AssertionError(f"{what}: layers.{attr} scales {err:.3e} "
+                                 "apart")
+
+
+def _requantized_close(a, b, what):
+    """A 4-bit table exported dense (bf16 code x scale) and quantized
+    again: the same codes, but for a negative zero's code (8) that comes
+    back positive (0), and scales within ``REDQ_TOL`` of the largest (a
+    bf16 rounding and the double quantization again). Returns the scales'
+    largest difference over the largest scale."""
+    def canon(wp):
+        planes = [(wp >> (4 * j)) & 15 for j in range(8)]
+        return torch.stack([torch.where(p == 8, torch.zeros_like(p), p)
+                            for p in planes])
+
+    if not torch.equal(canon(a.wp), canon(b.wp)):
+        raise AssertionError(f"{what}: codes differ beyond the sign of zero")
+    rel = ((a.scales - b.scales).abs().max()
+           / a.scales.abs().max()).item()
+    if rel > REDQ_TOL:
+        raise AssertionError(f"{what}: scales {rel:.3e} of the largest apart")
+    return rel
+
+
+def _cli_direct(kind, params, cfg, prompts, dev, rows):
+    """The CLI run's direct counterpart on the same loaded params: the
+    same function, arguments and seed. Engines record the rows of their
+    admission forwards into ``rows``. Returns (tokens per request,
+    forwards or windows run)."""
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.models.llama import KVCache
+    from quantizations_tpu_torch.serve.engine import Engine
+    from quantizations_tpu_torch.serve.generate import make_generate_fn
+    from quantizations_tpu_torch.serve.paged import PagedEngine
+    from quantizations_tpu_torch.serve.speculative import (
+        make_speculative_generate_fn)
+
+    serve = ServeConfig(max_seq_len=2048, max_new_tokens=LOAD_NEW)
+    if kind in ("generate", "speculative"):
+        fn = (make_speculative_generate_fn if kind == "speculative"
+              else make_generate_fn)(cfg, serve)
+        g = torch.Generator(device=dev)
+        g.manual_seed(serve.seed)
+        out = fn(params, torch.tensor(prompts, dtype=torch.int32,
+                                      device=dev),
+                 KVCache.create(cfg, 1, serve.max_seq_len, dev), g)
+        return [out[0][0].tolist()], (out[1] if kind == "speculative"
+                                      else LOAD_NEW)
+    if kind == "slot":
+        eng = Engine(params, cfg, serve, slots=4)
+    else:
+        eng = PagedEngine(params, cfg, num_pages=4 * (2048 // 128) + 8,
+                          page_size=128, slots=4, max_seq=2048)
+    rnd = eng._prefill_round
+
+    def counted_round(ids, *a):
+        rows.append(int(ids.shape[0] * ids.shape[1]))
+        return rnd(ids, *a)
+
+    eng._prefill_round = counted_round
+    uids = [eng.submit(p, max_new_tokens=LOAD_NEW, temperature=0.0)
+            for p in prompts]
+    done = eng.run()
+    return [done[u].output_ids for u in uids], eng.stats()["steps"]
+
+
+def _cli_want(kind, flags, rows, forwards, L):
+    """The direct run's launches by formula: K1's CUDA-core body per
+    forward (and per admission forward up to 128 rows), its tensor-core
+    body and K10 per larger admission forward, K3 or K4 per paged decode
+    step."""
+    from quantizations_tpu_torch.nn.linear import pair_max_tokens
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+                                             FLASH_DECODE, FLASH_DECODE_I8,
+                                             PAIR_MATMUL, PAIR_MATMUL_MMA,
+                                             PAIR_MMA_MIN_TOKENS)
+
+    proj = 4 if "--fuse" in flags else 7
+    if kind in ("generate", "speculative"):
+        windows = forwards if kind == "generate" else 1 + forwards
+        return {PAIR_MATMUL.name: (proj * L + 1) * windows}
+    band = pair_max_tokens()
+    mma = proj * L * sum(1 for r in rows if PAIR_MMA_MIN_TOKENS <= r <= band)
+    want = {PAIR_MATMUL.name: mma + _k1_cuda_core_launches(
+                rows, forwards, L, proj),
+            PAIR_MATMUL_MMA.name: mma,
+            DEQUANTIZE_4BIT_PAIR.name: proj * L * sum(
+                1 for r in rows if r > band)}
+    if kind == "paged":
+        attn = FLASH_DECODE_I8 if "int8" in flags else FLASH_DECODE
+        want[attn.name] = L * forwards
+    return {k: v for k, v in want.items() if v}
+
+
+def _watchdog_run(params, cfg, prompts, dev):
+    """The watchdog over a mixed pool on the loaded params: a slot
+    ``Engine`` that raises at its fourth step (4 requests), a
+    ``PagedEngine`` whose second step hangs past the deadline (2), a
+    healthy ``PagedEngine`` (2). Checks that every request finishes with
+    its length, the failures in order, the healthy pool's pages returned,
+    and the healthy engine's own requests equal to an undisturbed run;
+    prints the resumed requests' agreement with one."""
+    import threading
+
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.serve.engine import Engine
+    from quantizations_tpu_torch.serve.paged import PagedEngine
+    from quantizations_tpu_torch.serve.watchdog import Watchdog
+
+    release = threading.Event()
+    pool = dict(num_pages=4 * (2048 // 128) + 8, page_size=128, slots=4,
+                max_seq=2048)
+
+    class Failing(Engine):
+        def step(self):
+            if self._steps >= 3:
+                raise RuntimeError("injected device failure")
+            return super().step()
+
+    class Hanging(PagedEngine):
+        def step(self):
+            if self._steps >= 1:
+                release.wait(600)
+                return 0              # abandoned: does no work
+            return super().step()
+
+    def undisturbed(ps):
+        eng = PagedEngine(params, cfg, **pool)
+        uids = [eng.submit(p, max_new_tokens=WATCHDOG_NEW) for p in ps]
+        done = eng.run()
+        return [done[u].output_ids for u in uids]
+
+    engines = [Failing(params, cfg, ServeConfig(max_seq_len=2048), slots=4),
+               Hanging(params, cfg, **pool), PagedEngine(params, cfg, **pool)]
+    owner = [0, 0, 0, 0, 1, 1, 2, 2]
+    reqs = []
+    for e, p in zip(owner, prompts):
+        engines[e].submit(p, max_new_tokens=WATCHDOG_NEW)
+        reqs.append(engines[e].queue[-1])
+    wd = Watchdog(engines, step_timeout_s=WATCHDOG_TIMEOUT_S)
+    before = set(threading.enumerate())
+    t0 = time.perf_counter()
+    try:
+        done = wd.run()
+        torch.cuda.synchronize()
+    finally:
+        release.set()
+    wall = time.perf_counter() - t0
+    for t in set(threading.enumerate()) - before:    # the abandoned step
+        t.join(60)
+        if t.is_alive():
+            raise AssertionError("watchdog: the hung step's thread lives on")
+    if wd.dead != [True, True, False] or wd.failures != [1, 0]:
+        raise AssertionError(f"watchdog: dead {wd.dead}, failures "
+                             f"{wd.failures}")
+    if len(done) != len(reqs) or any(
+            not r.done or len(r.output_ids) != WATCHDOG_NEW for r in reqs):
+        raise AssertionError("watchdog: a request did not finish with its "
+                             "length")
+    st = engines[2].stats()
+    if (st["pages_free"] != engines[2].alloc.num_usable
+            or st["live_tokens"] != 0):
+        raise AssertionError(f"watchdog: the pool's pages did not return: "
+                             f"{st}")
+    if [r.output_ids for r in reqs[6:]] != undisturbed(prompts[6:]):
+        raise AssertionError("watchdog: the healthy engine's own requests "
+                             "differ from an undisturbed run")
+    agree = _agree([r.output_ids for r in reqs[:6]], undisturbed(prompts[:6]))
+    resumed = sum(len(r.prompt_ids) > len(p) for r, p in zip(reqs, prompts))
+    log(f"  watchdog: dead {wd.dead}, failures {wd.failures} (a step hung "
+        f"past {WATCHDOG_TIMEOUT_S} s, a step raised); {len(reqs)} requests "
+        f"of {WATCHDOG_NEW} tokens in {wall:.3f} s; the healthy engine's own "
+        f"2 equal to an undisturbed run; {resumed} resumed with their "
+        f"tokens; the 6 moved agree with an undisturbed run on {agree} of "
+        f"{6 * WATCHDOG_NEW} tokens; pages free {st['pages_free']}")
+    return dict(wall_s=wall, dead=wd.dead, failures=wd.failures,
+                resumed=resumed, moved_agree=agree,
+                moved_tokens=6 * WATCHDOG_NEW, stats=wd.stats())
+
+
+def phase_load(dev, results):
+    """The checkpoint path and the command line at Llama3-8B's width
+    (``LOAD_LAYERS`` of its 32 layers): write a sharded bf16 HF checkpoint
+    with the port's own writer; load it with K2 on every weight (exact
+    counts, every word and scale equal to ``quantize_linear`` of the
+    regenerated weight on the card; wall, bytes read, K2's device ms);
+    export and reload it in turns (bnb without and with double
+    quantization through ``convert.main``, native, ``save_checkpoint``);
+    serve it through the CLI (``generate`` with and without ``--fuse``,
+    ``slot``, ``paged`` with page 128, ``paged --kv-dtype int8``,
+    ``--speculative``), each run's tokens and launches equal to a direct
+    call's; and run the watchdog over a mixed pool."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from quantizations_tpu_torch import convert
+    from quantizations_tpu_torch.config import QuantConfig
+    from quantizations_tpu_torch.models.checkpoint import (load_checkpoint,
+                                                           save_checkpoint)
+    from quantizations_tpu_torch.models.hf_loader import (load_hf_llama,
+                                                          load_quantized)
+    from quantizations_tpu_torch.models.llama import (LLAMA3_8B,
+                                                      fuse_projections,
+                                                      named_tensors,
+                                                      quantize_linear)
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+                                             QUANTIZE_4BIT,
+                                             quantize_4bit_kernel)
+    from quantizations_tpu_torch.serve.__main__ import main as serve_main
+
+    L = LOAD_LAYERS
+    base = LLAMA3_8B
+    specs = _load_specs(base)
+    full = sum(math.prod(s) * 2 for _, s, _ in _load_specs(
+        base, base.num_hidden_layers))
+    cut = sum(math.prod(s) * 2 for _, s, _ in specs)
+    root = tempfile.mkdtemp(prefix="qt_load_")
+    free = shutil.disk_usage(root).free
+    log(f"  checkpoint: Llama3-8B width, {L} of {base.num_hidden_layers} "
+        f"layers ({cut / 1e9:.2f} GB of bf16; all {base.num_hidden_layers} "
+        f"would be {full / 1e9:.2f} GB, and twice that again in exports); "
+        f"{free / 1e9:.1f} GB free under {root}")
+    rec = dict(layers=L, bytes=cut, full_bytes=full, disk_free=free)
+    totals = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    try:
+        if free < LOAD_DISK_BYTES:
+            raise AssertionError(f"{free / 1e9:.1f} GB free, the phase needs "
+                                 f"{LOAD_DISK_BYTES / 1e9:.0f}")
+        src = os.path.join(root, "hf")
+        os.makedirs(src)
+        t0 = time.perf_counter()
+        _write_checkpoint(base, src, dev)
+        rec["write_s"] = time.perf_counter() - t0
+
+        # -- load, with K2 on every weight --
+        q_main = QuantConfig(quantize_embedding=True)
+        (cfg, params), load_s, n = _counted(
+            lambda: load_hf_llama(src, quant=q_main, device=dev))
+        _expect("load", n, {QUANTIZE_4BIT.name: 7 * L + 2})
+        add(n)
+        regen = {name: (i, shape) for i, (name, shape, _) in enumerate(specs)}
+        k2_ms = k2_bound = 0.0
+        for name, wp, scales in _loaded_qlinears(params):
+            W = _load_tensor(regen[name][0], name, regen[name][1], dev)
+            want = quantize_linear(W, quant_type="fp4")
+            if not (torch.equal(wp, want.wp)
+                    and torch.equal(scales, want.scales)):
+                raise AssertionError(f"load: {name} differs from "
+                                     "quantize_linear on the card")
+            k2_ms += device_ms(lambda _: quantize_4bit_kernel(W, 64, "fp4"),
+                               3, warmup=1)
+            k2_bound += bound(k2_bytes(*W.shape, 2), 0)[0]
+            del W, want
+        for _, t in named_tensors(params):
+            if t.dtype == torch.bfloat16 and not torch.equal(
+                    t, torch.ones_like(t)):
+                raise AssertionError("load: a norm is not ones")
+        rec.update(load_s=load_s, load_gb_per_s=cut / load_s / 1e9,
+                   k2_ms=k2_ms, k2_bound_ms=k2_bound, k2_launches=n)
+        log(f"  load: {load_s:.3f} s for {cut / 1e9:.2f} GB "
+            f"({cut / load_s / 1e9:.2f} GB/s); K2 {n[QUANTIZE_4BIT.name]} "
+            f"launches, {k2_ms:.3f} ms of device time (bound {k2_bound:.3f}"
+            f"), every word and scale equal to quantize_linear on the card")
+
+        # -- exports, each reloaded and deleted --
+        exports = []
+        for fmt, flags in (("bnb", ["--no-double-quant"]), ("bnb", []),
+                           ("native", [])):
+            out = os.path.join(root, "export" + (".safetensors"
+                                                 if fmt == "native" else ""))
+            crec, conv_s, n = _counted(lambda: _main_json(
+                convert.main, ["--model", src, "--out", out, "--format", fmt,
+                               "--device", dev.type] + flags))
+            want = {QUANTIZE_4BIT.name: 7 * L + 1}   # its embedding stays dense
+            if fmt == "bnb":
+                want[DEQUANTIZE_4BIT_PAIR.name] = 1  # the lm_head, by K10
+            _expect(f"convert {fmt} {flags}", n, want)
+            add(n)
+            what = f"{fmt}{' ' + flags[0] if flags else ''}"
+            if fmt == "bnb":
+                back, reload_s, n2 = _counted(lambda: load_hf_llama(
+                    out, quant=q_main, device=dev)[1])
+                _expect(f"reload {what}", n2, {QUANTIZE_4BIT.name: 2})
+                add(n2)
+                _same_layers(params, back, what,
+                             0.0 if flags else REDQ_TOL)
+                if not (torch.equal(params.embed.wp, back.embed.wp) and
+                        torch.equal(params.embed.scales, back.embed.scales)):
+                    raise AssertionError(f"{what}: the embedding differs")
+                rel = _requantized_close(params.lm_head, back.lm_head,
+                                         what + " lm_head")
+            else:
+                back, reload_s, n2 = _counted(lambda: load_quantized(
+                    out, cfg, device=dev))
+                _expect("reload native", n2, {})
+                _same_layers(params, back, what)
+                emb = _load_tensor(0, *specs[0][:2], dev)
+                if not (torch.equal(back.embed, emb) and torch.equal(
+                        back.lm_head.wp, params.lm_head.wp) and torch.equal(
+                        back.lm_head.scales, params.lm_head.scales)):
+                    raise AssertionError("native: embedding or lm_head "
+                                         "differs")
+                del emb
+                rel = 0.0
+            size = (os.path.getsize(out) if fmt == "native" else sum(
+                os.path.getsize(os.path.join(out, f)) for f in os.listdir(
+                    out)))
+            exports.append(dict(format=what, convert_s=conv_s,
+                                convert_json=crec, reload_s=reload_s,
+                                bytes=size, lm_head_scale_rel=rel,
+                                launches=n, reload_launches=n2))
+            log(f"  {what}: convert {conv_s:.3f} s (its json {crec}), "
+                f"{size / 1e9:.3f} GB, reload {reload_s:.3f} s; launches {n}"
+                f", reload {n2}; words equal, lm_head scales within "
+                f"{rel:.2e} of the largest")
+            del back
+            if fmt == "native":
+                os.remove(out)
+            else:
+                shutil.rmtree(out)
+        ck = os.path.join(root, "ckpt")
+        _, save_s, _ = _counted(lambda: save_checkpoint(params, cfg, ck))
+        (cfg2, back), reload_s, _ = _counted(lambda: load_checkpoint(
+            ck, device=dev))
+        if cfg2 != cfg or any(not torch.equal(a, b) for (_, a), (_, b) in zip(
+                named_tensors(params), named_tensors(back))):
+            raise AssertionError("save_checkpoint/load_checkpoint differ")
+        exports.append(dict(format="checkpoint", save_s=save_s,
+                            reload_s=reload_s))
+        log(f"  checkpoint: saved {save_s:.3f} s, loaded {reload_s:.3f} s, "
+            "every tensor equal")
+        del back
+        shutil.rmtree(ck)
+        rec["exports"] = exports
+
+        # -- the serving CLI, each run against a direct call --
+        g = torch.Generator().manual_seed(LOAD_SEED)
+        prompts = [torch.randint(1, base.vocab_size, (n,), generator=g
+                                 ).tolist() for n in LOAD_PROMPT_LENS]
+        one = [((torch.arange(16) * 7 + 11) % base.vocab_size).tolist()]
+        cli_cfg, cli_params = load_hf_llama(src, quant=QuantConfig(),
+                                            device=dev)
+        # the CLI tries an optional tokenizer from transformers: where it
+        # is installed, it stays offline (the directory holds none)
+        rec["transformers"] = importlib.util.find_spec(
+            "transformers") is not None
+        os.environ["HF_HUB_OFFLINE"] = "1"
+        os.environ["TRANSFORMERS_OFFLINE"] = "1"
+        log(f"  transformers importable: {rec['transformers']}")
+        cli = []
+        for kind, flags in (("generate", []), ("generate", ["--fuse"]),
+                            ("slot", ["--engine", "slot"]),
+                            ("paged", ["--engine", "paged"]),
+                            ("paged", ["--engine", "paged", "--kv-dtype",
+                                       "int8"]),
+                            ("speculative", ["--speculative"])):
+            ps = prompts if kind in ("slot", "paged") else one
+            ids = ";".join(",".join(map(str, p)) for p in ps)
+            out, wall, n = _counted(lambda: _main_json(serve_main, [
+                "--model", src, "--prompt-ids", ids, "--max-new-tokens",
+                str(LOAD_NEW), "--device", dev.type] + flags))
+            got = ([r["output_ids"] for r in out["requests"]]
+                   if "requests" in out else [out["output_ids"]])
+            cfg_d = (dataclasses.replace(cli_cfg, kv_cache_dtype="int8")
+                     if "int8" in flags else cli_cfg)
+            params_d = (fuse_projections(cli_params) if "--fuse" in flags
+                        else cli_params)
+            rows = []
+            (toks, forwards), dwall, dn = _counted(lambda: _cli_direct(
+                kind, params_d, cfg_d, ps, dev, rows))
+            del params_d
+            what = f"serve {' '.join(flags) or kind}"
+            if got != toks or any(len(t) != LOAD_NEW for t in got):
+                raise AssertionError(f"{what}: tokens differ from the "
+                                     "direct call")
+            _expect(what + " (direct)", dn, _cli_want(kind, flags, rows,
+                                                      forwards, L))
+            n_load = n.pop(QUANTIZE_4BIT.name, 0)
+            _expect(what + " (CLI, its load aside)", n, dn)
+            if n_load != 7 * L + 1:
+                raise AssertionError(f"{what}: its load launched K2 "
+                                     f"{n_load} times")
+            add(n)
+            add({QUANTIZE_4BIT.name: n_load})
+            new = LOAD_NEW * len(ps)
+            cli.append(dict(flags=flags, wall_s=wall, direct_s=dwall,
+                            tok_per_s=new / dwall,
+                            cli_tok_per_s=out["tokens_per_s_incl_compile"],
+                            forwards=forwards, admission_rows=rows,
+                            launches=n, k2_in_load=n_load, tokens=got))
+            log(f"  {what}: CLI {wall:.3f} s with its load, the direct call "
+                f"{dwall:.3f} s = {new / dwall:.2f} tok/s; tokens equal; "
+                f"launches {n} (+ K2 {n_load} in its load), "
+                f"{forwards} {'windows' if kind == 'speculative' else 'forwards'}"
+                f"{', admission rows ' + str(rows) if rows else ''}")
+        rec["cli"] = cli
+        del cli_params
+
+        # -- the watchdog --
+        wprompts = [torch.randint(1, base.vocab_size, (n,), generator=g
+                                  ).tolist()
+                    for n in (16, 37, 64, 150, 20, 90, 30, 70)]
+        rec["watchdog"] = _watchdog_run(params, cfg, wprompts, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["launches"] = totals
+    results["load"] = rec
+    results["launches_load"] = totals
+
+
 def phase_profile(dev, results):
     """Where one FP4 batch-1 generate spends its time: ``torch.profiler``
     over one warm generate of 8 new tokens (few, to keep the trace
@@ -3357,6 +3938,10 @@ def kernel_entries(results, kernels_seq):
                               + ("int8" if "i8" in k.name else "first bf16")
                               + " run",
                          by_shape=rows)
+        # the load phase: K2 in every load, K10/K7 in the exports, every
+        # kernel of the CLI runs
+        entry["load_launches"] = results.get("launches_load", {}).get(
+            k.name, 0)
         # the speculative path's first bf16 run (the int8 run for K4)
         entry["spec_launches"] = results.get(
             "launches_spec_int8" if "i8" in k.name else "launches_spec",
@@ -3414,6 +3999,7 @@ def main() -> int:
                                                  results)),
                    ("spec", lambda: phase_spec(dev, held.pop("params"),
                                                results)),
+                   ("load", lambda: phase_load(dev, results)),
                    ("profile", lambda: phase_profile(dev, results))):
         t0 = time.perf_counter()
         log(f"[{ph}]")

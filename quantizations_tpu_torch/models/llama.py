@@ -78,6 +78,7 @@ __all__ = [
     "quantize_linear",
     "init_llama_params",
     "fuse_projections",
+    "stack_layers",
     "rms_norm",
     "rope_cos_sin",
     "apply_rope",
@@ -340,6 +341,25 @@ def quantize_linear(W: torch.Tensor, blocksize: int = 64,
     return QLinear(wp=wp, scales=scales.to(scales_dtype))
 
 
+def stack_layers(make_layer: Callable[[int], LlamaLayer], L: int,
+                 device: torch.device) -> LlamaLayer:
+    """The ``[L, ...]`` stacks of layers ``make_layer(0)`` to
+    ``make_layer(L - 1)``: layer 0 is built first and gives the stacks'
+    shapes, then each layer is copied in as it is built, so peak memory is
+    the stacks plus one layer."""
+    layer0 = make_layer(0)
+    layers = map_tensors(
+        lambda t: torch.empty((L,) + tuple(t.shape), dtype=t.dtype,
+                              device=device), layer0)
+    for i in range(L):
+        layer = layer0 if i == 0 else make_layer(i)
+        for (_, dst), (_, src) in zip(named_tensors(layers),
+                                      named_tensors(layer)):
+            dst[i].copy_(src)
+        del layer
+    return layers
+
+
 def init_llama_params(cfg: LlamaConfig, seed: int = 0, scale: float = 0.02,
                       dist: str = "normal",
                       device: Union[str, torch.device] = "cuda"
@@ -391,18 +411,7 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0, scale: float = 0.02,
             q_norm=ones(cfg.head_dim) if cfg.qk_norm else None,
             k_norm=ones(cfg.head_dim) if cfg.qk_norm else None)
 
-    L = cfg.num_hidden_layers
-    layer0 = make_layer()
-    layers = map_tensors(
-        lambda t: torch.empty((L,) + tuple(t.shape), dtype=t.dtype,
-                              device=dev), layer0)
-    for i in range(L):
-        layer = layer0 if i == 0 else make_layer()
-        for (_, dst), (_, src) in zip(named_tensors(layers),
-                                      named_tensors(layer)):
-            dst[i].copy_(src)
-        del layer
-    del layer0
+    layers = stack_layers(lambda i: make_layer(), cfg.num_hidden_layers, dev)
 
     if q.quantize_embedding:
         # the embedding is a row gather: bf16 scales instead of bf16x2

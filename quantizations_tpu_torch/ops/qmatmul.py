@@ -65,7 +65,8 @@ import torch
 from ..quant.codebooks import FP4_CODE, get_4bit_code
 from .cuda import (PAIR_MANUAL, PAIR_MATMUL, PAIR_MATMUL_MMA, PAIR_PREFILL,
                    PLANAR_MATMUL, PLANAR_MATMUL_MMA, launch)
-from .gemv import _SHIFTS, check_planar_args, device_planar_table, planar_table
+from .gemv import (_SHIFTS, check_planar_args, device_planar_table,
+                   pack_i32_rows, planar_table)
 
 __all__ = [
     "PAIR_MMA_MIN_TOKENS",
@@ -90,6 +91,7 @@ __all__ = [
     "pair_column",
     "planar_to_pair",
     "pair_to_planar",
+    "pack_pair_rows",
     "pack_scale_pairs",
     "unpack_scale_pairs",
     "pair_permute_activation",
@@ -172,6 +174,12 @@ def pair_to_planar(wp2: torch.Tensor) -> torch.Tensor:
     nso = ((E >> 16) & 0xFFFF) | (O & _HI16)
     inter = torch.stack([nibble_swap(nse), nibble_swap(nso)], dim=-2)
     return inter.reshape(*wp2.shape[:-2], 2 * wp2.shape[-2], k8)
+
+
+def pack_pair_rows(packed_u8: torch.Tensor, rows: int,
+                   cols: int) -> torch.Tensor:
+    """bnb flat packed bytes -> pair layout ``[rows/2, cols/4]``."""
+    return planar_to_pair(pack_i32_rows(packed_u8, rows, cols))
 
 
 def pack_scale_pairs(scales: torch.Tensor) -> torch.Tensor:

@@ -92,11 +92,12 @@ class QuantState:
 
     # -- bnb-compatible serialization -------------------------------------
 
-    def as_dict(self) -> dict:
+    def as_dict(self, packed: Optional[np.ndarray] = None) -> dict:
         """Export in the bitsandbytes quant_state dict layout: keys from
         ``valid_qs_keys``, tensors as numpy, the non-tensor fields under
-        ``"quant_state"``. The packed payload is not part of it (bnb
-        stores it as the parameter itself)."""
+        ``"quant_state"``. ``packed`` (the uint8 payload) is accepted and
+        not part of the dict, as in the JAX package: bnb stores it as the
+        parameter itself."""
         qs_meta = {
             "quant_type": self.quant_type,
             "blocksize": self.blocksize,

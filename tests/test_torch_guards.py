@@ -7,6 +7,9 @@
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card,
   and raises on a spill or a missing instantiation in the ``ptxas -v``
   log of K1/K9 or of ``csrc/planar_matmul.cu`` (K5's two bodies, K6).
+- The checkpoint path and the CLIs import no ``safetensors`` or
+  ``orbax``, and only the serving CLI's optional tokenizer imports
+  ``transformers``.
 - Tests marked ``cuda`` hold each kernel (K1 to K10, and both of K5's
   bodies) against its plain version on the card (K9 against K1, bit for
   bit; K1 above 128 rows,
@@ -69,6 +72,13 @@ def test_port_imports_no_jax(path):
     assert not _imported_roots(path) & FORBIDDEN
 
 
+# the checkpoint path and the command line: the card's machine has no
+# safetensors, orbax or transformers package
+CHECKPOINT_PATH = ("models/safetensors_io.py", "models/hf_loader.py",
+                   "models/checkpoint.py", "convert.py", "serve/watchdog.py",
+                   "serve/__main__.py")
+
+
 def test_import_guard_covers_every_module():
     """The guard walks the whole package: the planar slice's modules and
     the bnb loader are among the files it reads."""
@@ -77,8 +87,23 @@ def test_import_guard_covers_every_module():
                 "nn/linear.py", "ops/gemv.py", "ops/qmatmul.py",
                 "ops/quantize.py", "ops/cuda.py", "bridge.py",
                 "models/llama.py", "serve/speculative.py",
-                "serve/engine.py", "serve/paged.py"):
+                "serve/engine.py", "serve/paged.py",
+                *CHECKPOINT_PATH):
         assert f"quantizations_tpu_torch/{mod}" in names, mod
+
+
+@pytest.mark.parametrize("mod", CHECKPOINT_PATH)
+def test_checkpoint_path_imports_no_file_format_package(mod):
+    roots = _imported_roots(ROOT / "quantizations_tpu_torch" / mod)
+    assert not roots & {"safetensors", "orbax"}, mod
+
+
+def test_only_the_cli_tokenizer_imports_transformers():
+    """``transformers`` is allowed in one place: the serving CLI's
+    optional tokenizer, inside a ``try``."""
+    users = {str(p.relative_to(ROOT)) for p in PORT_FILES
+             if "transformers" in _imported_roots(p)}
+    assert users == {"quantizations_tpu_torch/serve/__main__.py"}
 
 
 def test_import_guard_sees_imports(tmp_path):
@@ -1202,3 +1227,100 @@ def test_tiny_prefill_reaches_k10_on_card(cuda, monkeypatch):
     lc, _ = tl.prefill(pc, ids, tl.KVCache.create(cfg, 2, 32, "cpu"), cfg)
     assert (lg.cpu() - lc).abs().max() <= 2e-2 * lc.abs().max()
     assert torch.equal(lg[:, -1].argmax(-1).cpu(), lc[:, -1].argmax(-1))
+
+
+def _write_tiny_hf(d, rng, layers=2, h=128, inter=256, vocab=256):
+    """A tiny bf16 HF Llama directory written by the port's own writer
+    (the card's machine has no safetensors package); returns its
+    tensors."""
+    import json
+
+    from quantizations_tpu_torch.models.safetensors_io import save_file
+
+    hd, heads, kv = 64, 2, 1
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "vocab_size": vocab,
+        "hidden_size": h, "intermediate_size": inter,
+        "num_hidden_layers": layers, "num_attention_heads": heads,
+        "num_key_value_heads": kv, "head_dim": hd}))
+
+    def w(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * 0.02).to(torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": w(vocab, h),
+         "model.norm.weight": torch.ones(h, dtype=torch.bfloat16),
+         "lm_head.weight": w(vocab, h)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        t[p + "input_layernorm.weight"] = torch.ones(h, dtype=torch.bfloat16)
+        t[p + "post_attention_layernorm.weight"] = torch.ones(
+            h, dtype=torch.bfloat16)
+        for name, shape in (("self_attn.q_proj", (heads * hd, h)),
+                            ("self_attn.k_proj", (kv * hd, h)),
+                            ("self_attn.v_proj", (kv * hd, h)),
+                            ("self_attn.o_proj", (h, heads * hd)),
+                            ("mlp.gate_proj", (inter, h)),
+                            ("mlp.up_proj", (inter, h)),
+                            ("mlp.down_proj", (h, inter))):
+            t[p + name + ".weight"] = w(*shape)
+    save_file(t, str(d / "model.safetensors"))
+    return t
+
+
+_PROJ = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+         ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+         ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+         ("down", "mlp.down_proj"))
+
+
+@pytest.mark.cuda
+def test_hf_load_and_bnb_export_on_card(cuda, rng, tmp_path):
+    """A tiny HF directory loaded on the card: 7 K2 launches a layer and
+    one each for the embedding and the lm_head, every projection's words
+    and scales ``torch.equal`` to ``quantize_linear`` of the same weight
+    on the card. Its bnb export (without double quantization) runs K10 on
+    the 4-bit embedding and lm_head and reloads to the same words and
+    scales; the native file reloads equal."""
+    from quantizations_tpu_torch.models import hf_loader as th
+    from quantizations_tpu_torch.ops import DEQUANTIZE_4BIT_PAIR
+
+    src = tmp_path / "hf"
+    src.mkdir()
+    t = _write_tiny_hf(src, rng)
+    q = QuantConfig(quantize_embedding=True)
+    before = QUANTIZE_4BIT.launches
+    cfg, params = th.load_hf_llama(str(src), quant=q, device=cuda)
+    torch.cuda.synchronize()
+    assert QUANTIZE_4BIT.launches - before == 7 * cfg.num_hidden_layers + 2
+
+    def ref(name):
+        return tl.quantize_linear(t[name].to(cuda), quant_type="fp4")
+
+    for i in range(cfg.num_hidden_layers):
+        for attr, hf in _PROJ:
+            got, want = getattr(params.layers, attr), ref(
+                f"model.layers.{i}.{hf}.weight")
+            assert torch.equal(got.wp[i], want.wp), (i, attr)
+            assert torch.equal(got.scales[i], want.scales), (i, attr)
+    for got, name in ((params.embed, "model.embed_tokens.weight"),
+                      (params.lm_head, "lm_head.weight")):
+        want = ref(name)
+        assert torch.equal(got.wp, want.wp) and torch.equal(
+            got.scales, want.scales), name
+
+    before = DEQUANTIZE_4BIT_PAIR.launches
+    th.save_bnb_checkpoint(params, cfg, str(tmp_path / "bnb"),
+                           compress_statistics=False)
+    assert DEQUANTIZE_4BIT_PAIR.launches - before == 2
+    _, back = th.load_hf_llama(str(tmp_path / "bnb"), quant=q, device=cuda)
+    for attr, _ in _PROJ:
+        a, b = getattr(params.layers, attr), getattr(back.layers, attr)
+        assert torch.equal(a.wp, b.wp) and torch.equal(a.scales, b.scales), \
+            attr
+    th.save_quantized(params, str(tmp_path / "q.safetensors"))
+    native = th.load_quantized(str(tmp_path / "q.safetensors"), cfg,
+                               device=cuda)
+    for (k, a), (_, b) in zip(tl.named_tensors(params),
+                              tl.named_tensors(native)):
+        assert torch.equal(a, b), k
