@@ -197,7 +197,26 @@ Phases, each raising on failure:
    raises, a ``PagedEngine`` that hangs past the deadline and a healthy
    one: every request finishes, the pages return, the healthy engine's
    own requests equal an undisturbed run;
-13. ``profile``: one FP4 batch-1 generate of 8 new tokens under
+13. ``evals``: the accuracy path at Llama3-8B's full width and depth,
+   FP4 with the evals CLI's ``QuantConfig`` (a dense embedding),
+   ``dist="trained_proxy"`` from seed 0. The proxy sampler's statistics
+   at three shapes (the Student-t draws' excess kurtosis and variance,
+   the log row norms' spread, the outlier columns' share, each in a
+   stated band) and the built model's dequantized q, down and lm_head;
+   the build's K2 launches (7 a layer and one for the lm_head).
+   ``logit_parity`` over 128 ids from ``default_rng(0)`` with bf16 KV,
+   int8 KV and the dense-twin control: every field finite, exactly 225
+   K1 and 225 K10 launches a quantized run (450 K10 for the control),
+   the control's KL below the quantized arm's. The materialized twin's
+   logits (15 GB of bf16 weights) against the lazy twin's, bit for bit.
+   ``run_ifeval_proxy`` over the 109 examples (8 slots, 32 new tokens):
+   each arm's launches exact (the quantized arm K1 only, the twin arm
+   K10 only), every transcript 32 tokens; scores, deltas, verdict
+   agreement, each arm's wall and the sentence splitter printed. Last
+   ``python -m quantizations_tpu_torch.evals --preset 8b --proxy
+   --parity --parity-control`` as a subprocess, its JSON equal to the
+   direct calls field for field;
+14. ``profile``: one FP4 batch-1 generate of 8 new tokens under
    ``torch.profiler``: device kernel time by name, kernels per forward,
    the device's busy share of the wall time, the host's enqueue time.
 
@@ -3685,6 +3704,323 @@ def phase_load(dev, results):
     results["launches_load"] = totals
 
 
+# the evals phase: the parity ids, and the IFEval proxy's length and slots
+EVALS_TOKENS = 128
+EVALS_NEW = 32
+EVALS_SLOTS = 8
+# the proxy sampler at three Llama3-8B shapes (the lm_head's takes the
+# row-slab path): bands for the Student-t draws' excess kurtosis (6 in
+# theory; its estimate converges slowly, the 8th moment being infinite)
+# and variance (5/3), and the log row norms' spread (the row scales' 0.4)
+PROXY_SHAPES = (("q", 4096, 4096), ("down", 4096, 14336),
+                ("lm_head", 128256, 4096))
+KURTOSIS_BAND = (4.0, 12.0)
+T_VAR_TOL = 0.01               # relative, around 5/3
+LOG_ROW_STD_BAND = (0.35, 0.45)
+OUTLIER_SDS = 5                # binomial standard deviations around 0.5%
+
+
+def _proxy_stats(x, row, outlier):
+    """(excess kurtosis and variance of the t-draws ``x``, std of the log
+    row norms of ``x * row * outlier``, share of outlier columns), the
+    moments summed in fp64 over row slabs (the draws' mean is 0)."""
+    m2 = m4 = 0.0
+    norms = []
+    for i in range(0, x.shape[0], 8192):
+        s = x[i:i + 8192].double()
+        m2 += float((s * s).sum())
+        m4 += float((s ** 4).sum())
+        norms.append(torch.linalg.vector_norm(x[i:i + 8192] * outlier,
+                                              dim=1) * row[i:i + 8192, 0])
+        del s
+    n = x.numel()
+    var = m2 / n
+    return dict(excess_kurtosis=m4 / n / var ** 2 - 3.0, t_var=var,
+                log_row_norm_std=float(torch.log(torch.cat(norms)).std()),
+                outlier_share=float((outlier == 8.0).float().mean()))
+
+
+def _weight_stats(W):
+    """Of a dequantized ``[M, K]`` weight: the std of its log row norms and
+    the share of columns whose RMS is above 4x the median column's (the
+    proxy's 8x outlier columns)."""
+    Wf = W.float()
+    rows = torch.log(torch.linalg.vector_norm(Wf, dim=1)).std()
+    col = torch.sqrt((Wf * Wf).mean(dim=0))
+    return dict(log_row_norm_std=float(rows),
+                outlier_share=float((col > 4 * col.median()).float().mean()))
+
+
+def _in_band(what, value, band):
+    if not band[0] <= value <= band[1]:
+        raise AssertionError(f"{what} = {value} outside {band}")
+
+
+def _outlier_band(k):
+    sd = math.sqrt(0.005 * 0.995 / k)
+    return (max(0.0, 0.005 - OUTLIER_SDS * sd), 0.005 + OUTLIER_SDS * sd)
+
+
+def _ifeval_arms(dev):
+    """Run ``run_ifeval_proxy`` at Llama3-8B with every slot ``Engine``'s
+    ``run`` and admission rounds watched: per arm (quantized, then the
+    dense twin) its wall, launches (the counts zeroed just before the run
+    and read just after it), admission rows, stats and transcripts."""
+    from quantizations_tpu_torch.evals.ifeval_proxy import (detokenize,
+                                                            run_ifeval_proxy)
+    from quantizations_tpu_torch.ops import KERNELS
+    from quantizations_tpu_torch.serve.engine import Engine
+
+    arms = []                  # (engine, record), the engines kept alive
+    real_run, real_round = Engine.run, Engine._prefill_round
+
+    def arm(eng):
+        for e, a in arms:
+            if e is eng:
+                return a
+        arms.append((eng, dict(rows=[])))
+        return arms[-1][1]
+
+    def counted_round(self, ids, *a):
+        arm(self)["rows"].append(int(ids.shape[0] * ids.shape[1]))
+        return real_round(self, ids, *a)
+
+    def counted_run(self, *a, **kw):
+        for k in KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_run(self, *a, **kw)
+        torch.cuda.synchronize()
+        arm(self).update(
+            wall_s=time.perf_counter() - t0,
+            launches={k.name: k.launches for k in KERNELS if k.launches},
+            stats=self.stats(),
+            outputs=[out[u].output_ids for u in sorted(out)])
+        return out
+
+    Engine.run, Engine._prefill_round = counted_run, counted_round
+    try:
+        t0 = time.perf_counter()
+        res = run_ifeval_proxy(preset="8b", max_new_tokens=EVALS_NEW,
+                               slots=EVALS_SLOTS, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        Engine.run, Engine._prefill_round = real_run, real_round
+    (_, quant), (_, twin) = arms
+    arms.clear()
+    for a in (quant, twin):
+        outputs = a.pop("outputs")
+        a["texts"] = [detokenize(o) for o in outputs]
+        a["token_counts"] = sorted({len(o) for o in outputs})
+    return res, wall, quant, twin
+
+
+def phase_evals(dev, results):
+    """The accuracy path at Llama3-8B's full width and depth (32 layers),
+    FP4, the evals CLI's ``QuantConfig`` (a dense embedding: 7 K2 launches
+    a layer and one for the lm_head), ``dist="trained_proxy"``, seed 0:
+    the proxy sampler's statistics at three shapes and the built model's;
+    ``logit_parity`` over 128 ids from ``default_rng(0)`` with bf16 KV,
+    int8 KV and the dense-twin control, each with exact K1/K10 counts
+    (K1 on the 128-row prefill, K10 on the lazy twin, 7 a layer and one
+    for the lm_head; the control arm K10 on both sides); the lazy twin's
+    logits against the materialized twin's, bit for bit; the IFEval proxy
+    (109 examples, 8 slots, 32 new tokens) through the slot ``Engine``,
+    each arm's counts exact (the twin arm no K1, the quantized arm no K10)
+    and every transcript 32 tokens; and ``python -m
+    quantizations_tpu_torch.evals --preset 8b --proxy --parity
+    --parity-control`` as a subprocess, its JSON equal to the direct
+    calls field for field."""
+    import numpy as np
+
+    from quantizations_tpu_torch.config import QuantConfig
+    from quantizations_tpu_torch.evals import parity
+    from quantizations_tpu_torch.evals.ifeval import sentence_splitter
+    from quantizations_tpu_torch.models import llama as M
+    from quantizations_tpu_torch.nn.linear import pair_max_tokens
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+                                             PAIR_MATMUL, PAIR_MATMUL_MMA,
+                                             PAIR_MMA_MIN_TOKENS,
+                                             QUANTIZE_4BIT)
+
+    cfg = dataclasses.replace(M.LLAMA3_8B, quant=QuantConfig())
+    L = cfg.num_hidden_layers
+    per = 7 * L + 1            # unfused projections and the lm_head
+    rec, totals = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # -- the proxy sampler's statistics at three shapes --
+    stats = {}
+    for name, m, k in PROXY_SHAPES:
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        x, row, outlier = M._proxy_parts(g, m, k, dev)
+        s = stats[name] = _proxy_stats(x, row, outlier)
+        del x, row, outlier
+        _in_band(f"{name}: t excess kurtosis", s["excess_kurtosis"],
+                 KURTOSIS_BAND)
+        _in_band(f"{name}: t variance", s["t_var"],
+                 (5 / 3 * (1 - T_VAR_TOL), 5 / 3 * (1 + T_VAR_TOL)))
+        _in_band(f"{name}: log row norm std", s["log_row_norm_std"],
+                 LOG_ROW_STD_BAND)
+        _in_band(f"{name}: outlier share", s["outlier_share"],
+                 _outlier_band(k))
+        log(f"  proxy sampler {name} [{m}, {k}]: t excess kurtosis "
+            f"{s['excess_kurtosis']:.3f} (band {KURTOSIS_BAND}), variance "
+            f"{s['t_var']:.5f}, log row norm std {s['log_row_norm_std']:.4f}, "
+            f"outlier columns {s['outlier_share']:.5f}")
+    rec["sampler"] = stats
+    torch.cuda.empty_cache()
+
+    # -- the proxy model, K2 on every weight --
+    params, build_s, n = _counted(lambda: M.init_llama_params(
+        cfg, seed=0, dist="trained_proxy", device=dev))
+    _expect("proxy build", n, {QUANTIZE_4BIT.name: per})
+    add(n)
+    model_stats = {}
+    for name, ql in (("q", M.QLinear(wp=params.layers.q.wp[0],
+                                     scales=params.layers.q.scales[0])),
+                     ("down", M.QLinear(wp=params.layers.down.wp[0],
+                                        scales=params.layers.down.scales[0])),
+                     ("lm_head", params.lm_head)):
+        W = M.dense_twin_weight(ql, "fp4")
+        s = model_stats[name] = _weight_stats(W)
+        del W
+        _in_band(f"model {name}: log row norm std", s["log_row_norm_std"],
+                 LOG_ROW_STD_BAND)
+        _in_band(f"model {name}: outlier columns", s["outlier_share"],
+                 _outlier_band(ql.in_features))
+    gains = params.layers.attn_norm.float()
+    rec.update(build_s=build_s, build_launches=n, model=model_stats,
+               gain_mean=float(gains.mean()), gain_std=float(gains.std()))
+    log(f"  proxy build: {build_s:.3f} s, K2 {n[QUANTIZE_4BIT.name]} "
+        f"launches; dequantized q/down/lm_head {model_stats}; attention "
+        f"norm gains mean {rec['gain_mean']:.4f} std {rec['gain_std']:.4f}")
+
+    # -- logit parity: bf16 KV, int8 KV, the dense-twin control --
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, EVALS_TOKENS)), dtype=torch.int32, device=dev)
+    twin = dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, dense_twin=True))
+    reports = {}
+    for name, c, want in (
+            ("bf16", cfg, {PAIR_MATMUL.name: per,
+                           DEQUANTIZE_4BIT_PAIR.name: per}),
+            ("int8", dataclasses.replace(cfg, kv_cache_dtype="int8"),
+             {PAIR_MATMUL.name: per, DEQUANTIZE_4BIT_PAIR.name: per}),
+            ("control", twin, {DEQUANTIZE_4BIT_PAIR.name: 2 * per})):
+        rep, wall, n = _counted(lambda: parity.logit_parity(params, c, ids))
+        _expect(f"parity {name}", n, want)
+        add(n)
+        rep = rep.to_dict()
+        if not all(math.isfinite(v) for v in rep.values()):
+            raise AssertionError(f"parity {name}: {rep}")
+        reports[name] = dict(report=rep, wall_s=wall, launches=n)
+        log(f"  parity {name}: {rep} in {wall:.3f} s; launches {n}")
+    if not (reports["control"]["report"]["mean_kl"]
+            < reports["bf16"]["report"]["mean_kl"]):
+        raise AssertionError("the control arm's KL is not below the "
+                             "quantized arm's")
+    rec["parity"] = reports
+    rec["control_kl_share"] = (reports["control"]["report"]["mean_kl"]
+                               / reports["bf16"]["report"]["mean_kl"])
+    log(f"  control KL / quantized KL: {rec['control_kl_share']:.4f}")
+
+    # -- the lazy twin against the materialized one, bit for bit --
+    def both():
+        dense = parity.dequantized_params(params, cfg)
+        mat = parity._dense_forward(dense, ids, cfg)
+        del dense
+        return mat, parity._dense_forward(params, ids, cfg, lazy=True)
+
+    (mat, lazy), wall, n = _counted(both)
+    _expect("materialized and lazy twins", n,
+            {DEQUANTIZE_4BIT_PAIR.name: 2 * per})
+    add(n)
+    if not torch.equal(mat, lazy):
+        raise AssertionError("the lazy twin's logits differ from the "
+                             "materialized twin's")
+    rec.update(twin_bytes=parity.dense_twin_bytes(params), twin_s=wall,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    log(f"  materialized twin ({rec['twin_bytes'] / 1e9:.2f} GB) and lazy "
+        f"twin: logits bit-identical ({wall:.3f} s for both)")
+    del mat, lazy, params
+    torch.cuda.empty_cache()
+
+    # -- the IFEval proxy through the slot Engine, both arms --
+    res, wall, quant, twin_arm = _ifeval_arms(dev)
+    band = pair_max_tokens()
+    for what, a, want in (
+            ("quantized", quant, {
+                PAIR_MATMUL.name: _k1_cuda_core_launches(
+                    quant["rows"], quant["stats"]["steps"], L, proj=7)
+                + 7 * L * sum(1 for r in quant["rows"]
+                              if PAIR_MMA_MIN_TOKENS <= r <= band),
+                PAIR_MATMUL_MMA.name: 7 * L * sum(
+                    1 for r in quant["rows"]
+                    if PAIR_MMA_MIN_TOKENS <= r <= band),
+                DEQUANTIZE_4BIT_PAIR.name: 7 * L * sum(
+                    1 for r in quant["rows"] if r > band)}),
+            ("dense twin", twin_arm, {DEQUANTIZE_4BIT_PAIR.name: per * (
+                twin_arm["stats"]["steps"] + len(twin_arm["rows"]))})):
+        _expect(f"ifeval proxy, {what} arm", a["launches"],
+                {k: v for k, v in want.items() if v})
+        add(a["launches"])
+        if a["token_counts"] != [EVALS_NEW] or not all(a["texts"]):
+            raise AssertionError(f"{what} arm: transcripts of "
+                                 f"{a['token_counts']} tokens, or empty")
+    if PAIR_MATMUL.name in twin_arm["launches"] or \
+            DEQUANTIZE_4BIT_PAIR.name in quant["launches"]:
+        raise AssertionError("an arm launched the other arm's kernel")
+    if (res["n_examples"], res["n_instructions"]) != (109, 120):
+        raise AssertionError(f"ifeval proxy: {res['n_examples']} examples, "
+                             f"{res['n_instructions']} instructions")
+    splitter = sentence_splitter()
+    rec["ifeval_proxy"] = dict(
+        result=res, wall_s=wall, splitter=splitter,
+        arms={k: dict(wall_s=a["wall_s"], launches=a["launches"],
+                      stats=a["stats"], admission_rows=a["rows"],
+                      texts=a["texts"])
+              for k, a in (("quantized", quant), ("dense_twin", twin_arm))})
+    log(f"  ifeval proxy (109 examples, {EVALS_SLOTS} slots, {EVALS_NEW} "
+        f"new tokens, sentence splitter {splitter}): quantized "
+        f"{res['quantized']}, dense twin {res['dense_twin']}, deltas "
+        f"{res['deltas']}, verdict agreement {res['verdict_agreement']:.4f}"
+        f"; arms {quant['wall_s']:.3f} s and {twin_arm['wall_s']:.3f} s "
+        f"({quant['stats']['steps']} and {twin_arm['stats']['steps']} "
+        f"steps), launches {quant['launches']} and {twin_arm['launches']}; "
+        f"{wall:.3f} s with its build")
+
+    # -- the CLI as a subprocess, against the direct calls --
+    env = dict(os.environ, HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "quantizations_tpu_torch.evals", "--preset",
+         "8b", "--proxy", "--parity", "--parity-control"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"evals CLI exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    want = {"parity": reports["bf16"]["report"],
+            "parity_control": reports["control"]["report"]}
+    if got != want:
+        raise AssertionError(f"evals CLI {got} differs from the direct "
+                             f"calls {want}")
+    rec.update(cli=got, cli_s=cli_s)
+    log(f"  evals CLI (subprocess, {cli_s:.2f} s): its JSON equals the "
+        "direct calls field for field")
+    rec["launches"] = totals
+    results["evals"] = rec
+    results["launches_evals"] = totals
+
+
 def phase_profile(dev, results):
     """Where one FP4 batch-1 generate spends its time: ``torch.profiler``
     over one warm generate of 8 new tokens (few, to keep the trace
@@ -3942,6 +4278,10 @@ def kernel_entries(results, kernels_seq):
         # kernel of the CLI runs
         entry["load_launches"] = results.get("launches_load", {}).get(
             k.name, 0)
+        # the evals phase: the proxy build, the parity runs, the twins and
+        # the IFEval proxy's arms
+        entry["evals_launches"] = results.get("launches_evals", {}).get(
+            k.name, 0)
         # the speculative path's first bf16 run (the int8 run for K4)
         entry["spec_launches"] = results.get(
             "launches_spec_int8" if "i8" in k.name else "launches_spec",
@@ -4000,6 +4340,7 @@ def main() -> int:
                    ("spec", lambda: phase_spec(dev, held.pop("params"),
                                                results)),
                    ("load", lambda: phase_load(dev, results)),
+                   ("evals", lambda: phase_evals(dev, results)),
                    ("profile", lambda: phase_profile(dev, results))):
         t0 = time.perf_counter()
         log(f"[{ph}]")

@@ -1,8 +1,11 @@
-"""Model families of the port (counterpart of ``quantizations_tpu/models``;
-only Llama3-8B and the tiny test config are ported so far)."""
+"""Model families of the port (counterpart of ``quantizations_tpu/models``):
+the Llama-family model with the Llama3-8B, Llama3-70B, Gemma2-9B and tiny
+test presets."""
 
 from .llama import (
+    GEMMA2_9B,
     KVCache,
+    LLAMA3_70B,
     LLAMA3_8B,
     LlamaConfig,
     LlamaParams,
@@ -22,5 +25,7 @@ __all__ = [
     "prefill",
     "decode_step",
     "LLAMA3_8B",
+    "LLAMA3_70B",
+    "GEMMA2_9B",
     "TINY_LLAMA",
 ]

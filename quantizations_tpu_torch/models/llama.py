@@ -75,9 +75,11 @@ __all__ = [
     "LlamaLayer",
     "LlamaParams",
     "KVCache",
+    "kv_storage_dtype",
     "quantize_linear",
     "init_llama_params",
     "fuse_projections",
+    "dense_twin_weight",
     "stack_layers",
     "rms_norm",
     "rope_cos_sin",
@@ -95,6 +97,8 @@ __all__ = [
     "map_tensors",
     "prefill_pair_enabled",
     "LLAMA3_8B",
+    "LLAMA3_70B",
+    "GEMMA2_9B",
     "TINY_LLAMA",
 ]
 
@@ -145,6 +149,40 @@ class LlamaConfig:
 
 
 LLAMA3_8B = LlamaConfig()
+
+# Llama3-70B: ~35 GB of packed 4-bit weights.
+LLAMA3_70B = LlamaConfig(
+    hidden_size=8192,
+    intermediate_size=28672,
+    num_hidden_layers=80,
+    num_attention_heads=64,
+    num_key_value_heads=8,
+)
+
+# Gemma2-9B (HF google/gemma-2-9b): sandwich norms, GeGLU, softcaps,
+# alternating 4k sliding window.
+GEMMA2_9B = LlamaConfig(
+    vocab_size=256000,
+    hidden_size=3584,
+    intermediate_size=14336,
+    num_hidden_layers=42,
+    num_attention_heads=16,
+    num_key_value_heads=8,
+    head_dim=256,
+    rope_theta=10000.0,
+    rms_norm_eps=1e-6,
+    max_position_embeddings=8192,
+    tie_word_embeddings=True,
+    hidden_activation="gelu_tanh",
+    post_norms=True,
+    norm_plus_one=True,
+    embed_normalizer=True,
+    attn_logit_softcap=50.0,
+    final_logit_softcap=30.0,
+    query_scale=256.0,
+    sliding_window=4096,
+    sliding_layers="even",
+)
 
 # Tiny config for tests.
 TINY_LLAMA = LlamaConfig(
@@ -231,6 +269,15 @@ class LlamaParams:
     lm_head: Union[torch.Tensor, QLinear]   # 4-bit or bf16 [vocab, hidden]
 
 
+def kv_storage_dtype(cfg: LlamaConfig,
+                     dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """The element type of a KV cache: ``dtype`` when given, else int8
+    for ``kv_cache_dtype="int8"`` and bf16 for any other value."""
+    if dtype is not None:
+        return dtype
+    return torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
+
+
 @dataclasses.dataclass
 class KVCache:
     """Preallocated KV cache ``[L, B, kv_heads, max_seq, head_dim]``: bf16
@@ -251,19 +298,25 @@ class KVCache:
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_seq: int,
-               device: Union[str, torch.device] = "cuda") -> "KVCache":
+               device: Union[str, torch.device] = "cuda",
+               kv_heads: Optional[int] = None,
+               dtype: Optional[torch.dtype] = None) -> "KVCache":
+        """``kv_heads`` (default: the config's) and ``dtype`` (default:
+        int8 for ``kv_cache_dtype="int8"``, else bf16) as in the JAX
+        package; an int8 ``dtype`` gives the int8 cache with its steps."""
         dev = resolve_device(device)
-        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
-                 max_seq, cfg.head_dim)
-        if cfg.kv_cache_dtype == "int8":
+        kv = cfg.num_key_value_heads if kv_heads is None else kv_heads
+        shape = (cfg.num_hidden_layers, batch, kv, max_seq, cfg.head_dim)
+        dtype = kv_storage_dtype(cfg, dtype)
+        if dtype == torch.int8:
             return cls(k=torch.zeros(shape, dtype=torch.int8, device=dev),
                        v=torch.zeros(shape, dtype=torch.int8, device=dev),
                        k_scale=torch.zeros(shape[:4], dtype=torch.bfloat16,
                                            device=dev),
                        v_scale=torch.zeros(shape[:4], dtype=torch.bfloat16,
                                            device=dev))
-        return cls(k=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                   v=torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+        return cls(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev))
 
     @property
     def max_seq(self) -> int:
@@ -360,6 +413,81 @@ def stack_layers(make_layer: Callable[[int], LlamaLayer], L: int,
     return layers
 
 
+# Proxy matrices of at least this many elements are drawn in 16 row
+# slabs, so that the sampler's transients stay one slab's.
+_PROXY_SLAB_ELEMS = 1 << 28
+_PROXY_SLABS = 16
+
+
+def _proxy_student_t(gen: torch.Generator, rows: int, cols: int,
+                     device: torch.device) -> torch.Tensor:
+    """Student-t draws with 5 degrees of freedom, fp32 ``[rows, cols]``:
+    ``Z / sqrt(chi2_5 / 5)`` with the chi-square the sum of five squared
+    normals, every normal from ``gen`` (torch's ``StudentT`` and
+    ``Gamma`` samplers take no generator)."""
+    def randn():
+        return torch.randn((rows, cols), generator=gen, device=device,
+                           dtype=torch.float32)
+
+    z = randn()
+    chi = torch.zeros_like(z)
+    for _ in range(5):
+        n = randn()
+        chi.addcmul_(n, n)
+    return z.div_(chi.div_(5.0).sqrt_())
+
+
+def _proxy_parts(gen: torch.Generator, out_f: int, in_f: int,
+                 device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three factors of :func:`_proxy_weight`: Student-t (df 5)
+    draws ``[out_f, in_f]`` (in ``_PROXY_SLABS`` row slabs from
+    ``_PROXY_SLAB_ELEMS`` elements on, as in the JAX package), the row
+    scales ``exp(0.4 N)`` ``[out_f, 1]`` and the outlier columns ``[1,
+    in_f]``: 8 with probability 0.005, else 1."""
+    if out_f * in_f >= _PROXY_SLAB_ELEMS and out_f % _PROXY_SLABS == 0:
+        rows = out_f // _PROXY_SLABS
+        t = torch.empty((out_f, in_f), dtype=torch.float32, device=device)
+        for i in range(_PROXY_SLABS):
+            t[i * rows:(i + 1) * rows] = _proxy_student_t(gen, rows, in_f,
+                                                          device)
+    else:
+        t = _proxy_student_t(gen, out_f, in_f, device)
+    row = torch.exp(0.4 * torch.randn((out_f, 1), generator=gen,
+                                      device=device, dtype=torch.float32))
+    hit = torch.rand((1, in_f), generator=gen, device=device,
+                     dtype=torch.float32) < 0.005
+    outlier = torch.where(hit, 8.0, 1.0).to(torch.float32)
+    return t, row, outlier
+
+
+def _proxy_weight(gen: torch.Generator, out_f: int, in_f: int, scale: float,
+                  device: torch.device) -> torch.Tensor:
+    """Trained-distribution weight proxy (counterpart of the JAX
+    package's ``_proxy_weight``): the statistics that make 4-bit
+    quantization hard on trained LLM weights and that an i.i.d. Gaussian
+    lacks:
+
+    - heavy tails (Student-t, df 5: excess kurtosis 6),
+    - per-output-row scale spread (log-normal row norms, sigma 0.4),
+    - rare outlier input columns (0.5% of columns at 8x), which inflate
+      a block's absmax and crush its small values.
+
+    The draws come from ``gen``: they cannot equal JAX's stream, only
+    its distribution."""
+    t, row, outlier = _proxy_parts(gen, out_f, in_f, device)
+    return t.mul_(row).mul_(outlier).mul_(scale)
+
+
+def _proxy_norm_gain(gen: torch.Generator, n: int,
+                     device: torch.device) -> torch.Tensor:
+    """Trained RMSNorm gains cluster near 1 with real spread:
+    ``|1 + 0.3 N|`` in bf16."""
+    return torch.abs(1.0 + 0.3 * torch.randn(
+        (n,), generator=gen, device=device, dtype=torch.float32)
+                     ).to(torch.bfloat16)
+
+
 def init_llama_params(cfg: LlamaConfig, seed: int = 0, scale: float = 0.02,
                       dist: str = "normal",
                       device: Union[str, torch.device] = "cuda"
@@ -367,12 +495,18 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0, scale: float = 0.02,
     """Random-initialized quantized model, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.
 
+    ``dist="normal"``: i.i.d. normal weights times ``scale``, unit norm
+    gains. ``dist="trained_proxy"``: weights from :func:`_proxy_weight`
+    and norm gains from :func:`_proxy_norm_gain` (biases stay normal),
+    the accuracy stand-in for a trained checkpoint.
+
     Layers are drawn and quantized one at a time and copied into
     preallocated stacks, so peak memory is the model plus one dense
-    layer. Only ``dist="normal"`` is ported."""
-    if dist != "normal":
-        raise NotImplementedError(f"init_llama_params dist={dist!r} is not "
-                                  "ported (only 'normal')")
+    layer."""
+    if dist not in ("normal", "trained_proxy"):
+        raise ValueError(f"init_llama_params: dist {dist!r} not in "
+                         "('normal', 'trained_proxy')")
+    proxy = dist == "trained_proxy"
     dev = resolve_device(device)
     q = cfg.quant
     gen = torch.Generator(device=dev)
@@ -384,9 +518,14 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0, scale: float = 0.02,
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32)
 
+    def dense(out_f, in_f):
+        if proxy:
+            return _proxy_weight(gen, out_f, in_f, scale, dev)
+        return randn(out_f, in_f) * scale
+
     def qlin(out_f, in_f, scales_dtype=None):
         return quantize_linear(
-            randn(out_f, in_f) * scale, blocksize=q.blocksize,
+            dense(out_f, in_f), blocksize=q.blocksize,
             quant_type=q.quant_type,
             compress_statistics=q.compress_statistics,
             scales_dtype=q.scales_dtype if scales_dtype is None
@@ -395,6 +534,9 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0, scale: float = 0.02,
     def ones(n):
         return torch.ones(n, dtype=torch.bfloat16, device=dev)
 
+    def gain(n):
+        return _proxy_norm_gain(gen, n, dev) if proxy else ones(n)
+
     def bias(n):
         if not cfg.attention_bias:
             return None
@@ -402,12 +544,12 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0, scale: float = 0.02,
 
     def make_layer() -> LlamaLayer:
         return LlamaLayer(
-            attn_norm=ones(h), q=qlin(qs, h), k=qlin(kvs, h), v=qlin(kvs, h),
-            o=qlin(h, qs), mlp_norm=ones(h), gate=qlin(inter, h),
+            attn_norm=gain(h), q=qlin(qs, h), k=qlin(kvs, h), v=qlin(kvs, h),
+            o=qlin(h, qs), mlp_norm=gain(h), gate=qlin(inter, h),
             up=qlin(inter, h), down=qlin(h, inter),
             q_bias=bias(qs), k_bias=bias(kvs), v_bias=bias(kvs),
-            post_attn_norm=ones(h) if cfg.post_norms else None,
-            post_mlp_norm=ones(h) if cfg.post_norms else None,
+            post_attn_norm=gain(h) if cfg.post_norms else None,
+            post_mlp_norm=gain(h) if cfg.post_norms else None,
             q_norm=ones(cfg.head_dim) if cfg.qk_norm else None,
             k_norm=ones(cfg.head_dim) if cfg.qk_norm else None)
 
@@ -419,12 +561,12 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0, scale: float = 0.02,
                      scales_dtype=(torch.bfloat16 if q.scales_dtype == "bf16x2"
                                    else None))
     else:
-        embed = (randn(cfg.vocab_size, h) * scale).to(torch.bfloat16)
+        embed = dense(cfg.vocab_size, h).to(torch.bfloat16)
     if q.quantize_lm_head:
         lm_head = qlin(cfg.vocab_size, h)
     else:
-        lm_head = (randn(cfg.vocab_size, h) * scale).to(torch.bfloat16)
-    return LlamaParams(embed=embed, layers=layers, final_norm=ones(h),
+        lm_head = dense(cfg.vocab_size, h).to(torch.bfloat16)
+    return LlamaParams(embed=embed, layers=layers, final_norm=gain(h),
                        lm_head=lm_head)
 
 
@@ -553,6 +695,16 @@ def prefill_pair_enabled() -> bool:
             f"QT_PREFILL_PAIR={raw!r} must be an integer") from None
 
 
+def dense_twin_weight(lin: QLinear, quant_type: str) -> torch.Tensor:
+    """The dense bf16 ``[M, K]`` of an unstacked QLinear in the original
+    row and column order, the dequantized twin's weight: K10 for pair
+    words, K7 for planar (their plain versions on the CPU, bit for bit
+    ``nn/linear.py dense_weight``)."""
+    dq = (dequantize_4bit_pair if lin.layout == "pair"
+          else dequantize_4bit_kernel)
+    return dq(lin.wp, lin.scales, quant_type, dtype=torch.bfloat16)
+
+
 def _ql(x2: torch.Tensor, lin: QLinear, qcfg: QuantConfig,
         idx: Optional[int] = None) -> torch.Tensor:
     """Apply a (possibly layer-stacked) QLinear, in the JAX package's
@@ -576,10 +728,8 @@ def _ql(x2: torch.Tensor, lin: QLinear, qcfg: QuantConfig,
     if qcfg.dense_twin:
         if lin.wp.dim() == 3:
             lin = QLinear(wp=lin.wp[idx], scales=lin.scales[idx])
-        dq = (dequantize_4bit_pair if lin.layout == "pair"
-              else dequantize_4bit_kernel)
-        W = dq(lin.wp, lin.scales, qt, dtype=torch.bfloat16)
-        return dense_product(x2.to(torch.bfloat16), W)
+        return dense_product(x2.to(torch.bfloat16),
+                             dense_twin_weight(lin, qt))
     if lin.wp.dim() == 3:
         tokens = x2.shape[0]
         if lin.layout == "pair":

@@ -30,6 +30,8 @@ __all__ = [
     "quantize_fp4_codes",
     "quantize_nf4_codes",
     "quantize_codebook_codes",
+    "quantize_codebook_codes_stochastic",
+    "stochastic_codes_from_uniforms",
     "quantize_blockwise",
     "dequantize_blockwise",
     "quantize_4bit",
@@ -94,6 +96,38 @@ def quantize_codebook_codes(x: torch.Tensor, code: torch.Tensor) -> torch.Tensor
     return idx.reshape(x.shape).to(torch.uint8)
 
 
+def stochastic_codes_from_uniforms(x: torch.Tensor, code: torch.Tensor,
+                                   r: torch.Tensor) -> torch.Tensor:
+    """The decision of :func:`quantize_codebook_codes_stochastic` given
+    its uniforms ``r`` in [0, 1) (one per element of ``x``): between the
+    bracketing entries ``lo < x <= hi`` of the sorted codebook, ``hi``
+    when ``r < (x - lo) / (hi - lo)`` (clipped to [0, 1]), else ``lo``.
+    Outside the codebook's range both are the end entry."""
+    flat = x.reshape(-1).contiguous()
+    hi = torch.searchsorted(code, flat, side="left").clamp(
+        0, code.shape[0] - 1)
+    lo = (hi - 1).clamp(min=0)
+    cl, ch = code[lo], code[hi]
+    denom = ch - cl
+    frac = torch.where(denom > 0, (flat - cl) / denom,
+                       torch.zeros_like(flat)).clamp(0.0, 1.0)
+    idx = torch.where(r.reshape(-1) < frac, hi, lo)
+    return idx.reshape(x.shape).to(torch.uint8)
+
+
+def quantize_codebook_codes_stochastic(x: torch.Tensor, code: torch.Tensor,
+                                       generator: torch.Generator
+                                       ) -> torch.Tensor:
+    """Stochastic rounding against a sorted codebook: the upper
+    bracketing entry with probability ``(x - lower) / (upper - lower)``,
+    unbiased within the bracket (E[dequant] == x). The uniforms come
+    from ``generator`` (the JAX package takes a PRNG key); the decision
+    is :func:`stochastic_codes_from_uniforms`."""
+    r = torch.rand(x.numel(), generator=generator, device=x.device,
+                   dtype=torch.float32)
+    return stochastic_codes_from_uniforms(x, code, r)
+
+
 _CODES_FN = {"fp4": quantize_fp4_codes, "nf4": quantize_nf4_codes}
 
 
@@ -135,15 +169,27 @@ def quantize_blockwise(
     A: torch.Tensor,
     code: Optional[torch.Tensor] = None,
     blocksize: int = 256,
+    stochastic: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, QuantState]:
     """8-bit blockwise quantization against a 256-entry codebook (the
-    statistics path). Returns (uint8 codes with A's shape, QuantState)."""
+    statistics path). Returns (uint8 codes with A's shape, QuantState).
+    ``stochastic=True`` rounds stochastically (unbiased) with uniforms
+    from ``generator``, which it then needs, as the JAX package needs a
+    PRNG ``key``."""
     if code is None:
         code = torch.from_numpy(create_dynamic_map()).to(A.device)
     code = code.to(device=A.device, dtype=torch.float32)
     flat = A.reshape(-1).to(torch.float32)
     blocked, absmax, n = _block_absmax(flat, blocksize)
-    q = quantize_codebook_codes(_normalize(blocked, absmax), code)
+    norm = _normalize(blocked, absmax)
+    if stochastic:
+        if generator is None:
+            raise ValueError("stochastic quantization needs a "
+                             "torch.Generator")
+        q = quantize_codebook_codes_stochastic(norm, code, generator)
+    else:
+        q = quantize_codebook_codes(norm, code)
     q = q.reshape(-1)[:n].reshape(A.shape)
     state = QuantState(absmax=absmax, code=code, blocksize=blocksize,
                        quant_type="dynamic8bit", dtype=A.dtype,

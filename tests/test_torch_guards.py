@@ -79,6 +79,14 @@ CHECKPOINT_PATH = ("models/safetensors_io.py", "models/hf_loader.py",
                    "serve/__main__.py")
 
 
+# the accuracy path and the utilities: the IFEval harness is a copy of the
+# JAX package's, never an import of it
+EVALS_PATH = ("evals/__init__.py", "evals/parity.py", "evals/ifeval.py",
+              "evals/ifeval_proxy.py", "evals/__main__.py",
+              "utils/__init__.py", "utils/timing.py", "utils/profiling.py",
+              "utils/golden.py")
+
+
 def test_import_guard_covers_every_module():
     """The guard walks the whole package: the planar slice's modules and
     the bnb loader are among the files it reads."""
@@ -88,7 +96,7 @@ def test_import_guard_covers_every_module():
                 "ops/quantize.py", "ops/cuda.py", "bridge.py",
                 "models/llama.py", "serve/speculative.py",
                 "serve/engine.py", "serve/paged.py",
-                *CHECKPOINT_PATH):
+                *CHECKPOINT_PATH, *EVALS_PATH):
         assert f"quantizations_tpu_torch/{mod}" in names, mod
 
 
@@ -99,11 +107,12 @@ def test_checkpoint_path_imports_no_file_format_package(mod):
 
 
 def test_only_the_cli_tokenizer_imports_transformers():
-    """``transformers`` is allowed in one place: the serving CLI's
-    optional tokenizer, inside a ``try``."""
+    """``transformers`` is allowed in two places: the serving CLI's and
+    the evals CLI's optional tokenizer, each inside a ``try``."""
     users = {str(p.relative_to(ROOT)) for p in PORT_FILES
              if "transformers" in _imported_roots(p)}
-    assert users == {"quantizations_tpu_torch/serve/__main__.py"}
+    assert users == {"quantizations_tpu_torch/serve/__main__.py",
+                     "quantizations_tpu_torch/evals/__main__.py"}
 
 
 def test_import_guard_sees_imports(tmp_path):
@@ -1324,3 +1333,90 @@ def test_hf_load_and_bnb_export_on_card(cuda, rng, tmp_path):
     for (k, a), (_, b) in zip(tl.named_tensors(params),
                               tl.named_tensors(native)):
         assert torch.equal(a, b), k
+
+
+def test_ifeval_imports_only_the_standard_library():
+    """The checker harness is text scoring: standard library, and
+    ``nltk`` (optional, inside a ``try``)."""
+    roots = _imported_roots(ROOT / "quantizations_tpu_torch/evals/ifeval.py")
+    assert roots <= set(sys.stdlib_module_names) | {"nltk"}
+
+
+def _tiny_eval_params(cuda, layout):
+    cfg = dataclasses.replace(tl.TINY_LLAMA, num_hidden_layers=3,
+                              quant=QuantConfig(quantize_embedding=True))
+    params = tl.init_llama_params(cfg, seed=0, dist="trained_proxy",
+                                  device=cuda)
+    if layout == "planar":
+        params = _planar_params(params)
+    return cfg, params
+
+
+def _planar_params(params):
+    def conv(ql):
+        return tl.QLinear(wp=tqm.pair_to_planar(ql.wp).contiguous(),
+                          scales=ql.scales)
+
+    layers = dataclasses.replace(params.layers, **{
+        n: conv(getattr(params.layers, n))
+        for n in ("q", "k", "v", "o", "gate", "up", "down")})
+    return dataclasses.replace(params, layers=layers,
+                               embed=conv(params.embed),
+                               lm_head=conv(params.lm_head))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["pair", "planar"])
+def test_lazy_dense_forward_on_card(cuda, layout, monkeypatch):
+    """The evals' dense twin on the card at 3 layers: the lazy forward
+    (K10 for pair words, K7 for planar, 7 a layer and one for the
+    lm_head) is bit-identical to the materialized twin's and to the same
+    forward with the kernels' plain versions on the card."""
+    from quantizations_tpu_torch.evals import parity as tp
+    from quantizations_tpu_torch.ops import DEQUANTIZE_4BIT
+
+    cfg, params = _tiny_eval_params(cuda, layout)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)), dtype=torch.int32, device=cuda)
+    rec = tqz.DEQUANTIZE_4BIT_PAIR if layout == "pair" else DEQUANTIZE_4BIT
+    before = rec.launches
+    lazy = tp._dense_forward(params, ids, cfg, lazy=True)
+    torch.cuda.synchronize()
+    assert rec.launches - before == 7 * cfg.num_hidden_layers + 1
+    mat = tp._dense_forward(tp.dequantized_params(params, cfg), ids, cfg)
+    assert torch.equal(lazy, mat)
+    monkeypatch.setattr(tl, "dequantize_4bit_pair",
+                        tqz.dequantize_4bit_pair_plain)
+    monkeypatch.setattr(tl, "dequantize_4bit_kernel",
+                        tqz.dequantize_4bit_kernel_plain)
+    before = rec.launches
+    plain = tp._dense_forward(params, ids, cfg, lazy=True)
+    assert rec.launches == before
+    assert torch.equal(lazy, plain)
+    assert torch.isfinite(lazy).all()
+
+
+@pytest.mark.cuda
+def test_evals_cli_runs_on_card_by_default(cuda, monkeypatch):
+    """``python -m quantizations_tpu_torch.evals`` without ``--device``
+    runs on the card: its parity launches K1 (the quantized arm) and K10
+    (the dense twin), and prints finite numbers."""
+    import contextlib
+    import io
+    import json
+
+    from quantizations_tpu_torch.evals import __main__ as cli
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    k1, k10 = PAIR_MATMUL.launches, tqz.DEQUANTIZE_4BIT_PAIR.launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--preset", "tiny", "--proxy", "--parity",
+                  "--parity-control", "--parity-tokens", "16"])
+    torch.cuda.synchronize()
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    L = tl.TINY_LLAMA.num_hidden_layers
+    assert PAIR_MATMUL.launches - k1 == 7 * L + 1
+    assert tqz.DEQUANTIZE_4BIT_PAIR.launches - k10 == 3 * (7 * L + 1)
+    for rep in out.values():
+        assert all(np.isfinite(v) for v in rep.values())

@@ -306,3 +306,39 @@ def test_unported_knobs_raise(models, knob):
     with pytest.raises(NotImplementedError, match="not ported"):
         tl.prefill(tp, torch.zeros((1, 2), dtype=torch.int32), cache,
                    tl.TINY_LLAMA, **{knob: "tp"})
+
+
+# -- A.5: the presets and KVCache.create's kv_heads / dtype -------------------
+
+@pytest.mark.parametrize("name", ["LLAMA3_8B", "LLAMA3_70B", "GEMMA2_9B",
+                                  "TINY_LLAMA"])
+def test_presets_equal_the_reference(name):
+    want, got = getattr(jl, name), getattr(tl, name)
+    skip = {"quant"}          # each package's own QuantConfig class
+    fields = {f.name for f in dataclasses.fields(jl.LlamaConfig)} - skip
+    assert fields <= {f.name for f in dataclasses.fields(tl.LlamaConfig)}
+    for f in sorted(fields):
+        assert getattr(got, f) == getattr(want, f), (name, f)
+    assert (got.q_size, got.kv_size) == (want.q_size, want.kv_size)
+
+
+def _cache_spec(cache):
+    """{field: (shape, dtype name)} of a cache of either package."""
+    return {f.name: (tuple(v.shape), str(v.dtype).split(".")[-1])
+            for f in dataclasses.fields(cache)
+            if (v := getattr(cache, f.name)) is not None}
+
+
+@pytest.mark.parametrize("kv_heads", [None, 2])
+@pytest.mark.parametrize("dtype", [None, "int8", "float32", "bfloat16"])
+@pytest.mark.parametrize("kv_cache_dtype", ["bf16", "int8"])
+def test_kv_cache_create_kv_heads_and_dtype(kv_heads, dtype, kv_cache_dtype):
+    jcfg = dataclasses.replace(jl.TINY_LLAMA, kv_cache_dtype=kv_cache_dtype)
+    tcfg = dataclasses.replace(tl.TINY_LLAMA, kv_cache_dtype=kv_cache_dtype)
+    jd = None if dtype is None else getattr(jnp, dtype)
+    td = None if dtype is None else getattr(torch, dtype)
+    want = jl.KVCache.create(jcfg, 3, 16, kv_heads=kv_heads, dtype=jd)
+    got = tl.KVCache.create(tcfg, 3, 16, device="cpu", kv_heads=kv_heads,
+                            dtype=td)
+    assert _cache_spec(got) == _cache_spec(want)
+    assert all(bool((t == 0).all()) for _, t in tl.named_tensors(got))

@@ -313,3 +313,170 @@ def test_quant_config_accepts_every_decode_value():
     assert {f.name for f in dataclasses.fields(QuantConfig)} == jf
     assert ServeConfig().tp == JServeConfig().tp == 1
     assert ServeConfig(mesh_shape=(2, 4), mesh_axes=("dp", "tp")).tp == 4
+
+
+# -- the stochastic quantizer (A.5): JAX's uniforms injected ------------------
+
+def _stoch_inputs(n=4096, seed=0):
+    import jax
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, n).astype(np.float32)
+    x[:8] = [-1.0, 1.0, 0.0, -0.0, 1.5, -1.5, 1e-9, -1e-9]  # ends, outside
+    key = jax.random.PRNGKey(seed)
+    r = np.asarray(jax.random.uniform(key, (n,), jnp.float32))
+    return x, key, r
+
+
+def test_stochastic_codes_equal_jax_with_its_uniforms():
+    code = jcb.create_dynamic_map().astype(np.float32)
+    x, key, r = _stoch_inputs()
+    want = np.asarray(jq.quantize_codebook_codes_stochastic(
+        jnp.asarray(x), jnp.asarray(code), key))
+    got = tq.stochastic_codes_from_uniforms(
+        torch.from_numpy(x), torch.from_numpy(code), torch.from_numpy(r))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_stochastic_blockwise_equals_jax_with_its_uniforms(monkeypatch):
+    """``quantize_blockwise(stochastic=True)``: the JAX package's codes and
+    absmax when the port draws JAX's uniforms (over the padded blocks)."""
+    import jax
+
+    from quantizations_tpu_torch.quant import functional as tf
+
+    rng = np.random.default_rng(1)
+    A = rng.standard_normal((3, 300)).astype(np.float32)   # pads to 1024
+    key = jax.random.PRNGKey(7)
+    want_q, want_s = jq.quantize_blockwise(jnp.asarray(A), blocksize=256,
+                                           stochastic=True, key=key)
+    r = torch.from_numpy(np.asarray(jax.random.uniform(key, (1024,),
+                                                       jnp.float32)))
+    monkeypatch.setattr(tf, "quantize_codebook_codes_stochastic",
+                        lambda x, code, g: tf.stochastic_codes_from_uniforms(
+                            x, code, r))
+    q, st = tq.quantize_blockwise(torch.from_numpy(A), blocksize=256,
+                                  stochastic=True,
+                                  generator=torch.Generator())
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(st.absmax.numpy(),
+                                  np.asarray(want_s.absmax))
+
+
+def test_stochastic_draws_are_unbiased_and_bracketing():
+    """With the port's own draws: every code is one of the two entries
+    bracketing x, and the mean dequantized value over 4000 draws is x
+    (within 5 standard errors)."""
+    code = torch.from_numpy(jcb.create_dynamic_map().astype(np.float32))
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        -0.9, 0.9, 64).astype(np.float32))
+    g = torch.Generator()
+    g.manual_seed(0)
+    n = 4000
+    draws = torch.stack([tq.quantize_codebook_codes_stochastic(x, code, g)
+                         for _ in range(n)]).long()
+    hi = torch.searchsorted(code, x, side="left")
+    lo = hi - 1
+    assert ((draws == hi) | (draws == lo)).all()
+    vals = code[draws]
+    se = (code[hi] - code[lo]) / (2 * n ** 0.5)
+    assert ((vals.mean(0) - x).abs() <= 5 * se + 1e-7).all()
+    # the deterministic rounding is biased on the same inputs
+    det = code[tq.quantize_codebook_codes(x, code).long()]
+    assert (det - x).abs().max() > 10 * se.max()
+
+
+def test_stochastic_needs_a_generator():
+    with pytest.raises(ValueError, match="Generator"):
+        tq.quantize_blockwise(torch.ones(256), stochastic=True)
+    with pytest.raises(ValueError, match="key"):
+        jq.quantize_blockwise(jnp.ones(256), stochastic=True)
+
+
+# -- use_pallas= and dequantize_permuted(lut=) (A.5's API gaps) ---------------
+
+@pytest.mark.parametrize("layout,scales", [("pair", "fp32"),
+                                           ("pair", "bf16x2"),
+                                           ("planar", "fp32")])
+@pytest.mark.parametrize("tokens", [1, 8, 300])
+def test_apply_4bit_use_pallas_false_matches_jax(layout, scales, tokens,
+                                                  monkeypatch):
+    """``use_pallas=False`` is the JAX package's XLA path, launching no
+    kernel: every plain kernel version is patched to raise here."""
+    from quantizations_tpu.nn import linear as jlin
+    from quantizations_tpu_torch.nn import linear as tlin
+
+    rng = np.random.default_rng(3)
+    M, K = 256, 512
+    W = rng.standard_normal((M, K)).astype(np.float32) * 0.02
+    x = rng.standard_normal((tokens, K)).astype(np.float32)
+    lin = tlin.Linear4bit.create(W, device="cpu", layout=layout,
+                                 use_pallas=False)
+    wp, sc = lin.weight.wp, lin.weight.scales
+    if scales == "bf16x2":
+        sc = tqm.pack_scale_pairs(sc)
+    jsc = jnp.asarray(sc.numpy())
+    want = np.asarray(jlin.apply_4bit(jnp.asarray(x), jnp.asarray(wp.numpy()),
+                                      jsc, "fp4", use_pallas=False))
+    for name in ("matmul_4bit_pair", "matmul_4bit_planar", "gemv_4bit",
+                 "dense_matmul_pair", "dequantize_4bit_kernel"):
+        monkeypatch.setattr(tlin, name, lambda *a, **k: 1 / 0)
+    got = tlin.apply_4bit(torch.from_numpy(x), wp, sc, "fp4",
+                          use_pallas=False)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    assert lin.use_pallas is False
+    if scales == "fp32":         # the layer holds the fp32 scales
+        y = lin(torch.from_numpy(x))
+        np.testing.assert_allclose(y.float().numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_linear4bit_use_pallas_defaults_true():
+    from quantizations_tpu_torch.nn.linear import Linear4bit
+
+    W = np.random.default_rng(4).standard_normal((64, 128)).astype(np.float32)
+    assert Linear4bit.create(W, device="cpu").use_pallas is True
+
+
+@pytest.mark.parametrize("quant_type,lut", [("fp4", "fp4_bits"),
+                                            ("fp4", "tree"), ("fp4", "take"),
+                                            ("nf4", "tree"), ("nf4", "take"),
+                                            ("fp4", None), ("nf4", None)])
+def test_dequantize_permuted_lut_matches_jax(quant_type, lut):
+    from quantizations_tpu.nn import linear as jlin
+    from quantizations_tpu_torch.nn import linear as tlin
+
+    rng = np.random.default_rng(5)
+    wp = rng.integers(-2 ** 31, 2 ** 31 - 1, (32, 16), dtype=np.int64
+                      ).astype(np.int32)
+    sc = rng.uniform(0.1, 2.0, (32, 2)).astype(np.float32)
+    want = np.asarray(jlin.dequantize_permuted(
+        jnp.asarray(wp), jnp.asarray(sc), quant_type, dtype=jnp.float32,
+        lut=lut))
+    got = tlin.dequantize_permuted(torch.from_numpy(wp),
+                                   torch.from_numpy(sc), quant_type,
+                                   dtype=torch.float32, lut=lut)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dequantize_permuted_lut_refusals():
+    """``fp4_bits`` on the NF4 table raises ValueError in both packages;
+    an unknown name raises ValueError here (KeyError in the JAX
+    package)."""
+    from quantizations_tpu.nn import linear as jlin
+    from quantizations_tpu_torch.nn import linear as tlin
+
+    wp, sc = torch.zeros((2, 8), dtype=torch.int32), torch.ones((2, 1))
+    with pytest.raises(ValueError, match="fp4_bits"):
+        tlin.dequantize_permuted(wp, sc, "nf4", lut="fp4_bits")
+    with pytest.raises(ValueError, match="fp4_bits"):
+        jlin.dequantize_permuted(jnp.zeros((2, 8), jnp.int32),
+                                 jnp.ones((2, 1)), "nf4", lut="fp4_bits")
+    with pytest.raises(ValueError, match="lut"):
+        tlin.dequantize_permuted(wp, sc, "fp4", lut="bogus")
+    with pytest.raises(KeyError):
+        jlin.dequantize_permuted(jnp.zeros((2, 8), jnp.int32),
+                                 jnp.ones((2, 1)), "fp4", lut="bogus")
