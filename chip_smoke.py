@@ -3720,6 +3720,27 @@ LOG_ROW_STD_BAND = (0.35, 0.45)
 OUTLIER_SDS = 5                # binomial standard deviations around 0.5%
 
 
+def _model_path_attention(q, k, v, mask, cfg):
+    """``evals/parity.py _attention`` with the roundings the model path's
+    einsum branch has on the card (``models/llama.py _slot_attend``): q,
+    K and V in bf16 (K and V as the bf16 cache holds them), the softmax
+    weights rounded to bf16, fp32 products, sums and softmax."""
+    B, T, n_q, D = q.shape
+    n_kv = k.shape[2]
+    bf = torch.bfloat16
+    qg = q.reshape(B, T, n_kv, n_q // n_kv, D).to(bf).float()
+    scores = torch.einsum("btkgd,bskd->btkgs", qg, k.to(bf).float()) * (
+        (cfg.query_scale or D) ** -0.5)
+    if cfg.attn_logit_softcap is not None:
+        cap = cfg.attn_logit_softcap
+        scores = cap * torch.tanh(scores / cap)
+    scores = scores.masked_fill(~mask[:, :, None, None, :], -1e30)
+    w = torch.softmax(scores, dim=-1)
+    attn = torch.einsum("btkgs,bskd->btkgd", w.to(bf).float(),
+                        v.to(bf).float())
+    return attn.reshape(B * T, n_q * D)
+
+
 def _proxy_stats(x, row, outlier):
     """(excess kurtosis and variance of the t-draws ``x``, std of the log
     row norms of ``x * row * outlier``, share of outlier columns), the
@@ -3824,7 +3845,10 @@ def phase_evals(dev, results):
     ``logit_parity`` over 128 ids from ``default_rng(0)`` with bf16 KV,
     int8 KV and the dense-twin control, each with exact K1/K10 counts
     (K1 on the 128-row prefill, K10 on the lazy twin, 7 a layer and one
-    for the lm_head; the control arm K10 on both sides); the lazy twin's
+    for the lm_head; the control arm K10 on both sides); the bf16 and
+    control runs again against a twin whose attention rounds q, K, V and
+    the softmax weights to bf16 as the model path does on the card (a
+    diagnostic of the control's floor, reported, not held); the lazy twin's
     logits against the materialized twin's, bit for bit; the IFEval proxy
     (109 examples, 8 slots, 32 new tokens) through the slot ``Engine``,
     each arm's counts exact (the twin arm no K1, the quantized arm no K10)
@@ -3930,6 +3954,34 @@ def phase_evals(dev, results):
                                / reports["bf16"]["report"]["mean_kl"])
     log(f"  control KL / quantized KL: {rec['control_kl_share']:.4f}")
 
+    # -- the control's floor: the same runs against a twin whose attention
+    # rounds as the model path's does on the card (a diagnostic) --
+    fp32_attention = parity._attention
+    parity._attention = _model_path_attention
+    try:
+        rounded = {}
+        for name, c, want in (
+                ("bf16", cfg, {PAIR_MATMUL.name: per,
+                               DEQUANTIZE_4BIT_PAIR.name: per}),
+                ("control", twin, {DEQUANTIZE_4BIT_PAIR.name: 2 * per})):
+            rep, wall, n = _counted(
+                lambda: parity.logit_parity(params, c, ids))
+            _expect(f"parity {name}, rounded twin", n, want)
+            add(n)
+            rep = rep.to_dict()
+            if not all(math.isfinite(v) for v in rep.values()):
+                raise AssertionError(f"parity {name}, rounded twin: {rep}")
+            rounded[name] = rep
+            log(f"  parity {name} against the twin with the model path's "
+                f"attention roundings: {rep}")
+    finally:
+        parity._attention = fp32_attention
+    rec["parity_rounded_twin"] = rounded
+    rec["control_kl_share_rounded"] = (
+        rounded["control"]["mean_kl"] / rounded["bf16"]["mean_kl"])
+    log(f"  with those roundings, control KL / quantized KL: "
+        f"{rec['control_kl_share_rounded']:.4f}")
+
     # -- the lazy twin against the materialized one, bit for bit --
     def both():
         dense = parity.dequantized_params(params, cfg)
@@ -4021,20 +4073,26 @@ def phase_evals(dev, results):
     results["launches_evals"] = totals
 
 
-def phase_profile(dev, results):
-    """Where one FP4 batch-1 generate spends its time: ``torch.profiler``
-    over one warm generate of 8 new tokens (few, to keep the trace
-    small), the device kernels summed by name, the device's busy share
-    of the generate's wall time (CUDA events) and the host's enqueue time
-    (the generate call returning before the device finishes). The
-    profiler slows the host, so the busy share here is a lower bound."""
-    from torch.profiler import ProfilerActivity, profile
+# the profile phase's Chrome trace (tens of MB): a gitignored build folder
+PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "quantizations_tpu_torch", "build", "profile")
 
+
+def phase_profile(dev, results):
+    """Where one FP4 batch-1 generate spends its time: ``utils/profiling
+    trace()`` (``torch.profiler``, its Chrome trace written under
+    :data:`PROFILE_DIR`) over one warm generate of 8 new tokens (few, to
+    keep the trace small), the device kernels summed by name, the
+    device's busy share of the generate's wall time (CUDA events) and the
+    host's enqueue time (the generate call returning before the device
+    finishes). The profiler slows the host, so the busy share here is a
+    lower bound."""
     from quantizations_tpu_torch.config import QuantConfig, ServeConfig
     from quantizations_tpu_torch.models.llama import (LLAMA3_8B, KVCache,
                                                       fuse_projections,
                                                       init_llama_params)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
+    from quantizations_tpu_torch.utils.profiling import trace
 
     serve = ServeConfig(max_seq_len=128, max_new_tokens=8, temperature=0.0)
     cfg = dataclasses.replace(LLAMA3_8B,
@@ -4048,14 +4106,16 @@ def phase_profile(dev, results):
     cache = KVCache.create(cfg, 1, serve.max_seq_len, dev)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_trace = time.perf_counter()
+    with trace(PROFILE_DIR) as prof:
         t0 = time.perf_counter()
         start.record()
         gen(params, ids, cache, None)
         end.record()
         host_s = time.perf_counter() - t0
         end.synchronize()
+    trace_s = time.perf_counter() - t_trace
+    trace_mb = os.path.getsize(os.path.join(PROFILE_DIR, "trace.json")) / 1e6
     wall_s = start.elapsed_time(end) / 1e3
     by_name, n_kernels = {}, 0
     for e in prof.events():
@@ -4071,12 +4131,14 @@ def phase_profile(dev, results):
     results["profile"] = dict(
         wall_s=wall_s, host_enqueue_s=host_s, device_busy_s=busy_s,
         device_busy_share=busy_s / wall_s, kernels=n_kernels,
-        kernels_per_forward=n_kernels / steps,
+        kernels_per_forward=n_kernels / steps, trace_s=trace_s,
+        trace_mb=trace_mb,
         top=[dict(name=n[:120], s=s, share=s / busy_s) for n, s in top])
     log(f"  fp4 B=1 generate: wall {wall_s:.4f} s (CUDA events), host "
         f"enqueue {host_s:.4f} s, device busy {busy_s:.4f} s "
         f"({100 * busy_s / wall_s:.1f}% of wall), {n_kernels} device "
-        f"kernels ({n_kernels / steps:.0f} per forward)")
+        f"kernels ({n_kernels / steps:.0f} per forward); the traced "
+        f"block and its Chrome trace ({trace_mb:.1f} MB) {trace_s:.2f} s")
     for n, s in top:
         log(f"    {s * 1e3:9.2f} ms  {100 * s / busy_s:5.1f}%  {n[:90]}")
     del params

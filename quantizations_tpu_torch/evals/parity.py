@@ -39,8 +39,8 @@ from ..models.llama import (
 )
 from ..nn.linear import dense_product
 
-__all__ = ["dequantized_params", "logit_parity", "perplexity",
-           "ParityReport"]
+__all__ = ["dequantized_params", "logit_parity", "parity_report",
+           "perplexity", "ParityReport"]
 
 # above this many bytes of dense bf16 weights the twin runs lazily
 LAZY_TWIN_BYTES = 4 * 2 ** 30
@@ -103,6 +103,25 @@ def _layer(st: LlamaLayer, i: int, qt: str, lazy: bool) -> LlamaLayer:
         f.name: take(getattr(st, f.name)) for f in dataclasses.fields(st)})
 
 
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Causal attention of ``q [B, T, n_q, D]`` over ``k, v [B, T, n_kv,
+    D]`` under ``mask [1, T, T]``, with the family's softcap: fp32
+    operands, products, sums and softmax. Returns ``[B*T, n_q*D]``."""
+    B, T, n_q, D = q.shape
+    n_kv = k.shape[2]
+    qg = q.reshape(B, T, n_kv, n_q // n_kv, D).float()
+    scores = torch.einsum("btkgd,bskd->btkgs", qg, k.float()) * (
+        (cfg.query_scale or D) ** -0.5)
+    if cfg.attn_logit_softcap is not None:
+        cap = cfg.attn_logit_softcap
+        scores = cap * torch.tanh(scores / cap)
+    scores = scores.masked_fill(~mask[:, :, None, None, :], -1e30)
+    w = torch.softmax(scores, dim=-1)
+    attn = torch.einsum("btkgs,bskd->btkgd", w, v.float())
+    return attn.reshape(B * T, n_q * D)
+
+
 def _dense_forward(dense: LlamaParams, token_ids: torch.Tensor,
                    cfg: LlamaConfig, lazy: bool = False) -> torch.Tensor:
     """Causal forward of the dequantized-dense model: logits ``[B, T,
@@ -143,7 +162,6 @@ def _dense_forward(dense: LlamaParams, token_ids: torch.Tensor,
             mask = mask_win if use_win else mask_full
         n_q = lay.q.shape[0] // D
         n_kv = lay.k.shape[0] // D
-        G = n_q // n_kv
         xa = _norm(x, lay.attn_norm, cfg)
         x2 = xa.reshape(B * T, -1)
         q = proj(x2, lay.q)
@@ -161,16 +179,8 @@ def _dense_forward(dense: LlamaParams, token_ids: torch.Tensor,
             k = rms_norm(k, lay.k_norm, cfg.rms_norm_eps)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        qg = q.reshape(B, T, n_kv, G, D).float()
-        scores = torch.einsum("btkgd,bskd->btkgs", qg, k.float()) * (
-            (cfg.query_scale or D) ** -0.5)
-        if cfg.attn_logit_softcap is not None:
-            cap = cfg.attn_logit_softcap
-            scores = cap * torch.tanh(scores / cap)
-        scores = scores.masked_fill(~mask[:, :, None, None, :], -1e30)
-        w = torch.softmax(scores, dim=-1)
-        attn = torch.einsum("btkgs,bskd->btkgd", w, v.float())
-        o = proj(attn.reshape(B * T, -1), lay.o)
+        attn = _attention(q, k, v, mask, cfg)
+        o = proj(attn, lay.o)
         ob = o.reshape(B, T, -1)
         if lay.post_attn_norm is not None:
             ob = _norm(ob, lay.post_attn_norm, cfg)
@@ -247,15 +257,26 @@ def logit_parity(params: LlamaParams, cfg: LlamaConfig,
         dense = params if lazy else dequantized_params(params, cfg)
         dl = _dense_forward(dense, token_ids, cfg, lazy=lazy)
         del dense
-        qlp = torch.log_softmax(ql.float(), dim=-1)
-        dlp = torch.log_softmax(dl.float(), dim=-1)
-        top1 = float((ql.argmax(-1) == dl.argmax(-1)).float().mean())
-        kl = float((torch.exp(dlp) * (dlp - qlp)).sum(-1).mean())
-        mad = float((ql - dl).abs().max())
-        return ParityReport(top1_agreement=top1, mean_kl=kl,
-                            max_abs_logit_delta=mad,
-                            ppl_quant=_next_token_ppl(qlp, token_ids),
-                            ppl_dense=_next_token_ppl(dlp, token_ids))
+        return parity_report(ql, dl, token_ids)
+
+
+def parity_report(ql: torch.Tensor, dl: torch.Tensor,
+                  token_ids: torch.Tensor) -> ParityReport:
+    """The deltas of the quantized model's logits ``ql`` against the
+    dense twin's ``dl`` (both ``[B, T, vocab]``) over ``token_ids [B,
+    T]``: the share of positions with the same argmax, the mean over
+    positions of KL(dense || quantized) summed over the vocabulary, the
+    largest logit difference, and each model's next-token perplexity on
+    the stream."""
+    qlp = torch.log_softmax(ql.float(), dim=-1)
+    dlp = torch.log_softmax(dl.float(), dim=-1)
+    top1 = float((ql.argmax(-1) == dl.argmax(-1)).float().mean())
+    kl = float((torch.exp(dlp) * (dlp - qlp)).sum(-1).mean())
+    mad = float((ql - dl).abs().max())
+    return ParityReport(top1_agreement=top1, mean_kl=kl,
+                        max_abs_logit_delta=mad,
+                        ppl_quant=_next_token_ppl(qlp, token_ids),
+                        ppl_dense=_next_token_ppl(dlp, token_ids))
 
 
 def perplexity(params: LlamaParams, cfg: LlamaConfig,

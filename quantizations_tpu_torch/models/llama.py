@@ -75,7 +75,6 @@ __all__ = [
     "LlamaLayer",
     "LlamaParams",
     "KVCache",
-    "kv_storage_dtype",
     "quantize_linear",
     "init_llama_params",
     "fuse_projections",
@@ -269,15 +268,6 @@ class LlamaParams:
     lm_head: Union[torch.Tensor, QLinear]   # 4-bit or bf16 [vocab, hidden]
 
 
-def kv_storage_dtype(cfg: LlamaConfig,
-                     dtype: Optional[torch.dtype] = None) -> torch.dtype:
-    """The element type of a KV cache: ``dtype`` when given, else int8
-    for ``kv_cache_dtype="int8"`` and bf16 for any other value."""
-    if dtype is not None:
-        return dtype
-    return torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
-
-
 @dataclasses.dataclass
 class KVCache:
     """Preallocated KV cache ``[L, B, kv_heads, max_seq, head_dim]``: bf16
@@ -298,25 +288,19 @@ class KVCache:
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_seq: int,
-               device: Union[str, torch.device] = "cuda",
-               kv_heads: Optional[int] = None,
-               dtype: Optional[torch.dtype] = None) -> "KVCache":
-        """``kv_heads`` (default: the config's) and ``dtype`` (default:
-        int8 for ``kv_cache_dtype="int8"``, else bf16) as in the JAX
-        package; an int8 ``dtype`` gives the int8 cache with its steps."""
+               device: Union[str, torch.device] = "cuda") -> "KVCache":
         dev = resolve_device(device)
-        kv = cfg.num_key_value_heads if kv_heads is None else kv_heads
-        shape = (cfg.num_hidden_layers, batch, kv, max_seq, cfg.head_dim)
-        dtype = kv_storage_dtype(cfg, dtype)
-        if dtype == torch.int8:
+        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
+                 max_seq, cfg.head_dim)
+        if cfg.kv_cache_dtype == "int8":
             return cls(k=torch.zeros(shape, dtype=torch.int8, device=dev),
                        v=torch.zeros(shape, dtype=torch.int8, device=dev),
                        k_scale=torch.zeros(shape[:4], dtype=torch.bfloat16,
                                            device=dev),
                        v_scale=torch.zeros(shape[:4], dtype=torch.bfloat16,
                                            device=dev))
-        return cls(k=torch.zeros(shape, dtype=dtype, device=dev),
-                   v=torch.zeros(shape, dtype=dtype, device=dev))
+        return cls(k=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                   v=torch.zeros(shape, dtype=torch.bfloat16, device=dev))
 
     @property
     def max_seq(self) -> int:

@@ -30,7 +30,7 @@ import torch
 from ..config import FP4_DECODES, PAIR_PIPELINES
 from ..device import resolve_device
 from ..ops.gemv import _SHIFTS, gemv_4bit, pack_i32_rows
-from ..ops.lut import LUT_NAMES, lut_fp4_bits, lut_take, lut_tree
+from ..ops.lut import lut_fp4_bits, lut_tree
 from ..ops.quantize import dequantize_4bit_kernel, dequantize_4bit_pair
 from ..ops.qmatmul import (
     manual_vmem_ok,
@@ -46,8 +46,8 @@ from ..quant.codebooks import get_4bit_code
 from ..quant.functional import dequantize_absmax, quantize_4bit
 from ..quant.state import QuantState
 
-__all__ = ["apply_4bit", "apply_4bit_plain", "dense_matmul_pair",
-           "dense_matmul_pair_plain", "dense_product", "dequantize_permuted",
+__all__ = ["apply_4bit", "dense_matmul_pair", "dense_matmul_pair_plain",
+           "dense_product", "dequantize_permuted",
            "permute_cols", "dense_weight", "kernel_activation",
            "pair_max_tokens", "qmm_ok", "gemv_activation", "manual_ok",
            "Params4bit", "Linear4bit", "PAIR_QMATMUL_MAX_TOKENS",
@@ -115,36 +115,20 @@ def gemv_activation(x2: torch.Tensor, compute_dtype: Any) -> torch.Tensor:
     return x.contiguous()
 
 
-def _lut_decode(lut: Optional[str], quant_type: str):
-    """The ``codes -> values`` decode a ``lut`` name selects: ``"tree"``,
-    ``"fp4_bits"`` (FP4 only) or ``"take"``, all exact; None is
-    ``"fp4_bits"`` for FP4 and ``"tree"`` otherwise. Raises ValueError
-    for another name, or ``"fp4_bits"`` with another codebook, where the
-    JAX package raises KeyError / ValueError."""
-    if lut is None:
-        lut = "fp4_bits" if quant_type == "fp4" else "tree"
-    if lut not in LUT_NAMES:
-        raise ValueError(f"lut {lut!r} not in {LUT_NAMES}")
-    if lut == "fp4_bits":
-        if quant_type != "fp4":
-            raise ValueError(
-                "lut 'fp4_bits' is only exact for the FP4 codebook")
-        return lut_fp4_bits
-    table = get_4bit_code(quant_type)
-    fn = lut_tree if lut == "tree" else lut_take
-    return lambda codes: fn(codes, table)
+def _decode(codes: torch.Tensor, quant_type: str) -> torch.Tensor:
+    if quant_type == "fp4":
+        return lut_fp4_bits(codes)
+    return lut_tree(codes, get_4bit_code(quant_type))
 
 
 def dequantize_permuted(wp: torch.Tensor, scales: torch.Tensor,
-                        quant_type: str, dtype: Any = torch.bfloat16,
-                        lut: Optional[str] = None) -> torch.Tensor:
+                        quant_type: str, dtype: Any = torch.bfloat16
+                        ) -> torch.Tensor:
     """Dequantize planar words to a column-permuted ``[M, K]`` where
     column ``j*K/8 + c`` holds original element ``8c + j``: fp32 decode
-    times fp32 scale, then cast to ``dtype``. ``lut`` names the decode
-    (:func:`_lut_decode`); every one gives the same values."""
-    decode = _lut_decode(lut, quant_type)
+    times fp32 scale, then cast to ``dtype``."""
     srep8 = scales.to(torch.float32).repeat_interleave(8, dim=1)  # [M, K/8]
-    planes = [(decode((wp >> s) & 15) * srep8).to(dtype)
+    planes = [(_decode((wp >> s) & 15, quant_type) * srep8).to(dtype)
               for s in _SHIFTS]
     return torch.cat(planes, dim=1)
 
@@ -206,11 +190,10 @@ def dense_matmul_pair_plain(x2: torch.Tensor, wp2: torch.Tensor,
     NB = scales.shape[-1]
     xf = pair_permute_activation(x2.to(compute_dtype)).reshape(T, 4 * K4)
     rep = K4 // NB
-    decode = _lut_decode(None, quant_type)
     ys = []
     for rows, base in ((slice(0, None, 2), 0), (slice(1, None, 2), 16)):
         srep = scales[rows, :].to(torch.float32).repeat(1, rep)
-        planes = [(decode((wp2 >> (base + 4 * p)) & 15) * srep
+        planes = [(_decode((wp2 >> (base + 4 * p)) & 15, quant_type) * srep
                    ).to(compute_dtype) for p in range(4)]
         Wh = torch.cat(planes, dim=1)                   # [M/2, K] pair cols
         ys.append(xf.float() @ Wh.float().T)
@@ -233,27 +216,10 @@ def dense_matmul_pair(x2: torch.Tensor, wp2: torch.Tensor,
     return dense_product(x2.to(compute_dtype), W)
 
 
-def apply_4bit_plain(x2: torch.Tensor, wp: torch.Tensor,
-                     scales: torch.Tensor, quant_type: str,
-                     compute_dtype: Any = torch.bfloat16) -> torch.Tensor:
-    """The JAX package's XLA path (``use_pallas=False``), in plain torch
-    on any device: pair words back to planar and ``bf16x2`` scales
-    unpacked, the column-permuted weight in ``compute_dtype``
-    (:func:`dequantize_permuted`) and the permuted activation, their
-    products summed in fp32. Returns fp32 ``[T, M]``."""
-    if scales.dtype == torch.int32 or wp.shape[-2] != scales.shape[-2]:
-        wp = pair_to_planar(wp)
-        if scales.dtype == torch.int32:
-            scales = unpack_scale_pairs(scales)
-    W = dequantize_permuted(wp, scales, quant_type, dtype=compute_dtype)
-    xp = permute_cols(x2.to(compute_dtype))
-    return xp.float() @ W.float().T
-
-
 def apply_4bit(x2: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
                quant_type: str, compute_dtype: Any = torch.bfloat16,
-               pair_pipeline: str = "grid", fp4_decode: str = "arith",
-               use_pallas: bool = True) -> torch.Tensor:
+               pair_pipeline: str = "grid", fp4_decode: str = "arith"
+               ) -> torch.Tensor:
     """``x2 [T, K] @ dequant(wp, scales).T -> [T, M]`` fp32.
 
     Pair weights: for ``T <= pair_max_tokens()`` token rows (any T; the
@@ -265,11 +231,7 @@ def apply_4bit(x2: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
     ``T <= QMATMUL_MAX_TOKENS`` with :func:`qmm_ok`, else K6 for
     ``T <= GEMV_MAX_TOKENS``, else the dense path: K7 dequantizes to
     ``compute_dtype`` (fp32 decode x fp32 scale, the values of the JAX
-    package's XLA dequant) and :func:`dense_product` multiplies.
-    ``use_pallas=False`` launches no kernel: :func:`apply_4bit_plain`,
-    the path the JAX package takes then."""
-    if not use_pallas:
-        return apply_4bit_plain(x2, wp, scales, quant_type, compute_dtype)
+    package's XLA dequant) and :func:`dense_product` multiplies."""
     tokens = x2.shape[0]
     spacked = scales.dtype == torch.int32
     pair = spacked or wp.shape[-2] != scales.shape[-2]
@@ -356,13 +318,11 @@ class Linear4bit(torch.nn.Module):
     quantizes a full-precision weight) or from loaded parts
     (:func:`~quantizations_tpu_torch.quant.bnb_io.load_bnb_linear4bit`).
     Callable on ``[..., in_features]``. ``pair_pipeline`` (``"grid"`` or
-    ``"manual"``), ``fp4_decode`` and ``use_pallas`` (False: no kernel,
-    :func:`apply_4bit_plain`) are passed to :func:`apply_4bit`."""
+    ``"manual"``) and ``fp4_decode`` are passed to :func:`apply_4bit`."""
 
     def __init__(self, weight: Params4bit, bias: Optional[torch.Tensor] = None,
                  compute_dtype: Any = torch.bfloat16,
-                 pair_pipeline: str = "grid", fp4_decode: str = "arith",
-                 use_pallas: bool = True):
+                 pair_pipeline: str = "grid", fp4_decode: str = "arith"):
         super().__init__()
         if pair_pipeline not in PAIR_PIPELINES:
             raise ValueError(f"pair_pipeline {pair_pipeline!r} not in "
@@ -375,7 +335,6 @@ class Linear4bit(torch.nn.Module):
         self.compute_dtype = compute_dtype
         self.pair_pipeline = pair_pipeline
         self.fp4_decode = fp4_decode
-        self.use_pallas = use_pallas
 
     @property
     def in_features(self) -> int:
@@ -396,8 +355,8 @@ class Linear4bit(torch.nn.Module):
                compress_statistics: bool = True, quant_type: str = "fp4",
                blocksize: int = 64, layout: str = "planar",
                device: Union[str, torch.device] = "cuda",
-               pair_pipeline: str = "grid", fp4_decode: str = "arith",
-               use_pallas: bool = True) -> "Linear4bit":
+               pair_pipeline: str = "grid", fp4_decode: str = "arith"
+               ) -> "Linear4bit":
         """Quantize ``W [out, in]`` on ``device`` into a layer."""
         dev = resolve_device(device)
         params = Params4bit.quantize(
@@ -407,8 +366,7 @@ class Linear4bit(torch.nn.Module):
         if bias is not None:
             bias = torch.as_tensor(bias, device=dev)
         return cls(params, bias=bias, compute_dtype=compute_dtype,
-                   pair_pipeline=pair_pipeline, fp4_decode=fp4_decode,
-                   use_pallas=use_pallas)
+                   pair_pipeline=pair_pipeline, fp4_decode=fp4_decode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x [..., in] -> [..., out]``: cast to ``compute_dtype``, the
@@ -420,8 +378,7 @@ class Linear4bit(torch.nn.Module):
                          self.quant_state.quant_type,
                          compute_dtype=self.compute_dtype,
                          pair_pipeline=self.pair_pipeline,
-                         fp4_decode=self.fp4_decode,
-                         use_pallas=self.use_pallas)
+                         fp4_decode=self.fp4_decode)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out.reshape(*lead, self.out_features).to(x.dtype)

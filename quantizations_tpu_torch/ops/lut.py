@@ -14,8 +14,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["lut_tree", "lut_fp4_bits", "lut_fp4_bits_raw", "lut_take",
-           "LUT_NAMES"]
+__all__ = ["lut_tree", "lut_fp4_bits", "lut_fp4_bits_raw"]
 
 
 def lut_tree(codes: torch.Tensor, table: Sequence[float]) -> torch.Tensor:
@@ -50,14 +49,3 @@ def lut_fp4_bits(codes: torch.Tensor, table: Sequence[float] = ()) -> torch.Tens
     is exactly the fp32-rounded codebook)."""
     return lut_fp4_bits_raw(codes) * torch.tensor(1.0 / 12.0,
                                                   dtype=torch.float32)
-
-
-def lut_take(codes: torch.Tensor, table: Sequence[float]) -> torch.Tensor:
-    """Direct gather from the table. Exact."""
-    tbl = torch.tensor([float(v) for v in table], dtype=torch.float32,
-                       device=codes.device)
-    return tbl[codes.long()]
-
-
-# the JAX package's plain decode names (``ops/lut.py LUT_NAMES``)
-LUT_NAMES = ("tree", "fp4_bits", "take")

@@ -35,7 +35,6 @@ from ..models.llama import (
     _kv_rows,
     _layer_forward,
     embed_tokens,
-    kv_storage_dtype,
     layer_params,
     layer_window,
     lm_head_logits,
@@ -84,18 +83,11 @@ class PagedKVCache:
 
     @classmethod
     def create(cls, cfg: LlamaConfig, num_pages: int, page_size: int = 128,
-               device: Union[str, torch.device] = "cuda",
-               kv_heads: Optional[int] = None,
-               dtype: Optional[torch.dtype] = None) -> "PagedKVCache":
-        """``kv_heads`` (default: the config's) and ``dtype`` (default:
-        int8 for ``kv_cache_dtype="int8"``, else bf16) as in the JAX
-        package; an int8 ``dtype`` gives the int8 pool with its steps."""
+               device: Union[str, torch.device] = "cuda") -> "PagedKVCache":
         dev = resolve_device(device)
-        kv = cfg.num_key_value_heads if kv_heads is None else kv_heads
-        shape = (cfg.num_hidden_layers, num_pages, kv, page_size,
-                 cfg.head_dim)
-        dtype = kv_storage_dtype(cfg, dtype)
-        if dtype == torch.int8:
+        shape = (cfg.num_hidden_layers, num_pages, cfg.num_key_value_heads,
+                 page_size, cfg.head_dim)
+        if cfg.kv_cache_dtype == "int8":
             return cls(pages_k=torch.zeros(shape, dtype=torch.int8,
                                            device=dev),
                        pages_v=torch.zeros(shape, dtype=torch.int8,
@@ -104,8 +96,10 @@ class PagedKVCache:
                                            device=dev),
                        v_scale=torch.zeros(shape[:4], dtype=torch.bfloat16,
                                            device=dev))
-        return cls(pages_k=torch.zeros(shape, dtype=dtype, device=dev),
-                   pages_v=torch.zeros(shape, dtype=dtype, device=dev))
+        return cls(pages_k=torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=dev),
+                   pages_v=torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=dev))
 
     @property
     def page_size(self) -> int:

@@ -91,6 +91,7 @@ class StepMetrics:
 
 
 def model_weight_bytes(params) -> int:
-    """Bytes of every tensor of a params tree: the weights streamed per
-    decode token."""
+    """Bytes of every tensor of a params tree, the JAX package's count.
+    With a dense embedding table this is more than a decode token
+    streams: a token reads one row of the table, not all of it."""
     return sum(t.numel() * t.element_size() for _, t in named_tensors(params))

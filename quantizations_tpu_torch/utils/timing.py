@@ -6,8 +6,11 @@ input is the previous input perturbed by ``1e-30 * sum(output)``, so the
 calls run in order and none can be skipped, while x stays numerically
 the same. The per-call time is the slope between ``iters`` and
 ``iters // 2`` calls, which cancels the fixed cost of starting and
-ending a chain. On the card the chain is timed with CUDA events; on the
-CPU, when asked, with ``time.perf_counter``.
+ending a chain. The perturbation is three small operations per call (a
+sum, a scale and an add: three kernel launches on the card), and their
+time is part of the per-call time returned. On the card the chain is
+timed with CUDA events; on the CPU, when asked, with
+``time.perf_counter``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def time_scan_chain(
     device: Union[str, torch.device] = "cuda",
 ) -> float:
     """Return the best per-call seconds of ``fn(x, *consts)`` over a
-    chain of serialized calls.
+    chain of serialized calls, each call's perturbation of x included.
 
     ``fn`` maps a tensor x (plus ``consts``, passed through) to any
     tensor. The call count grows by 4x until one chain takes at least

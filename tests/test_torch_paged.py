@@ -488,21 +488,14 @@ def test_paged_engine_page_size_pick_and_unported_paths():
         tp.PagedEngine(tparams, tcfg, mesh=object(), **ENGINE)
 
 
-@pytest.mark.parametrize("kv_heads", [None, 2])
-@pytest.mark.parametrize("dtype", [None, "int8", "float32", "bfloat16"])
 @pytest.mark.parametrize("kv_cache_dtype", ["bf16", "int8"])
-def test_paged_cache_create_kv_heads_and_dtype(kv_heads, dtype,
-                                               kv_cache_dtype):
-    """``PagedKVCache.create``'s ``kv_heads`` and ``dtype`` (A.5): the JAX
-    package's shapes and dtypes."""
+def test_paged_cache_create_matches_jax(kv_cache_dtype):
+    """``PagedKVCache.create``: the JAX package's shapes and dtypes with
+    its default ``kv_heads`` and ``dtype``."""
     jcfg = dataclasses.replace(jl.TINY_LLAMA, kv_cache_dtype=kv_cache_dtype)
     tcfg = dataclasses.replace(tl.TINY_LLAMA, kv_cache_dtype=kv_cache_dtype)
-    jd = None if dtype is None else getattr(jnp, dtype)
-    td = None if dtype is None else getattr(torch, dtype)
-    want = jp.PagedKVCache.create(jcfg, 5, page_size=16, kv_heads=kv_heads,
-                                  dtype=jd)
-    got = tp.PagedKVCache.create(tcfg, 5, page_size=16, device="cpu",
-                                 kv_heads=kv_heads, dtype=td)
+    want = jp.PagedKVCache.create(jcfg, 5, page_size=16)
+    got = tp.PagedKVCache.create(tcfg, 5, page_size=16, device="cpu")
     for name in ("pages_k", "pages_v", "k_scale", "v_scale"):
         w, g = getattr(want, name), getattr(got, name)
         assert (w is None) == (g is None), name

@@ -394,89 +394,39 @@ def test_stochastic_needs_a_generator():
         jq.quantize_blockwise(jnp.ones(256), stochastic=True)
 
 
-# -- use_pallas= and dequantize_permuted(lut=) (A.5's API gaps) ---------------
 
-@pytest.mark.parametrize("layout,scales", [("pair", "fp32"),
-                                           ("pair", "bf16x2"),
-                                           ("planar", "fp32")])
-@pytest.mark.parametrize("tokens", [1, 8, 300])
-def test_apply_4bit_use_pallas_false_matches_jax(layout, scales, tokens,
-                                                  monkeypatch):
-    """``use_pallas=False`` is the JAX package's XLA path, launching no
-    kernel: every plain kernel version is patched to raise here."""
-    from quantizations_tpu.nn import linear as jlin
+
+# -- the JAX package's knobs the port leaves out (ROADMAP queue C) ----------
+
+def _left_out_calls():
+    from quantizations_tpu_torch.models.llama import TINY_LLAMA, KVCache
     from quantizations_tpu_torch.nn import linear as tlin
-
-    rng = np.random.default_rng(3)
-    M, K = 256, 512
-    W = rng.standard_normal((M, K)).astype(np.float32) * 0.02
-    x = rng.standard_normal((tokens, K)).astype(np.float32)
-    lin = tlin.Linear4bit.create(W, device="cpu", layout=layout,
-                                 use_pallas=False)
-    wp, sc = lin.weight.wp, lin.weight.scales
-    if scales == "bf16x2":
-        sc = tqm.pack_scale_pairs(sc)
-    jsc = jnp.asarray(sc.numpy())
-    want = np.asarray(jlin.apply_4bit(jnp.asarray(x), jnp.asarray(wp.numpy()),
-                                      jsc, "fp4", use_pallas=False))
-    for name in ("matmul_4bit_pair", "matmul_4bit_planar", "gemv_4bit",
-                 "dense_matmul_pair", "dequantize_4bit_kernel"):
-        monkeypatch.setattr(tlin, name, lambda *a, **k: 1 / 0)
-    got = tlin.apply_4bit(torch.from_numpy(x), wp, sc, "fp4",
-                          use_pallas=False)
-    assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=0,
-                               atol=1e-5 * np.abs(want).max())
-    assert lin.use_pallas is False
-    if scales == "fp32":         # the layer holds the fp32 scales
-        y = lin(torch.from_numpy(x))
-        np.testing.assert_allclose(y.float().numpy(), want, rtol=0,
-                                   atol=1e-5 * np.abs(want).max())
-
-
-def test_linear4bit_use_pallas_defaults_true():
-    from quantizations_tpu_torch.nn.linear import Linear4bit
+    from quantizations_tpu_torch.serve.paged import PagedKVCache
 
     W = np.random.default_rng(4).standard_normal((64, 128)).astype(np.float32)
-    assert Linear4bit.create(W, device="cpu").use_pallas is True
-
-
-@pytest.mark.parametrize("quant_type,lut", [("fp4", "fp4_bits"),
-                                            ("fp4", "tree"), ("fp4", "take"),
-                                            ("nf4", "tree"), ("nf4", "take"),
-                                            ("fp4", None), ("nf4", None)])
-def test_dequantize_permuted_lut_matches_jax(quant_type, lut):
-    from quantizations_tpu.nn import linear as jlin
-    from quantizations_tpu_torch.nn import linear as tlin
-
-    rng = np.random.default_rng(5)
-    wp = rng.integers(-2 ** 31, 2 ** 31 - 1, (32, 16), dtype=np.int64
-                      ).astype(np.int32)
-    sc = rng.uniform(0.1, 2.0, (32, 2)).astype(np.float32)
-    want = np.asarray(jlin.dequantize_permuted(
-        jnp.asarray(wp), jnp.asarray(sc), quant_type, dtype=jnp.float32,
-        lut=lut))
-    got = tlin.dequantize_permuted(torch.from_numpy(wp),
-                                   torch.from_numpy(sc), quant_type,
-                                   dtype=torch.float32, lut=lut)
-    np.testing.assert_array_equal(got.numpy(), want)
-
-
-def test_dequantize_permuted_lut_refusals():
-    """``fp4_bits`` on the NF4 table raises ValueError in both packages;
-    an unknown name raises ValueError here (KeyError in the JAX
-    package)."""
-    from quantizations_tpu.nn import linear as jlin
-    from quantizations_tpu_torch.nn import linear as tlin
-
     wp, sc = torch.zeros((2, 8), dtype=torch.int32), torch.ones((2, 1))
-    with pytest.raises(ValueError, match="fp4_bits"):
-        tlin.dequantize_permuted(wp, sc, "nf4", lut="fp4_bits")
-    with pytest.raises(ValueError, match="fp4_bits"):
-        jlin.dequantize_permuted(jnp.zeros((2, 8), jnp.int32),
-                                 jnp.ones((2, 1)), "nf4", lut="fp4_bits")
-    with pytest.raises(ValueError, match="lut"):
-        tlin.dequantize_permuted(wp, sc, "fp4", lut="bogus")
-    with pytest.raises(KeyError):
-        jlin.dequantize_permuted(jnp.zeros((2, 8), jnp.int32),
-                                 jnp.ones((2, 1)), "fp4", lut="bogus")
+    return {
+        "apply_4bit(use_pallas=)": lambda: tlin.apply_4bit(
+            torch.ones((1, 64)), wp, sc, "fp4", use_pallas=False),
+        "Linear4bit.create(use_pallas=)": lambda: tlin.Linear4bit.create(
+            W, device="cpu", use_pallas=False),
+        "dequantize_permuted(lut=)": lambda: tlin.dequantize_permuted(
+            wp, sc, "fp4", lut="take"),
+        "KVCache.create(kv_heads=)": lambda: KVCache.create(
+            TINY_LLAMA, 1, 8, device="cpu", kv_heads=2),
+        "KVCache.create(dtype=)": lambda: KVCache.create(
+            TINY_LLAMA, 1, 8, device="cpu", dtype=torch.float32),
+        "PagedKVCache.create(kv_heads=)": lambda: PagedKVCache.create(
+            TINY_LLAMA, 4, page_size=16, device="cpu", kv_heads=2),
+        "PagedKVCache.create(dtype=)": lambda: PagedKVCache.create(
+            TINY_LLAMA, 4, page_size=16, device="cpu", dtype=torch.float32),
+    }
+
+
+@pytest.mark.parametrize("call", sorted(_left_out_calls()))
+def test_left_out_knobs_are_refused(call):
+    """No caller of either package sets these: the port has no plain
+    route selected by ``use_pallas=False``, one decode for
+    ``dequantize_permuted``, and caches shaped by the config alone."""
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        _left_out_calls()[call]()
