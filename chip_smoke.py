@@ -67,7 +67,8 @@ Phases, each raising on failure:
    (K4); NF4 at batch 1. Every generate must launch K1 exactly
    60 * (4 * 32 + 1) = 7740 times (and K3 or K4 exactly 59 * 32 = 1888
    times, K10 never) and give the same tokens on every run; tok/s is new tokens
-   over the whole generate call, from CUDA events, the median of 5
+   over the whole generate call, from CUDA events, the median of
+   TIMED_RUNS (3)
    timed runs after a warm-up, printed with their min and max. A tiny
    model then checks the CUDA path against the CPU's plain path on the
    same parameters (prefill, and a flash decode step, bf16 and int8);
@@ -85,10 +86,10 @@ Phases, each raising on failure:
    (B = 1: 7740 K5; B = 3: 128 K5 on the 48-row prefill and 7612 K6; B =
    8: 128 K7 on the 128-row prefill's dense band and 7612 K5; no K1; K5's
    split by body as ``planar_body`` says), the same tokens on every run,
-   tok/s the median of 5; each projection of the twin against K1 on the
-   pair words it came
-   from (K5 within 1e-5 * max|y|: one rounding class; K6 within 1e-2:
-   fp32 class against bf16), one decode step's logits against the pair
+   tok/s the median of TIMED_RUNS; each projection of the twin against K1
+   on the pair words it came from (K5 within 1e-5 * max|y|: one rounding
+   class; K6 within 1e-2: fp32 class against bf16), one decode step's
+   logits against the pair
    model's on the same cache (a layout check, 0.25 * max|logit|: 32
    random layers amplify rounding differences) and where the greedy
    streams part. ``Linear4bit.create`` on a [14336, 4096]
@@ -216,7 +217,31 @@ Phases, each raising on failure:
    ``python -m quantizations_tpu_torch.evals --preset 8b --proxy
    --parity --parity-control`` as a subprocess, its JSON equal to the
    direct calls field for field;
-14. ``profile``: one FP4 batch-1 generate of 8 new tokens under
+14. ``parallel``: the parallel path at Llama3-8B's full width and depth
+   (FP4, random normal weights from seed 0, 4-bit embedding and lm_head)
+   on ranks that share this one card under gloo (``parallel.launch``;
+   NCCL refuses two ranks on one GPU): TP at tp = 4 and 2 (B = 1 and 4,
+   flash attention; the manual pipeline; a ``QT_PREFILL_PAIR`` prefill of
+   512 tokens), DP x TP 2 x 2, PP 2 and PP x TP 2 x 2 (B = 2), SP 2 over a
+   1024-token prompt then 8 decode steps, ``PagedEngine(mesh)`` at tp = 2
+   with the paged phase's traffic (bf16, int8, ``step_spec(8)``),
+   ``Engine(mesh)`` with 3 slots over 6 requests of 16-token prompts,
+   ``load_hf_llama(mesh)`` of the load
+   phase's checkpoint (each rank's shard the slice of the single-card
+   load, bit for bit) and the serving CLI with ``--tp 2`` (the direct
+   call's tokens). Every kernel call of every path, at each shard shape
+   it runs, against its plain version on the same inputs (1e-5 *
+   max|y|; K2, K7 and K10 bit for bit); every rank's tokens equal; each
+   path's first logits within ``PAR_LOGIT_BOUND`` of the single card's
+   (the engines' against the single-card engine's), its greedy tokens
+   the single card's or parting only where the single card's top-2
+   margin lies within that bound; every rank's launches their closed
+   form (the path's forwards and their rows; an engine's from its own
+   counts). Printed per path: the wall and tok/s (N ranks sharing one
+   card: no TP speed), the collectives' share of the wall, the staged
+   collectives, the shard shapes each kernel ran, each rank's peak
+   memory;
+15. ``profile``: one FP4 batch-1 generate of 8 new tokens under
    ``torch.profiler``: device kernel time by name, kernels per forward,
    the device's busy share of the wall time, the host's enqueue time.
 
@@ -229,6 +254,7 @@ CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -255,6 +281,9 @@ K1_DECODE_TOKENS = (1, 4, 8)               # decode at B = 1, 4, 8
 K1_TIMED_TOKENS = K1_DECODE_TOKENS + (16, 64, 128)   # and their prefill
 K1_CHUNK_TOKENS = 256          # one admission chunk of the paged engine
 PROMPT_LEN = 16
+# timed generates after a warm-up, their tok/s the median (the model,
+# planar and pair_variants phases)
+TIMED_RUNS = 3
 # decode attention at Llama3-8B: 8 kv heads, 4 query heads each, D 128
 KVH, GQA, HEAD_DIM = 8, 4, 128
 ATTN_BATCHES = (1, 4, 8)
@@ -1104,7 +1133,7 @@ def phase_model(dev, results):
         for B in batches:
             idsb = ids.repeat(B, 1)
             times, first = [], None
-            for it in range(5 + 1):
+            for it in range(TIMED_RUNS + 1):
                 cache = KVCache.create(cfg, B, serve.max_seq_len, dev)
                 before = PAIR_MATMUL.launches
                 before_attn = (0 if attn_kernel is None
@@ -1513,7 +1542,7 @@ def phase_planar_model(dev, params, results):
     only; K5 on the 48-row prefill and K6 on every decode step; K7's
     dense band on the 128-row prefill and K5 on decode), with exact launch
     counts (K5's split by body as ``planar_body`` says), the same tokens
-    on every run and tok/s the median of 5. Then
+    on every run and tok/s the median of TIMED_RUNS. Then
     one decode step's logits against the pair model's on the same cache,
     and where the greedy streams part."""
     from quantizations_tpu_torch.config import QuantConfig, ServeConfig
@@ -1560,7 +1589,7 @@ def phase_planar_model(dev, params, results):
         want = _planar_launches(B, layers)
         idsb = ids.repeat(B, 1)
         times, first = [], None
-        for it in range(5 + 1):
+        for it in range(TIMED_RUNS + 1):
             cache = KVCache.create(cfg, B, serve.max_seq_len, dev)
             pair_kerns = (PAIR_MATMUL, DEQUANTIZE_4BIT_PAIR)
             before = [k.launches for k in kerns + pair_kerns]
@@ -1600,7 +1629,8 @@ def phase_planar_model(dev, params, results):
                              (k.name for k in kerns), want)),
                          first_part_from_pair=part, tokens=first.tolist()))
         r = runs[-1]
-        log(f"  planar B={B}: {r['tok_per_s']:.2f} tok/s, median of 5 (min "
+        log(f"  planar B={B}: {r['tok_per_s']:.2f} tok/s, median of "
+            f"{TIMED_RUNS} (min "
             f"{r['tok_per_s_min']:.2f}, max {r['tok_per_s_max']:.2f}); "
             f"K5 (tensor-core body) / K6 / K7 launches {want[0]} "
             f"({want[1]}) / {want[2]} / {want[3]} each; the stream "
@@ -2366,14 +2396,14 @@ def _tile_sweep(dev, gen):
 
 
 def _generate_runs(gen, params, ids, cfg, serve, dev, kernels, want, what):
-    """Six greedy generates (a warm-up and 5 timed) that must launch each
+    """Greedy generates (a warm-up and TIMED_RUNS timed) that must launch each
     of ``kernels`` exactly ``want`` times and give the same tokens every
     time. Returns (tokens, times in s)."""
     from quantizations_tpu_torch.models.llama import KVCache
 
     times, first = [], None
     B = ids.shape[0]
-    for it in range(5 + 1):
+    for it in range(TIMED_RUNS + 1):
         cache = KVCache.create(cfg, B, serve.max_seq_len, dev)
         before = [k.launches for k in kernels]
         start = torch.cuda.Event(enable_timing=True)
@@ -2444,7 +2474,8 @@ def phase_pair_variants_model(dev, params, results):
                          tok_per_s_max=n / min(times), generate_s=t,
                          generate_s_all=times, launches_per_generate=dict(
                              pair_manual=want[0], pair_matmul=want[1])))
-        log(f"  manual B={B}: {n / t:.2f} tok/s, median of 5 (min "
+        log(f"  manual B={B}: {n / t:.2f} tok/s, median of {TIMED_RUNS} "
+            f"(min "
             f"{n / max(times):.2f}, max {n / min(times):.2f}); K9/K1 "
             f"launches {want} each; the grid run's tokens")
     results["launches_pair_manual"] = {k.name: k.launches for k in KERNELS}
@@ -2474,7 +2505,8 @@ def phase_pair_variants_model(dev, params, results):
         del os.environ["QT_PREFILL_PAIR"]
     t = statistics.median(times)
     log(f"  QT_PREFILL_PAIR B=1, {LONG_PROMPT}-token prompt: "
-        f"{60 / t:.2f} tok/s, median of 5 (min {60 / max(times):.2f}, max "
+        f"{60 / t:.2f} tok/s, median of {TIMED_RUNS} (min "
+        f"{60 / max(times):.2f}, max "
         f"{60 / min(times):.2f}); K8/K1 launches {want} each; the same "
         "tokens every run")
 
@@ -3265,7 +3297,6 @@ def _counted(fn):
 def _main_json(main, argv):
     """Run a CLI ``main(argv)`` in process; its last JSON line, captured so
     that this script's own last line stays last."""
-    import contextlib
     import io
 
     buf = io.StringIO()
@@ -4144,6 +4175,1026 @@ def phase_profile(dev, results):
     del params
 
 
+# -- the parallel phase -------------------------------------------------------
+
+PAR_PROMPT = 16
+PAR_NEW = 60
+PAR_SEQ = 128
+PAR_SP_PROMPT = 1024            # the sequence-parallel prefill
+PAR_SP_DECODE = 8               # decode steps on its filled cache
+PAR_SP_SEQ = PAR_SP_PROMPT + 128
+PAR_SHORT_NEW = 8               # the manual-pipeline generate, the CLI
+PAR_K8_PROMPT = 512             # the QT_PREFILL_PAIR prefill
+PAR_SLOTS = 3                   # Engine(mesh): K6 at 3 decode rows
+PAR_SLOT_REQS = 6
+PAR_DEADLINE = 900.0
+# max|sharded - single-card| / max|single-card| of the first forward's
+# logits, and the single card's top-2 margin a parting stream may have,
+# in the same unit: about twice what the fp32 order alone moves on this
+# random 32-layer model (the model phase's flash against einsum decode
+# logits, 0.049; PERF.md). It cannot tell a partly wrong kernel from the
+# order: the kernel checks at every shard shape (PAR_KERNEL_TOL) do.
+PAR_LOGIT_BOUND = 0.1
+# max|kernel - plain| / max|plain| of every kernel call of the parallel
+# paths at each new shape: the earlier phases' tolerance (K2, K7 and K10
+# bit for bit)
+PAR_KERNEL_TOL = 1e-5
+# max|sharded - single-card| / max|single-card| of one projection: the
+# row-parallel sum over the ranks against the whole planar product, and a
+# column shard's rows against the whole one's (fp32 order only)
+PAR_PROJ_TOL = 1e-5
+
+# a rank's state between the runs of one pool: its full parameters, its
+# meshes (process groups are made once, by every rank, in one order)
+_RANK = {}
+
+
+def _par_cfg():
+    from quantizations_tpu_torch.config import QuantConfig
+    from quantizations_tpu_torch.models.llama import LLAMA3_8B
+
+    return dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
+        quantize_embedding=True))
+
+
+def _par_ids(B, n, vocab, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(1, vocab, (B, n), generator=g, dtype=torch.int64
+                         ).to(torch.int32)
+
+
+# the kernel wrappers of the parallel paths, by ``ops`` module, and the
+# gate each is held to against its plain version ``<wrapper>_plain`` (the
+# earlier phases' gates): "rel" within PAR_KERNEL_TOL * max|plain|,
+# "bits" bit for bit
+_PAR_WRAPPERS = (
+    ("qmatmul", ("matmul_4bit_pair", "matmul_4bit_pair_stacked",
+                 "matmul_4bit_pair_manual", "matmul_4bit_pair_manual_stacked",
+                 "matmul_4bit_pair_prefill",
+                 "matmul_4bit_pair_prefill_stacked", "matmul_4bit_planar",
+                 "matmul_4bit_planar_stacked"), "rel"),
+    ("gemv", ("gemv_4bit", "gemv_4bit_stacked"), "rel"),
+    ("attention", ("flash_decode_attention_stacked",
+                   "flash_decode_attention_stacked_i8"), "rel"),
+    ("paged_attention", ("paged_flash_decode_attention",
+                         "paged_flash_decode_attention_i8"), "rel"),
+    ("quantize", ("quantize_4bit_kernel", "dequantize_4bit_kernel",
+                  "dequantize_4bit_pair"), "bits"),
+)
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _patch(fn, new, saved):
+    """Point every name of the package's modules that is bound to ``fn``
+    at ``new``; ``saved`` collects what to restore."""
+    for name, mod in list(sys.modules.items()):
+        if mod is None or not name.startswith("quantizations_tpu_torch"):
+            continue
+        for attr, val in list(vars(mod).items()):
+            if val is fn:
+                saved.append((mod, attr, fn))
+                setattr(mod, attr, new)
+
+
+def _unpatch(saved):
+    for mod, attr, fn in reversed(saved):
+        setattr(mod, attr, fn)
+
+
+def _kernel_label(name, a, out):
+    """A kernel call's shape as the log prints it."""
+    if "x" in a:                      # [M, K] and the rows
+        return f"[{out.shape[-1]}, {a['x'].shape[-1]}] x {a['x'].shape[0]}"
+    if "q" in a:                      # the query and the cache or pool
+        kv = a.get("cache_k", a.get("pages_k"))
+        return f"q {list(a['q'].shape)} kv {list(kv.shape)}"
+    if "W" in a:
+        return f"{list(a['W'].shape)}"
+    return f"{list(out.shape)}"
+
+
+def _kernel_err(what, out, ref, gate):
+    """max|out - ref| / max|ref| (0.0 for "bits"), or raise past the
+    gate."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    worst = 0.0
+    for o, r in zip(outs, refs):
+        if o.shape != r.shape:
+            raise AssertionError(f"{what}: shape {tuple(o.shape)}, plain "
+                                 f"{tuple(r.shape)}")
+        if gate == "bits":
+            if o.dtype != r.dtype or not nan_equal(o.float(), r.float()):
+                raise AssertionError(f"{what}: not bit for bit the plain "
+                                     "version")
+            continue
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{what}: non-finite output")
+        err = float((o.float() - r.float()).abs().max())
+        scale = float(r.float().abs().max())
+        if not err <= PAR_KERNEL_TOL * scale:
+            raise AssertionError(f"{what}: max|err| {err:.3e} > "
+                                 f"{PAR_KERNEL_TOL} * max|y| {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+class _KernelCheck:
+    """While active, the first call of each kernel wrapper
+    (``_PAR_WRAPPERS``) at each shape is followed by its plain version on
+    the same inputs, held to the wrapper's gate (the layer index and the
+    values in the tensors are not part of the shape). ``spent`` is the
+    seconds the checks took, synchronized on both sides; ``errs``
+    {wrapper: {shape: error}}."""
+
+    def __enter__(self):
+        import importlib
+        import inspect
+
+        self.errs, self.spent, self._saved = {}, 0.0, []
+        for short, names, gate in _PAR_WRAPPERS:
+            mod = importlib.import_module(
+                f"quantizations_tpu_torch.ops.{short}")
+            for name in names:
+                fn = getattr(mod, name)
+                _patch(fn, self._wrap(name, fn, getattr(mod, name + "_plain"),
+                                      gate, inspect.signature(fn)),
+                       self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        _unpatch(self._saved)
+
+    def _wrap(self, name, fn, plain, gate, sig):
+        seen = self.errs.setdefault(name, {})
+
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            a = sig.bind(*args, **kw).arguments
+            key = tuple((k, tuple(v.shape), v.dtype)
+                        if isinstance(v, torch.Tensor) else (k, v)
+                        for k, v in a.items() if k != "layer_idx")
+            label = _kernel_label(name, a, out if not isinstance(
+                out, tuple) else out[0])
+            if (key, label) not in seen:
+                _sync()
+                t0 = time.perf_counter()
+                seen[(key, label)] = _kernel_err(
+                    f"{name} {label}", out, plain(*args, **kw), gate)
+                _sync()
+                self.spent += time.perf_counter() - t0
+            return out
+
+        return run
+
+    def report(self):
+        """{wrapper: {shape label: worst error}} of the wrappers called."""
+        out = {}
+        for name, seen in self.errs.items():
+            for (_, label), err in seen.items():
+                d = out.setdefault(name, {})
+                d[label] = max(d.get(label, 0.0), err)
+        return out
+
+
+class _LogitTap:
+    """While active, every ``lm_head_logits`` call on this rank: the
+    first call's logits ``[rows, vocab]`` kept whole, and each call's
+    argmax and top-2 margin over its rows."""
+
+    def __enter__(self):
+        from quantizations_tpu_torch.models import llama
+
+        orig = llama.lm_head_logits
+        self.first, self.top, self.margin, self._saved = None, [], [], []
+
+        def tap(*a, **kw):
+            logits = orig(*a, **kw)
+            flat = logits.reshape(-1, logits.shape[-1]).float()
+            if self.first is None:
+                self.first = flat.clone()
+            t2 = flat.topk(2, dim=-1).values
+            self.top.append(flat.argmax(-1))
+            self.margin.append(t2[:, 0] - t2[:, 1])
+            return logits
+
+        _patch(orig, tap, self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        _unpatch(self._saved)
+
+    def stream(self):
+        return dict(first=self.first, top=self.top, margin=self.margin)
+
+
+def _par_fwd(rows, layers, attn=None, col=5, planar=2,
+             col_kernel="pair_matmul"):
+    """Each kernel's launches in one forward of ``rows`` token rows over
+    ``layers`` layers: ``col`` pair-word projections a layer (q, k, v,
+    gate and up, the column shards; all seven unsharded) and ``planar``
+    planar ones (o and down, the row shards), through the bands of
+    ``_ql`` (pair words: K1 or ``col_kernel`` up to ``pair_max_tokens()``
+    rows, K1's tensor-core body from PAIR_MMA_MIN_TOKENS, above the band
+    K8 by 512-row chunks under ``QT_PREFILL_PAIR`` or K10; planar words:
+    K5, its tensor-core body from PLANAR_MMA_MIN_TOKENS, K6, or K7 above
+    64 rows); one K1 launch for the lm_head (its sampled rows, at most 128
+    here); with ``attn`` (K3 or K4) one attention launch a layer."""
+    from quantizations_tpu_torch.models.llama import prefill_pair_enabled
+    from quantizations_tpu_torch.nn.linear import (GEMV_MAX_TOKENS,
+                                                   QMATMUL_MAX_TOKENS,
+                                                   pair_max_tokens, qmm_ok)
+    from quantizations_tpu_torch.ops import (PAIR_MMA_MIN_TOKENS,
+                                             PLANAR_MMA_MIN_TOKENS,
+                                             PREFILL_PAIR_CHUNK_T)
+
+    n = {}
+
+    def add(k, v):
+        if v:
+            n[k] = n.get(k, 0) + v
+
+    c, p = col * layers, planar * layers
+    if rows <= pair_max_tokens():
+        add(col_kernel, c)
+        if col_kernel == "pair_matmul" and rows >= PAIR_MMA_MIN_TOKENS:
+            add("pair_matmul_mma", c)
+    elif prefill_pair_enabled() and rows % 8 == 0:
+        add("pair_prefill", c * -(-rows // PREFILL_PAIR_CHUNK_T))
+    else:
+        add("dequantize_4bit_pair", c)
+    if rows <= QMATMUL_MAX_TOKENS and qmm_ok(rows):
+        add("planar_matmul", p)
+        if rows >= PLANAR_MMA_MIN_TOKENS:
+            add("planar_matmul_mma", p)
+    elif rows <= GEMV_MAX_TOKENS:
+        add("gemv_4bit", p)
+    else:
+        add("dequantize_4bit", p)
+    add("pair_matmul", 1)
+    if attn:
+        add(attn, layers)
+    return n
+
+
+def _par_sum(*parts):
+    """The sum of ``(times, counts)`` pairs, kernel by kernel."""
+    out = {}
+    for times, counts in parts:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + times * v
+    return out
+
+
+def _par_generate_launches(rows, new, layers, attn=None, **kw):
+    """A generate's launches: the prompt's forward (``PAR_PROMPT`` tokens
+    a row, ``rows`` rows), then ``new - 1`` decode forwards."""
+    return _par_sum((1, _par_fwd(rows * PAR_PROMPT, layers, **kw)),
+                    (new - 1, _par_fwd(rows, layers, attn, **kw)))
+
+
+def _par_measure(mesh, fn):
+    """``fn()`` on this rank with the kernel counts zeroed just before and
+    read just after, each kernel call held to its plain version at every
+    new shape (``_KernelCheck``; its time is taken out of the wall), the
+    collectives counted and the wall (to a synchronize) and peak memory
+    taken."""
+    from quantizations_tpu_torch.ops import KERNELS
+
+    for k in KERNELS:
+        k.launches = 0
+    if mesh is not None:
+        mesh.stats.reset()
+    dev = _RANK["dev"]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with _KernelCheck() as check:
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - check.spent
+    return out, dict(
+        counts={k.name: k.launches for k in KERNELS if k.launches},
+        wall=wall, check_s=check.spent, checked=check.report(),
+        stats=mesh.stats.as_dict() if mesh is not None else None,
+        mem=(torch.cuda.max_memory_allocated() if dev.type == "cuda"
+             else 0))
+
+
+def _planar_od(params):
+    from quantizations_tpu_torch.parallel.shard import ensure_planar
+
+    st = params.layers
+    return dataclasses.replace(params, layers=dataclasses.replace(
+        st, o=ensure_planar(st.o), down=ensure_planar(st.down)))
+
+
+def _greedy_margins(params, cfg, ids, new, max_seq, axis_name=None,
+                    cache=None):
+    """Greedy generate with the top-2 margin of every step's logits:
+    (tokens [B, new], margins [B, new], first logits [B, vocab])."""
+    from quantizations_tpu_torch.models.llama import (KVCache, decode_step,
+                                                      prefill)
+
+    B, P = ids.shape
+    if cache is None:
+        cache = KVCache.create(cfg, B, max_seq, ids.device)
+    toks, margins = [], []
+    with torch.inference_mode():
+        logits, cache = prefill(params, ids, cache, cfg,
+                                axis_name=axis_name, last_token_only=True)
+        lg = first = logits[:, -1]
+        for step in range(new):
+            top = lg.topk(2, dim=-1).values
+            margins.append(top[:, 0] - top[:, 1])
+            tok = lg.argmax(-1).to(torch.int32)
+            toks.append(tok)
+            if step + 1 < new:
+                lg, cache = decode_step(params, tok[:, None], cache,
+                                        P + step, cfg, axis_name=axis_name)
+    return torch.stack(toks, 1), torch.stack(margins, 1), first
+
+
+# the engine runs of the phase: (name, kind, kv cache, spec_k)
+PAR_ENGINES = (("paged tp2 bf16", "paged", "bf16", 0),
+               ("paged tp2 int8", "paged", "int8", 0),
+               ("paged tp2 step_spec(8)", "paged", "bf16", 8),
+               ("slot Engine tp2", "slot", "bf16", 0))
+
+
+def _par_setup(cfg, device, refs, seed=0):
+    """A pool's rank: the full FP4 model (random normal, scale 0.02, from
+    ``seed``) on its device. With ``refs`` rank 0 also computes the
+    single-card references on the same planar o and down as the row
+    shards: greedy tokens, margins and first logits at B = 1, 2, 4 after
+    the 16-token prompt and of the K8 path's 512-token prefill, each
+    engine run's tokens and logit stream (``_LogitTap``), and on the pair
+    model the SP prompt's prefill and decode steps."""
+    import torch.distributed as dist
+
+    from quantizations_tpu_torch.models.llama import init_llama_params
+
+    dev = torch.device(device) if device == "cpu" else torch.device(
+        "cuda", torch.cuda.current_device())
+    _RANK.clear()
+    _RANK.update(dev=dev, cfg=cfg)
+    t0 = time.perf_counter()
+    _RANK["params"] = init_llama_params(cfg, seed=seed, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0, refs=None)
+    if not refs or dist.get_rank() != 0:
+        return out
+    planar = _planar_od(_RANK["params"])
+    refs = {}
+    for B in (1, 2, 4):
+        ids = _par_ids(B, PAR_PROMPT, cfg.vocab_size).to(dev)
+        refs[B] = _greedy_margins(planar, cfg, ids, PAR_NEW, PAR_SEQ)
+    ids = _par_ids(1, PAR_K8_PROMPT, cfg.vocab_size, seed=2).to(dev)
+    with _prefill_pair_knob():
+        refs["k8"] = _greedy_margins(planar, cfg, ids, 1, PAR_K8_PROMPT)
+    for what, kind, kv, spec_k in PAR_ENGINES:
+        refs[what] = _par_engine_run(planar, kind, kv, spec_k, None)[0]
+    del planar
+    ids = _par_ids(1, PAR_SP_PROMPT, cfg.vocab_size, seed=1).to(dev)
+    refs["sp"] = _greedy_margins(_RANK["params"], cfg, ids, PAR_SP_DECODE,
+                                 PAR_SP_SEQ)
+    out["refs"] = refs
+    return out
+
+
+def _par_mesh(shape, axes):
+    from quantizations_tpu_torch.parallel import make_mesh
+
+    key = (tuple(shape), tuple(axes))
+    if key not in _RANK:
+        _RANK[key] = make_mesh(shape, axes, device=_RANK["dev"].type)
+    return _RANK[key]
+
+
+def _par_proj_check(mesh, local, cfg):
+    """Layer 1 of ``local`` against the single card's planar weights on
+    16 random rows: o and down summed over the ``"tp"`` axis
+    (``_ql_psum``), q and gate a column shard's rows; max|diff| /
+    max|single card| each."""
+    from quantizations_tpu_torch.models.llama import _ql, _ql_psum
+
+    ax = mesh.axis("tp")
+    full = _planar_od(_RANK["params"]).layers
+    g = torch.Generator(device=mesh.device)
+    g.manual_seed(5)
+    out = {}
+    with torch.inference_mode():
+        for name in ("o", "down", "q", "gate"):
+            whole, shard = getattr(full, name), getattr(local.layers, name)
+            x = torch.randn((16, whole.in_features), generator=g,
+                            device=mesh.device).to(torch.bfloat16)
+            ref = _ql(x, whole, cfg.quant, 1)
+            if name in ("o", "down"):
+                k = whole.in_features // ax.size
+                got = _ql_psum(x[:, ax.rank * k:(ax.rank + 1) * k].contiguous(),
+                               shard, cfg.quant, 1, ax, 1)
+            else:
+                m = shard.out_features
+                ref = ref[:, ax.rank * m:(ax.rank + 1) * m]
+                got = _ql(x, shard, cfg.quant, 1)
+            out[name] = float((got - ref).abs().max() / ref.abs().max())
+    return out
+
+
+def _par_tp(tp, B, new=PAR_NEW, knobs=None):
+    """TP generate over a (tp,) mesh: the first forward's logits (not
+    counted), then the measured generate."""
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.models.llama import prefill
+    from quantizations_tpu_torch.parallel import (make_sharded_generate_fn,
+                                                  shard_llama_params,
+                                                  sharded_cache)
+
+    cfg = _RANK["cfg"]
+    if knobs:
+        cfg = dataclasses.replace(cfg, **knobs)
+    mesh = _par_mesh((tp,), ("tp",))
+    local = shard_llama_params(_RANK["params"], mesh, cfg)
+    ids = _par_ids(B, PAR_PROMPT, cfg.vocab_size).to(mesh.device)
+    with torch.inference_mode():
+        first = prefill(local, ids, sharded_cache(cfg, B, PAR_SEQ, mesh), cfg,
+                        axis_name=mesh.axis("tp"), last_token_only=True
+                        )[0][:, -1]
+    proj = _par_proj_check(mesh, local, cfg) if B == 1 else None
+    gen = make_sharded_generate_fn(
+        cfg, ServeConfig(max_seq_len=PAR_SEQ, max_new_tokens=new), mesh)
+    cache = sharded_cache(cfg, B, PAR_SEQ, mesh)
+    toks, m = _par_measure(mesh, lambda: gen(local, ids, cache, None)[0])
+    m["expected"] = _par_generate_launches(
+        B, new, cfg.num_hidden_layers,
+        "flash_decode" if cfg.use_flash_attention else None,
+        col_kernel=("pair_manual" if cfg.quant.pair_pipeline == "manual"
+                    else "pair_matmul"))
+    return dict(tokens=toks, first=first, kv_heads=cache.k.shape[2],
+                proj=proj, **m)
+
+
+@contextlib.contextmanager
+def _prefill_pair_knob():
+    """``QT_PREFILL_PAIR=1`` inside the block, as it was after."""
+    old = os.environ.get("QT_PREFILL_PAIR")
+    os.environ["QT_PREFILL_PAIR"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["QT_PREFILL_PAIR"]
+        else:
+            os.environ["QT_PREFILL_PAIR"] = old
+
+
+def _par_k8(tp):
+    """A TP prefill of PAR_K8_PROMPT tokens with ``QT_PREFILL_PAIR=1``:
+    the column shards through K8."""
+    from quantizations_tpu_torch.models.llama import prefill
+    from quantizations_tpu_torch.parallel import (shard_llama_params,
+                                                  sharded_cache)
+
+    cfg = _RANK["cfg"]
+    mesh = _par_mesh((tp,), ("tp",))
+    local = shard_llama_params(_RANK["params"], mesh, cfg)
+    ids = _par_ids(1, PAR_K8_PROMPT, cfg.vocab_size, seed=2).to(mesh.device)
+
+    def run():
+        with torch.inference_mode():
+            return prefill(local, ids, sharded_cache(
+                cfg, 1, PAR_K8_PROMPT, mesh), cfg,
+                axis_name=mesh.axis("tp"), last_token_only=True)[0]
+
+    with _prefill_pair_knob():
+        logits, m = _par_measure(mesh, run)
+        m["expected"] = _par_fwd(PAR_K8_PROMPT, cfg.num_hidden_layers)
+    first = logits[:, -1]
+    return dict(tokens=first.argmax(-1, keepdim=True).to(torch.int32),
+                first=first, **m)
+
+
+def _par_dp_tp(B):
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.models.llama import prefill
+    from quantizations_tpu_torch.parallel import (shard_llama_params,
+                                                  sharded_cache)
+    from quantizations_tpu_torch.parallel.multihost import (
+        make_dp_tp_generate_fn)
+
+    cfg = _RANK["cfg"]
+    mesh = _par_mesh((2, 2), ("dp", "tp"))
+    dp = mesh.axis("dp")
+    local = shard_llama_params(_RANK["params"], mesh, cfg)
+    ids = _par_ids(B, PAR_PROMPT, cfg.vocab_size).to(mesh.device)
+    rows = B // dp.size
+    mine = ids[dp.rank * rows:(dp.rank + 1) * rows]
+    with torch.inference_mode():
+        first = prefill(local, mine, sharded_cache(cfg, rows, PAR_SEQ, mesh),
+                        cfg, axis_name=mesh.axis("tp"), last_token_only=True
+                        )[0][:, -1]
+    gen = make_dp_tp_generate_fn(
+        cfg, ServeConfig(max_seq_len=PAR_SEQ, max_new_tokens=PAR_NEW), mesh)
+    cache = sharded_cache(cfg, rows, PAR_SEQ, mesh)
+    toks, m = _par_measure(mesh, lambda: gen(local, ids, cache, None)[0])
+    m["expected"] = _par_generate_launches(rows, PAR_NEW,
+                                           cfg.num_hidden_layers)
+    return dict(tokens=toks, first=first, **m)
+
+
+def _par_pp(pp, tp, B):
+    """PP (or PP x TP) generate: each rank runs its stage's layers on
+    each of the ``pp`` microbatches of every forward; the last stage
+    also runs the lm_head on each."""
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.parallel.pipeline import (
+        _pp_forward, make_pp_generate_fn, pp_cache, shard_llama_params_pp)
+
+    cfg = _RANK["cfg"]
+    shape, axes = ((pp, tp), ("pp", "tp")) if tp else ((pp,), ("pp",))
+    mesh = _par_mesh(shape, axes)
+    tp_axis = "tp" if tp else None
+    local = shard_llama_params_pp(_RANK["params"], mesh, cfg, tp_axis)
+    ids = _par_ids(B, PAR_PROMPT, cfg.vocab_size).to(mesh.device)
+    with torch.inference_mode():
+        first = _pp_forward(local, ids, pp_cache(cfg, B, PAR_SEQ, mesh,
+                                                 tp_axis), 0, cfg,
+                            mesh.axis("pp"),
+                            mesh.axis("tp") if tp else None)[0]
+    gen = make_pp_generate_fn(
+        cfg, ServeConfig(max_seq_len=PAR_SEQ, max_new_tokens=PAR_NEW), mesh,
+        tp_axis)
+    cache = pp_cache(cfg, B, PAR_SEQ, mesh, tp_axis)
+    toks, m = _par_measure(mesh, lambda: gen(local, ids, cache, None)[0])
+    stage = mesh.axis("pp").rank
+    m["expected"] = _par_sum((pp, _par_generate_launches(
+        B // pp, PAR_NEW, cfg.num_hidden_layers // pp,
+        **({} if tp else dict(col=7, planar=0)))))
+    if stage < pp - 1:      # no lm_head on this stage
+        m["expected"]["pair_matmul"] -= pp * PAR_NEW
+    return dict(tokens=toks, first=first, stage=stage, **m)
+
+
+def _par_sp(sp):
+    """SP prefill of the PAR_SP_PROMPT-token prompt over (sp,), then
+    PAR_SP_DECODE greedy decode steps on the filled cache (every rank
+    holds it whole)."""
+    from quantizations_tpu_torch.models.llama import KVCache, decode_step
+    from quantizations_tpu_torch.parallel.ring import make_sp_prefill_fn
+
+    cfg = _RANK["cfg"]
+    mesh = _par_mesh((sp,), ("sp",))
+    params = _RANK["params"]
+    ids = _par_ids(1, PAR_SP_PROMPT, cfg.vocab_size, seed=1).to(mesh.device)
+    f = make_sp_prefill_fn(mesh, cfg)
+    cache = KVCache.create(cfg, 1, PAR_SP_SEQ, mesh.device)
+
+    def run():
+        logits, c = f(params, ids, cache)
+        toks, lg = [], logits
+        with torch.inference_mode():
+            for step in range(PAR_SP_DECODE):
+                tok = lg.argmax(-1).to(torch.int32)
+                toks.append(tok)
+                if step + 1 < PAR_SP_DECODE:
+                    lg, c = decode_step(params, tok[:, None], c,
+                                        PAR_SP_PROMPT + step, cfg)
+        return logits, torch.stack(toks, 1)
+
+    (first, toks), m = _par_measure(mesh, run)
+    # every rank: its chunk's projections (the attention is the ring's
+    # torch), the last token's lm_head, then the decode steps unsharded
+    L = cfg.num_hidden_layers
+    m["expected"] = _par_sum(
+        (1, _par_fwd(PAR_SP_PROMPT // sp, L, col=7, planar=0)),
+        (PAR_SP_DECODE - 1, _par_fwd(1, L, col=7, planar=0)))
+    return dict(tokens=toks, first=first, **m)
+
+
+def _par_engine_run(params, kind, kv, spec_k, mesh):
+    """The paged phase's configuration and requests through
+    ``PagedEngine``, or PAR_SLOT_REQS requests of the 16-token prompt's
+    length through ``Engine`` with PAR_SLOTS slots (decode at 3 rows: K6
+    on the row shards), under ``mesh`` or on one card: (tokens, logit
+    stream, launches by the engine's own counts: its decode forwards and
+    the rows of each admission forward), and the measurement under a
+    mesh."""
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.serve.engine import Engine
+    from quantizations_tpu_torch.serve.paged import PagedEngine
+
+    cfg = dataclasses.replace(_RANK["cfg"], kv_cache_dtype=kv)
+    if kind == "paged":
+        prompts, slots = _paged_prompts(cfg.vocab_size), 4
+        eng = PagedEngine(params, cfg, slots=slots, max_seq=2048,
+                          prefill_buckets=(64, 256), admit_width=4,
+                          prefix_cache=True, num_pages=40, mesh=mesh)
+    else:
+        prompts, slots = _par_ids(PAR_SLOT_REQS, PAR_PROMPT, cfg.vocab_size,
+                                  seed=3).tolist(), PAR_SLOTS
+        eng = Engine(params, cfg, ServeConfig(max_seq_len=2048),
+                     slots=slots, prefill_buckets=(16, 64, 256), mesh=mesh)
+    rows, rnd = [], eng._prefill_round
+
+    def counted_round(ids, *a):
+        rows.append(int(ids.shape[0] * ids.shape[1]))
+        return rnd(ids, *a)
+
+    eng._prefill_round = counted_round
+    uids = [eng.submit(p, max_new_tokens=PAGED_NEW) for p in prompts]
+
+    def run():
+        with _LogitTap() as tap:
+            done = eng.run(spec_k=spec_k)
+        return [done[u].output_ids for u in uids], tap.stream()
+
+    if mesh is None:
+        (toks, stream), m = run(), {}
+    else:
+        (toks, stream), m = _par_measure(mesh, run)
+    st = eng.stats()
+    L = cfg.num_hidden_layers
+    attn = (("flash_decode_i8" if kv == "int8" else "flash_decode")
+            if kind == "paged" else None)
+    win = st.get("spec_windows", 0)
+    m["expected"] = _par_sum(
+        *[(1, _par_fwd(r, L)) for r in rows],
+        (st["steps"] - win, _par_fwd(slots, L, attn)),
+        (win, _par_fwd(slots * spec_k, L, attn)))
+    m["kv_heads"] = (eng.pages.pages_k if kind == "paged"
+                     else eng.cache.k).shape[2]
+    ref = dict(tokens=toks, **stream)
+    return ref, dict(tokens=toks, stream=stream, stats_engine=st, **m)
+
+
+def _par_engines(tp, kind, kv="bf16", spec_k=0):
+    """An engine run under a (tp,) mesh (``_par_engine_run``)."""
+    from quantizations_tpu_torch.parallel import shard_llama_params
+
+    mesh = _par_mesh((tp,), ("tp",))
+    cfg = dataclasses.replace(_RANK["cfg"], kv_cache_dtype=kv)
+    local = shard_llama_params(_RANK["params"], mesh, cfg)
+    return _par_engine_run(local, kind, kv, spec_k, mesh)[1]
+
+
+def _par_load(src, tp, prompt, new):
+    """``load_hf_llama(mesh=...)`` of the checkpoint at ``src`` (K2 on
+    every weight, counted) against the slice of the single-card load, bit
+    for bit; then a TP generate on the loaded shard (the CLI's
+    comparison)."""
+    from quantizations_tpu_torch.config import QuantConfig, ServeConfig
+    from quantizations_tpu_torch.models.hf_loader import load_hf_llama
+    from quantizations_tpu_torch.models.llama import named_tensors
+    from quantizations_tpu_torch.parallel import (make_sharded_generate_fn,
+                                                  shard_for_rank,
+                                                  sharded_cache)
+
+    mesh = _par_mesh((tp,), ("tp",))
+    (cfg, local), m = _par_measure(
+        mesh, lambda: load_hf_llama(src, quant=QuantConfig(), mesh=mesh))
+    # K2 on every weight, whole: 7 a layer and the lm_head's (the default
+    # QuantConfig keeps the embedding dense)
+    m["expected"] = {"quantize_4bit": 7 * cfg.num_hidden_layers + 1}
+    _, whole = load_hf_llama(src, quant=QuantConfig(), device=mesh.device)
+    want = dict(named_tensors(shard_for_rank(whole, cfg, tp,
+                                             mesh.axis("tp").rank)))
+    got = dict(named_tensors(local))
+    equal = set(got) == set(want) and all(
+        torch.equal(t, want[k]) for k, t in got.items())
+    del whole, want
+    gen = make_sharded_generate_fn(cfg, ServeConfig(
+        max_seq_len=64, max_new_tokens=new), mesh)
+    ids = torch.tensor([prompt], dtype=torch.int32, device=mesh.device)
+    toks, _ = gen(local, ids, sharded_cache(cfg, 1, 64, mesh), None)
+    return dict(equal=equal, tokens=toks, layers=cfg.num_hidden_layers,
+                o_shape=tuple(local.layers.o.wp.shape), **m)
+
+
+def _par_release():
+    """Drop a rank's parameters and meshes' shards before the pool
+    closes."""
+    _RANK.pop("params", None)
+    if _RANK.get("dev", torch.device("cpu")).type == "cuda":
+        torch.cuda.empty_cache()
+    return True
+
+
+def _par_check_counts(what, res):
+    """Every rank's launches equal to its closed form, kernel by
+    kernel."""
+    for r, out in enumerate(res):
+        if out["counts"] != out["expected"]:
+            raise AssertionError(f"{what}, rank {r}: launches "
+                                 f"{out['counts']}, expected "
+                                 f"{out['expected']}")
+
+
+def _par_same_tokens(what, res):
+    first = res[0]["tokens"]
+    for r, out in enumerate(res[1:], 1):
+        same = (out["tokens"] == first if isinstance(first, list)
+                else torch.equal(out["tokens"], first))
+        if not same:
+            raise AssertionError(f"{what}: rank {r}'s tokens differ from "
+                                 "rank 0's")
+
+
+def _par_first(what, first, ref_first):
+    """max|first - ref_first| / max|ref_first| within PAR_LOGIT_BOUND, or
+    raise; returns (it, max|ref_first|)."""
+    if first.shape != ref_first.shape:
+        raise AssertionError(f"{what}: first logits {tuple(first.shape)}, "
+                             f"single card {tuple(ref_first.shape)}")
+    scale = float(ref_first.abs().max())
+    err = float((first.float() - ref_first.float()).abs().max()) / scale
+    if not err <= PAR_LOGIT_BOUND:
+        raise AssertionError(f"{what}: first logits {err:.4g} of "
+                             f"max|logit| from the single card's "
+                             f"(bound {PAR_LOGIT_BOUND})")
+    return err, scale
+
+
+def _par_parting(what, margin, scale):
+    if margin > PAR_LOGIT_BOUND * scale:
+        raise AssertionError(
+            f"{what}: parts from the single card with its top-2 margin "
+            f"{margin:.4g} above the bound {PAR_LOGIT_BOUND * scale:.4g}")
+
+
+def _par_gate(what, first, ref_first, toks, ref_toks, ref_margins):
+    """The first forward's logits within PAR_LOGIT_BOUND of the single
+    card's (relative to its max|logit|); greedy tokens equal, or, where a
+    row parts first, the single card's top-2 margin there within the same
+    bound. Returns (relative error, [(row, step, margin)])."""
+    err, scale = _par_first(what, first, ref_first)
+    parts = []
+    for b in range(toks.shape[0]):
+        diff = (toks[b] != ref_toks[b]).nonzero()
+        if len(diff):
+            s = int(diff[0])
+            parts.append((b, s, float(ref_margins[b, s])))
+            _par_parting(f"{what}, row {b} step {s}", parts[-1][2], scale)
+    return err, parts
+
+
+def _par_stream_gate(what, got, ref):
+    """An engine's gate: its first lm_head logits within PAR_LOGIT_BOUND
+    of the single-card engine's; its argmax stream, lm_head call by call,
+    the single card's, or, at the first call and row where it parts, the
+    single card's top-2 margin within the same bound; with no parting,
+    the single card's tokens. Returns (relative error, [(call, row,
+    margin)])."""
+    err, scale = _par_first(what, got["first"], ref["first"])
+    parts = []
+    for i, (a, b) in enumerate(zip(got["top"], ref["top"])):
+        if a.shape != b.shape:
+            raise AssertionError(f"{what}: lm_head call {i} on "
+                                 f"{tuple(a.shape)} rows, the single card "
+                                 f"on {tuple(b.shape)}")
+        diff = (a != b).nonzero()
+        if len(diff):
+            j = int(diff[0])
+            parts.append((j, i, float(ref["margin"][i][j])))
+            _par_parting(f"{what}, lm_head call {i} row {j}", parts[-1][2],
+                         scale)
+            break
+    if not parts and (len(got["top"]) != len(ref["top"])
+                      or got["tokens"] != ref["tokens"]):
+        raise AssertionError(f"{what}: the single card's argmax stream, "
+                             "but not its tokens")
+    return err, parts
+
+
+def _par_report(what, res, new_tokens, rec):
+    """Log a path's wall, tok/s, collective share, memory, the shapes each
+    kernel ran and their errors against the plain versions, and keep them
+    in ``rec``; returns rank 0's counts."""
+    walls = [o["wall"] for o in res]
+    wall = max(walls)
+    coll = [o["stats"]["total_s"] if o["stats"] else 0.0 for o in res]
+    mem = [o["mem"] / 2**30 for o in res]
+    st = res[0]["stats"] or {}
+    checked = {}
+    for o in res:
+        for k, shapes in o["checked"].items():
+            for label, err in shapes.items():
+                d = checked.setdefault(k, {})
+                d[label] = max(d.get(label, 0.0), err)
+    out = dict(wall_s=wall, tok_s=new_tokens / wall if new_tokens else None,
+               check_s=[o["check_s"] for o in res],
+               collective_share=[c / w for c, w in zip(coll, walls)],
+               max_mem_gib=mem, counts=res[0]["counts"],
+               calls=st.get("calls"), staged=st.get("staged"),
+               kernel_checks=checked)
+    rec[what] = out
+    tps = f", {out['tok_s']:.2f} tok/s" if new_tokens else ""
+    log(f"  {what}: {wall:.3f} s{tps}; collectives "
+        f"{', '.join(f'{c:.1%}' for c in out['collective_share'])} of the "
+        f"wall by rank ({st.get('calls', {})}, staged "
+        f"{st.get('staged', {}) or 'none'}); max memory "
+        f"{', '.join(f'{g:.2f}' for g in mem)} GiB; launches a rank "
+        f"{out['counts']}")
+    n = sum(len(v) for v in checked.values())
+    worst = max((e for v in checked.values() for e in v.values()),
+                default=0.0)
+    log(f"    {n} kernel shapes against their plain versions (worst "
+        f"{worst:.3g} of max|y|, {max(out['check_s']):.1f} s, out of the "
+        f"wall): " + "; ".join(f"{k} {sorted(v)}"
+                               for k, v in sorted(checked.items())))
+    return out["counts"]
+
+
+def phase_parallel(dev, results):
+    """The parallel path at Llama3-8B's full width and depth (FP4, random
+    normal weights from seed 0, 4-bit embedding and lm_head), its ranks
+    spawned by ``parallel.launch.RankPool`` on this one card: gloo, since
+    NCCL refuses two ranks on one GPU. Four ranks: TP at tp = 4 (B = 1,
+    4), DP x TP at 2 x 2, PP x TP at 2 x 2. Two ranks: TP at tp = 2 (B =
+    1, 4, the manual pipeline, a ``QT_PREFILL_PAIR`` prefill), PP at 2, SP
+    at 2 over a 1024-token prompt and 8 decode steps, ``PagedEngine(mesh)``
+    (the paged phase's traffic: bf16, int8, ``step_spec(8)``),
+    ``Engine(mesh)`` (3 slots, 6 short requests), ``load_hf_llama(mesh)``
+    of the load phase's checkpoint and the serving CLI with ``--tp 2``.
+    Gates: every kernel call at every shard shape against its plain
+    version (``_KernelCheck``); every rank's tokens the same; each path's
+    first logits and greedy stream against the single card's
+    (``_par_gate``, the engines' ``_par_stream_gate``); every rank's
+    launches their closed form; the launcher's deadline. These are N ranks
+    sharing one card: their times are no TP speed."""
+    import shutil
+    import tempfile
+
+    from quantizations_tpu_torch.models.llama import LLAMA3_8B
+    from quantizations_tpu_torch.parallel import RankPool
+    from quantizations_tpu_torch.parallel.collectives import GLOO_CUDA_NATIVE
+    from quantizations_tpu_torch.serve.__main__ import main as serve_main
+
+    rec, totals = {}, {}
+    cfg = _par_cfg()
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def run(pool, what, fn, *args, new=0):
+        res = pool.run(fn, *args, deadline=PAR_DEADLINE)
+        _par_check_counts(what, res)
+        for r, out in enumerate(res):
+            if out.get("proj") is not None:
+                rec.setdefault("proj_err", {})[f"{what} rank {r}"] = \
+                    out["proj"]
+                if not max(out["proj"].values()) <= PAR_PROJ_TOL:
+                    raise AssertionError(f"{what}, rank {r}: projections "
+                                         f"{out['proj']} of max|y| from the "
+                                         f"single card's (tolerance "
+                                         f"{PAR_PROJ_TOL})")
+        if "tokens" in res[0]:
+            _par_same_tokens(what, res)
+        add(_par_report(what, res, new, rec))
+        return res
+
+    def kv_heads(what, res, tp):
+        if res[0]["kv_heads"] != LLAMA3_8B.num_key_value_heads // tp:
+            raise AssertionError(f"{what}: {res[0]['kv_heads']} kv heads")
+
+    t0 = time.perf_counter()
+    pool = RankPool(4, device=dev.type)
+    log(f"  4 ranks on {dev}: backend {pool.backend} (gloo takes "
+        f"{sorted(GLOO_CUDA_NATIVE)} for CUDA tensors; point-to-point is "
+        f"staged through the host); up in {time.perf_counter() - t0:.1f} s")
+    rec["backend"] = pool.backend
+    gates = rec.setdefault("gates", {})
+    try:
+        t0 = time.perf_counter()
+        setup = pool.run(_par_setup, cfg, dev.type, True,
+                         deadline=PAR_DEADLINE)
+        refs = setup[0]["refs"]
+        log(f"  builds {[round(s['build_s'], 3) for s in setup]} s; the "
+            f"single-card references on rank 0, in all "
+            f"{time.perf_counter() - t0:.1f} s")
+        for B in (1, 4):
+            what = f"tp4 B={B}"
+            res = run(pool, what, _par_tp, 4, B, PAR_NEW,
+                      dict(use_flash_attention=True), new=B * PAR_NEW)
+            kv_heads(what, res, 4)
+            gates[what] = _par_gate(what, res[0]["first"], refs[B][2],
+                                    res[0]["tokens"], refs[B][0], refs[B][1])
+        what = "dp2xtp2 B=4"
+        res = run(pool, what, _par_dp_tp, 4, new=4 * PAR_NEW)
+        gates[what] = _par_gate(
+            what, torch.cat([res[0]["first"], res[2]["first"]]), refs[4][2],
+            res[0]["tokens"], refs[4][0], refs[4][1])
+        what = "pp2xtp2 B=2"
+        res = run(pool, what, _par_pp, 2, 2, 2, new=2 * PAR_NEW)
+        gates[what] = _par_gate(what, res[0]["first"], refs[2][2],
+                                res[0]["tokens"], refs[2][0], refs[2][1])
+        pool.run(_par_release)
+    finally:
+        pool.close()
+
+    t0 = time.perf_counter()
+    pool = RankPool(2, device=dev.type)
+    log(f"  2 ranks: backend {pool.backend}, up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    root = tempfile.mkdtemp(prefix="qt_par_")
+    try:
+        pool.run(_par_setup, cfg, dev.type, False, deadline=PAR_DEADLINE)
+        for B in (1, 4):
+            what = f"tp2 B={B}"
+            res = run(pool, what, _par_tp, 2, B, PAR_NEW,
+                      dict(use_flash_attention=True), new=B * PAR_NEW)
+            kv_heads(what, res, 2)
+            gates[what] = _par_gate(what, res[0]["first"], refs[B][2],
+                                    res[0]["tokens"], refs[B][0], refs[B][1])
+        what = "tp2 manual B=1"
+        res = run(pool, what, _par_tp, 2, 1, PAR_SHORT_NEW,
+                  dict(quant=dataclasses.replace(cfg.quant,
+                                                 pair_pipeline="manual")),
+                  new=PAR_SHORT_NEW)
+        gates[what] = _par_gate(what, res[0]["first"], refs[1][2],
+                                res[0]["tokens"],
+                                refs[1][0][:, :PAR_SHORT_NEW],
+                                refs[1][1][:, :PAR_SHORT_NEW])
+        what = "tp2 QT_PREFILL_PAIR prefill"
+        res = run(pool, what, _par_k8, 2)
+        gates[what] = _par_gate(what, res[0]["first"], refs["k8"][2],
+                                res[0]["tokens"], refs["k8"][0],
+                                refs["k8"][1])
+        what = "pp2 B=2"
+        res = run(pool, what, _par_pp, 2, None, 2, new=2 * PAR_NEW)
+        gates[what] = _par_gate(what, res[0]["first"], refs[2][2],
+                                res[0]["tokens"], refs[2][0], refs[2][1])
+        what = "sp2"
+        res = run(pool, what, _par_sp, 2, new=PAR_SP_DECODE)
+        gates[what] = _par_gate(what, res[0]["first"], refs["sp"][2],
+                                res[0]["tokens"], refs["sp"][0],
+                                refs["sp"][1])
+        for what, kind, kv, spec_k in PAR_ENGINES:
+            res = run(pool, what, _par_engines, 2, kind, kv, spec_k,
+                      new=(8 if kind == "paged" else PAR_SLOT_REQS)
+                      * PAGED_NEW)
+            kv_heads(what, res, 2)
+            st = res[0]["stats_engine"]
+            if kind == "paged" and st["pages_free"] != (
+                    st["pages_total"] - 1 - st["prefix_cache_pages"]):
+                raise AssertionError(f"{what}: pool not returned: {st}")
+            for r, o in enumerate(res):
+                gates[f"{what} rank {r}"] = _par_stream_gate(
+                    f"{what}, rank {r}", dict(tokens=o["tokens"],
+                                              **o["stream"]), refs[what])
+        pool.run(_par_release)
+        # the load phase's checkpoint, loaded onto the mesh, and the CLI
+        free = shutil.disk_usage(root).free
+        if free < LOAD_DISK_BYTES:
+            raise AssertionError(f"{free / 1e9:.1f} GB free, the load needs "
+                                 f"{LOAD_DISK_BYTES / 1e9:.0f}")
+        src = os.path.join(root, "hf")
+        os.makedirs(src)
+        _write_checkpoint(LLAMA3_8B, src, dev)
+        prompt = _par_ids(1, PAR_PROMPT, cfg.vocab_size)[0].tolist()
+        what = "load_hf_llama tp2"
+        res = run(pool, what, _par_load, src, 2, prompt, PAR_SHORT_NEW)
+        for r, o in enumerate(res):
+            if not o["equal"]:
+                raise AssertionError(f"{what}: rank {r}'s shard is not the "
+                                     "slice of the single-card load")
+        t0 = time.perf_counter()
+        cli = _main_json(serve_main, [
+            "--model", src, "--tp", "2", "--max-seq", "64",
+            "--max-new-tokens", str(PAR_SHORT_NEW), "--prompt-ids",
+            ",".join(map(str, prompt)), "--device", dev.type])
+        rec["cli_s"] = time.perf_counter() - t0
+        if cli["output_ids"] != res[0]["tokens"][0].tolist():
+            raise AssertionError(f"CLI --tp 2: {cli['output_ids']}, the "
+                                 f"direct call {res[0]['tokens'][0].tolist()}")
+        log(f"  CLI --tp 2: {rec['cli_s']:.1f} s with its two ranks' start "
+            "and load, the direct call's tokens")
+    finally:
+        pool.close()
+        shutil.rmtree(root, ignore_errors=True)
+    for what, errs in rec.get("proj_err", {}).items():
+        log(f"  {what}: layer 1's projections against the single card's, "
+            "max|diff| / max|y|: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs.items()))
+    for what, (err, parts) in gates.items():
+        unit = "lm_head call" if "ngine" in what or "paged" in what \
+            else "step"
+        log(f"  {what}: first logits {err:.4g} of max|logit| from the single "
+            f"card's; " + ("the single card's tokens" if not parts else
+                           "parts at " + ", ".join(
+                               f"row {b} {unit} {s} (margin {m:.4g})"
+                               for b, s, m in parts)))
+    results["parallel"] = rec
+    results["launches_parallel"] = totals
+
+
 def kernel_entries(results, kernels_seq):
     """The ``kernels`` line: one entry per kernel record with its
     launches on the main path, its error against the plain version, and
@@ -4344,6 +5395,9 @@ def kernel_entries(results, kernels_seq):
         # the IFEval proxy's arms
         entry["evals_launches"] = results.get("launches_evals", {}).get(
             k.name, 0)
+        # the parallel phase: every path's launches on rank 0
+        entry["parallel_launches"] = results.get("launches_parallel",
+                                                 {}).get(k.name, 0)
         # the speculative path's first bf16 run (the int8 run for K4)
         entry["spec_launches"] = results.get(
             "launches_spec_int8" if "i8" in k.name else "launches_spec",
@@ -4403,6 +5457,7 @@ def main() -> int:
                                                results)),
                    ("load", lambda: phase_load(dev, results)),
                    ("evals", lambda: phase_evals(dev, results)),
+                   ("parallel", lambda: phase_parallel(dev, results)),
                    ("profile", lambda: phase_profile(dev, results))):
         t0 = time.perf_counter()
         log(f"[{ph}]")

@@ -59,13 +59,19 @@ def save_checkpoint(params: LlamaParams, cfg: LlamaConfig, path: str) -> None:
 
 def load_checkpoint(path: str, device: Union[str, torch.device] = "cuda",
                     mesh=None) -> Tuple[LlamaConfig, LlamaParams]:
-    """Restore ``(cfg, params)`` onto ``device``. ``mesh`` (restoring into
-    tensor-parallel shardings) is not ported."""
+    """Restore ``(cfg, params)`` onto ``device``. ``mesh`` (a
+    :class:`~quantizations_tpu_torch.parallel.Mesh` with a ``"tp"`` axis)
+    restores this rank's tensor-parallel shard onto the mesh's device:
+    the whole params on the device, then
+    :func:`~quantizations_tpu_torch.parallel.shard.shard_for_rank` (o and
+    down repacked planar there); fused params raise ``ValueError``."""
+    shard = None
     if mesh is not None:
-        raise NotImplementedError(
-            "load_checkpoint(mesh=...), the restore into tensor-parallel "
-            "shardings (quantizations_tpu/models/checkpoint.py:61-85), is "
-            "not ported")
+        from ..parallel.shard import AXIS, check_mesh
+
+        ax = check_mesh(mesh).axis(AXIS)
+        shard = (ax.size, ax.rank)
+        device = mesh.device
     dev = resolve_device(device)
     with open(os.path.join(path, _CFG_FILE)) as f:
         cfg = _cfg_from_json(f.read())
@@ -81,6 +87,11 @@ def load_checkpoint(path: str, device: Union[str, torch.device] = "cuda",
 
     layers = LlamaLayer(**{f.name: node("layers." + f.name)
                            for f in dataclasses.fields(LlamaLayer)})
-    return cfg, LlamaParams(embed=node("embed"), layers=layers,
-                            final_norm=node("final_norm"),
-                            lm_head=node("lm_head"))
+    params = LlamaParams(embed=node("embed"), layers=layers,
+                         final_norm=node("final_norm"),
+                         lm_head=node("lm_head"))
+    if shard is not None:
+        from ..parallel.shard import shard_for_rank
+
+        params = shard_for_rank(params, cfg, *shard)
+    return cfg, params

@@ -144,12 +144,21 @@ def load_hf_llama(
     there (K2 on the card, its plain version on the CPU); bnb 4-bit flat
     keys are taken verbatim, and their quant type must be one across the
     checkpoint (``ValueError`` otherwise). ``dtype`` is accepted and
-    unused, as in the JAX package; ``mesh`` (tensor-parallel placement)
-    is not ported."""
+    unused, as in the JAX package.
+
+    ``mesh`` (a :class:`~quantizations_tpu_torch.parallel.Mesh` with a
+    ``"tp"`` axis) loads this rank's tensor-parallel shard onto the
+    mesh's device: o and down are planar, each weight is quantized whole
+    as in the single-device load and the rank keeps its slice
+    (``parallel.shard``), so double quantization never sees a partial
+    tensor."""
+    shard = None
     if mesh is not None:
-        raise NotImplementedError(
-            "load_hf_llama(mesh=...), the tensor-parallel placement "
-            "(quantizations_tpu/models/hf_loader.py:199-209), is not ported")
+        from ..parallel.shard import AXIS, check_mesh
+
+        ax = check_mesh(mesh).axis(AXIS)
+        shard = (ax.size, ax.rank)
+        device = mesh.device
     dev = resolve_device(device)
     read = read_tensors(model_dir)
     # pre-quantized bnb tensors dictate the quant type even when
@@ -164,6 +173,11 @@ def load_hf_llama(
                                     quant_type=stored.pop())
     cfg = config_from_hf(model_dir, quant)
     q = cfg.quant
+    if shard is not None:
+        from ..parallel.shard import (shard_column, shard_row, split_rows,
+                                      validate_tp)
+
+        validate_tp(cfg, shard[0])
 
     def weight(name: str) -> torch.Tensor:
         """A dense weight on the device, fp32 or bf16 as stored (another
@@ -171,16 +185,26 @@ def load_hf_llama(
         w = read(name).to(dev)
         return w if w.dtype in (torch.float32, torch.bfloat16) else w.float()
 
-    def quantize(W: torch.Tensor, scales_dtype: Any) -> QLinear:
+    def quantize(W: torch.Tensor, scales_dtype: Any,
+                 layout: str = "auto") -> QLinear:
         return quantize_linear(W, blocksize=q.blocksize,
                                quant_type=q.quant_type,
                                compress_statistics=q.compress_statistics,
-                               scales_dtype=scales_dtype)
+                               scales_dtype=scales_dtype, layout=layout)
 
-    def qlin(name: str) -> QLinear:
+    def qlin(name: str, part: Optional[str] = None) -> QLinear:
+        """The QLinear of ``name``; under a mesh this rank's ``part``
+        ("col" or "row") of it, row-parallel weights planar."""
+        ql = _qlin(name, planar=shard is not None and part == "row")
+        if shard is None or part is None:
+            return ql
+        return (shard_column if part == "col" else shard_row)(ql, *shard)
+
+    def _qlin(name: str, planar: bool) -> QLinear:
         prefix = name[: -len(".weight")]
         if not is_bnb_quantized(read.names, prefix):
-            return quantize(weight(name), q.scales_dtype)
+            return quantize(weight(name), q.scales_dtype,
+                            "planar" if planar else "auto")
         # the stored codes and statistics, verbatim
         packed, state = parse_bnb_flat(lambda n: read(n).numpy(), read.names,
                                        prefix)
@@ -188,7 +212,8 @@ def load_hf_llama(
             raise ValueError(
                 f"{prefix}: stored bnb codes are {state.quant_type} "
                 f"but the model is configured {q.quant_type}")
-        lay = "pair" if state.shape[0] % 2 == 0 else "planar"
+        lay = ("pair" if state.shape[0] % 2 == 0 and not planar
+               else "planar")
         wp, scales = qlinear_arrays_from_bnb(packed, state, layout=lay,
                                              device=dev)
         if q.scales_dtype == "bf16x2":
@@ -199,6 +224,11 @@ def load_hf_llama(
 
     def vec(name: str) -> torch.Tensor:
         return read(name).to(dev).to(torch.bfloat16)
+
+    def bias(name: str) -> torch.Tensor:
+        """A column-parallel projection's bias (this rank's rows of it)."""
+        b = vec(name)
+        return b if shard is None else split_rows(b, *shard)
 
     def make_layer(i: int) -> LlamaLayer:
         p = f"model.layers.{i}."
@@ -212,19 +242,20 @@ def load_hf_llama(
             mlp_norm = vec(p + "post_attention_layernorm.weight")
             post_attn = post_mlp = None
         a = p + "self_attn."
-        bias = cfg.attention_bias
+        has_bias = cfg.attention_bias
         return LlamaLayer(
             attn_norm=vec(p + "input_layernorm.weight"),
-            q=qlin(a + "q_proj.weight"), k=qlin(a + "k_proj.weight"),
-            v=qlin(a + "v_proj.weight"),
-            q_bias=vec(a + "q_proj.bias") if bias else None,
-            k_bias=vec(a + "k_proj.bias") if bias else None,
-            v_bias=vec(a + "v_proj.bias") if bias else None,
-            o=qlin(a + "o_proj.weight"),
+            q=qlin(a + "q_proj.weight", "col"),
+            k=qlin(a + "k_proj.weight", "col"),
+            v=qlin(a + "v_proj.weight", "col"),
+            q_bias=bias(a + "q_proj.bias") if has_bias else None,
+            k_bias=bias(a + "k_proj.bias") if has_bias else None,
+            v_bias=bias(a + "v_proj.bias") if has_bias else None,
+            o=qlin(a + "o_proj.weight", "row"),
             mlp_norm=mlp_norm,
-            gate=qlin(p + "mlp.gate_proj.weight"),
-            up=qlin(p + "mlp.up_proj.weight"),
-            down=qlin(p + "mlp.down_proj.weight"),
+            gate=qlin(p + "mlp.gate_proj.weight", "col"),
+            up=qlin(p + "mlp.up_proj.weight", "col"),
+            down=qlin(p + "mlp.down_proj.weight", "row"),
             post_attn_norm=post_attn, post_mlp_norm=post_mlp,
             q_norm=vec(a + "q_norm.weight") if cfg.qk_norm else None,
             k_norm=vec(a + "k_norm.weight") if cfg.qk_norm else None)
@@ -246,6 +277,10 @@ def load_hf_llama(
     lm_head = (quantize(head_w, q.scales_dtype) if q.quantize_lm_head
                else head_w.to(torch.bfloat16))
     del head_w
+    if shard is not None:
+        lm_head = (shard_column(lm_head, *shard)
+                   if isinstance(lm_head, QLinear)
+                   else split_rows(lm_head, *shard, dim=0))
     params = LlamaParams(embed=embed, layers=layers,
                          final_norm=vec("model.norm.weight"),
                          lm_head=lm_head)

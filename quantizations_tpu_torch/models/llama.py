@@ -86,6 +86,7 @@ __all__ = [
     "embed_lookup",
     "layer_window",
     "layer_params",
+    "slot_layers",
     "embed_tokens",
     "lm_head_logits",
     "quantize_kv_i8",
@@ -289,6 +290,8 @@ class KVCache:
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_seq: int,
                device: Union[str, torch.device] = "cuda") -> "KVCache":
+        """A zeroed cache shaped by ``cfg`` alone (a shard's cache by its
+        shard's config: ``parallel.shard.shard_config``)."""
         dev = resolve_device(device)
         shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
                  max_seq, cfg.head_dim)
@@ -773,12 +776,47 @@ def quantize_kv_i8(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes.clamp(-127, 127).to(torch.int8), step
 
 
-def _check_ported(cfg: LlamaConfig, axis_name: Optional[str]) -> None:
-    """Raise for configuration values whose path is not ported."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (tensor-parallel shards under shard_map) is not "
-            "ported")
+def _check_axis(axis_name: Any) -> None:
+    """``axis_name`` is None or a mesh axis (``parallel.mesh.Axis``), the
+    port's counterpart of the JAX package's axis name."""
+    if axis_name is not None and not hasattr(axis_name, "group"):
+        raise TypeError(
+            f"axis_name must be a mesh axis (Mesh.axis('tp') of "
+            f"quantizations_tpu_torch.parallel.make_mesh), got "
+            f"{type(axis_name).__name__}")
+
+
+def _ql_psum(x2: torch.Tensor, lin: QLinear, qcfg: QuantConfig,
+             idx: Optional[int], axis_name: Any, chunks: int) -> torch.Tensor:
+    """A row-parallel projection and its sum over the tensor-parallel
+    axis (the JAX package's ``_ql_psum``, ``models/llama.py:802``).
+
+    ``chunks > 1`` (``tp_overlap_chunks``) splits the output rows into
+    ``chunks`` slices: slice ``c + 1`` is computed while slice ``c``'s
+    gather is in flight. Each slice is layer ``idx``'s rows, a contiguous
+    view; per-row results do not depend on the row split, and the sum is
+    the coordinate-ordered one of
+    :func:`~quantizations_tpu_torch.parallel.collectives.all_reduce_sum`,
+    so the result is the unchunked one bit for bit. Pair words, and row
+    counts that ``chunks`` does not divide, take the single sum."""
+    if axis_name is None:
+        return _ql(x2, lin, qcfg, idx)
+    from ..parallel.collectives import (all_reduce_sum, ordered_sum,
+                                        start_all_gather)
+
+    M = lin.wp.shape[-2]          # row-parallel shards are planar
+    if chunks <= 1 or axis_name.size == 1 or lin.layout == "pair" \
+            or M % chunks:
+        return all_reduce_sum(_ql(x2, lin, qcfg, idx), axis_name)
+    if lin.wp.dim() == 3:
+        lin = QLinear(wp=lin.wp[idx], scales=lin.scales[idx])
+    mc = M // chunks
+    pending = []
+    for c in range(chunks):
+        sl = QLinear(wp=lin.wp[c * mc:(c + 1) * mc],
+                     scales=lin.scales[c * mc:(c + 1) * mc])
+        pending.append(start_all_gather(_ql(x2, sl, qcfg), axis_name))
+    return torch.cat([ordered_sum(p.wait()) for p in pending], dim=-1)
 
 
 # attend(q [B, T, n_q, D], k, v [B, T, n_kv, D]) -> attention [B*T, n_q*D]:
@@ -788,10 +826,13 @@ Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cos: torch.Tensor,
                    sin: torch.Tensor, cfg: LlamaConfig, idx: int,
-                   attend: Attend) -> torch.Tensor:
+                   attend: Attend, axis_name: Any = None) -> torch.Tensor:
     """One decoder layer on ``x [B, T, hidden]`` (bf16): projections,
     q/k norms and rope, then ``attend`` (which owns the cache: slot or
-    paged), the o projection and the MLP."""
+    paged), the o projection and the MLP. Under a tensor-parallel
+    ``axis_name`` the layer holds one shard: its head counts come from
+    its own q/k/v rows, and o and down are summed over the axis
+    (:func:`_ql_psum`)."""
     B, T, h = x.shape
     D = cfg.head_dim
     if layer.qkv is not None:
@@ -830,7 +871,7 @@ def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cos: torch.Tensor,
     k = apply_rope(k, cos, sin)
     attn = attend(q, k, v)
 
-    o = _ql(attn, layer.o, qcfg, idx)
+    o = _ql_psum(attn, layer.o, qcfg, idx, axis_name, cfg.tp_overlap_chunks)
     ob = o.reshape(B, T, h)
     if layer.post_attn_norm is not None:
         ob = _norm(ob, layer.post_attn_norm, cfg)
@@ -847,7 +888,8 @@ def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cos: torch.Tensor,
         g = _ql(x2, layer.gate, qcfg, idx)
         u = _ql(x2, layer.up, qcfg, idx)
     act = _act(g, cfg) * u
-    d = _ql(act.to(qcfg.compute_dtype), layer.down, qcfg, idx)
+    d = _ql_psum(act.to(qcfg.compute_dtype), layer.down, qcfg, idx,
+                 axis_name, cfg.tp_overlap_chunks)
     db = d.reshape(B, T, h)
     if layer.post_mlp_norm is not None:
         db = _norm(db, layer.post_mlp_norm, cfg)
@@ -951,9 +993,11 @@ def embed_tokens(params: LlamaParams, token_ids: torch.Tensor,
 
 
 def lm_head_logits(params: LlamaParams, x: torch.Tensor,
-                   cfg: LlamaConfig) -> torch.Tensor:
+                   cfg: LlamaConfig, axis_name: Any = None) -> torch.Tensor:
     """Final norm, lm_head and final softcap: ``x [B, T, hidden]`` ->
-    fp32 logits ``[B, T, vocab]``."""
+    fp32 logits ``[B, T, vocab]``. Under a tensor-parallel ``axis_name``
+    the lm_head is a vocab shard and the logits are gathered over the
+    axis."""
     B, T, _ = x.shape
     x = _norm(x, params.final_norm, cfg)
     if isinstance(params.lm_head, QLinear):
@@ -965,12 +1009,35 @@ def lm_head_logits(params: LlamaParams, x: torch.Tensor,
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
+    if axis_name is not None:
+        from ..parallel.collectives import all_gather_cat
+
+        logits = all_gather_cat(logits, axis_name, dim=-1)
     return logits
+
+
+def slot_layers(params: LlamaParams, x: torch.Tensor, cache: KVCache,
+                positions: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                mask: torch.Tensor, mask_full: torch.Tensor,
+                cfg: LlamaConfig, attend_len: Optional[int] = None,
+                axis_name: Any = None, first_layer: int = 0) -> torch.Tensor:
+    """Every layer of ``params`` over the slot cache (layer ``i`` of the
+    stacks and of ``cache``), the layer's global index ``first_layer +
+    i`` choosing its window (a pipeline stage holds a slice of the
+    layers)."""
+    for i in range(params.layers.attn_norm.shape[0]):
+        use_win, win_eff = layer_window(cfg, first_layer + i)
+        mask_i = mask if use_win is None or use_win else mask_full
+        attend = _slot_attend(cache, i, positions, mask_i, cfg, attend_len,
+                              win_eff)
+        x = _layer_forward(x, layer_params(params.layers, i), cos, sin, cfg,
+                           i, attend, axis_name)
+    return x
 
 
 def _forward(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
              pos: Union[int, torch.Tensor], cfg: LlamaConfig,
-             axis_name: Optional[str] = None, last_token_only: bool = False,
+             axis_name: Any = None, last_token_only: bool = False,
              attend_len: Optional[int] = None,
              logits_at: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, KVCache]:
@@ -979,8 +1046,11 @@ def _forward(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
     returns logits ``[B, T, vocab]`` and the cache, updated in place.
     ``last_token_only`` computes the logits of the last token only, and
     ``logits_at [B]`` those of token ``logits_at[b]`` of each row (both
-    ``T = 1``): the others are never computed."""
-    _check_ported(cfg, axis_name)
+    ``T = 1``): the others are never computed. ``axis_name``, a mesh's
+    tensor-parallel axis, runs the rank's shard of ``params`` and
+    ``cache`` with the axis's collectives; the logits are the whole
+    vocabulary's on every rank."""
+    _check_axis(axis_name)
     B, T = token_ids.shape
     dev = token_ids.device
     x = embed_tokens(params, token_ids, cfg)
@@ -997,19 +1067,14 @@ def _forward(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
         mask = mask & (key_pos[None, None, :]
                        > positions[:, :, None] - cfg.sliding_window)
 
-    for i in range(cfg.num_hidden_layers):
-        use_win, win_eff = layer_window(cfg, i)
-        mask_i = mask if use_win is None or use_win else mask_full
-        attend = _slot_attend(cache, i, positions, mask_i, cfg, attend_len,
-                              win_eff)
-        x = _layer_forward(x, layer_params(params.layers, i), cos, sin, cfg,
-                           i, attend)
+    x = slot_layers(params, x, cache, positions, cos, sin, mask, mask_full,
+                    cfg, attend_len, axis_name)
 
     if logits_at is not None:
         x = x[torch.arange(B, device=dev), logits_at.to(dev).long()][:, None]
     elif last_token_only:
         x = x[:, -1:, :]
-    return lm_head_logits(params, x, cfg), cache
+    return lm_head_logits(params, x, cfg, axis_name), cache
 
 
 def check_cache_room(pos: Union[int, torch.Tensor], T: int,
@@ -1030,7 +1095,7 @@ def check_cache_room(pos: Union[int, torch.Tensor], T: int,
 
 def prefill(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
             cfg: LlamaConfig, pos: Union[int, torch.Tensor, None] = None,
-            axis_name: Optional[str] = None, last_token_only: bool = False,
+            axis_name: Any = None, last_token_only: bool = False,
             attend_len: Optional[int] = None,
             logits_at: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, KVCache]:
@@ -1047,7 +1112,7 @@ def prefill(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
 
 def decode_step(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
                 pos: Union[int, torch.Tensor], cfg: LlamaConfig,
-                axis_name: Optional[str] = None,
+                axis_name: Any = None,
                 attend_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: ``token_ids [B, 1]`` at position ``pos``.

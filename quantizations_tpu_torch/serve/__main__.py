@@ -8,7 +8,15 @@
 
 Runs on the card unless ``--device cpu`` asks for the CPU (the kernels'
 plain versions). Prints one JSON line per run, with the JAX package's
-keys. ``--tp`` above 1 (tensor-parallel serving) is not ported.
+keys.
+
+``--tp N`` serves tensor-parallel from this one command: it starts N
+ranks (``parallel.launch``; NCCL when each has a card of its own, gloo
+when they share one or run on the CPU), each loads its shard
+(``load_hf_llama(mesh=...)``, or the demo model's shard) and runs the
+same generate or engine loop, and rank 0's JSON line is printed once
+every rank has returned the same tokens. ``--speculative`` stays
+single-device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 import time
 from typing import List, Optional
 
@@ -45,7 +54,7 @@ def _parser() -> argparse.ArgumentParser:
                    help="freeze a row to this id once emitted")
     p.add_argument("--quant-type", default="fp4", choices=["fp4", "nf4"])
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (not ported above 1)")
+                   help="tensor-parallel ways: starts this many ranks")
     p.add_argument("--speculative", action="store_true",
                    help="prompt-lookup speculative decoding (greedy or "
                         "temperature sampling)")
@@ -81,14 +90,44 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def _tokens(rec: dict) -> list:
+    """The token ids of a run's record (every rank's must agree)."""
+    return [r["output_ids"] for r in rec.get("requests", [rec])]
+
+
+def _serve_rank(argv: List[str]) -> dict:
+    """One rank of ``--tp``: its mesh, then :func:`_serve` on it."""
+    from ..parallel import make_mesh
+
+    args = _parser().parse_args(argv)
+    mesh = make_mesh((args.tp,), ("tp",), device=args.device)
+    return _serve(args, mesh.device, mesh)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
     if args.tp > 1:
-        raise SystemExit(
-            "--tp > 1 (tensor-parallel serving over a mesh, "
-            "quantizations_tpu/serve/__main__.py:100-103) is not ported")
-    dev = resolve_device(args.device)
+        if args.speculative:
+            raise SystemExit("--speculative is single-device")
+        from ..parallel import launch
+        # by its module's own name: under ``python -m`` this module is
+        # ``__main__``, which a spawned rank cannot import
+        from .__main__ import _serve_rank as rank_fn
 
+        recs = launch(rank_fn, args.tp, argv, device=args.device)
+        if any(_tokens(r) != _tokens(recs[0]) for r in recs[1:]):
+            raise SystemExit("tensor-parallel ranks returned different "
+                             "tokens")
+        print(json.dumps(recs[0]))
+        return
+    print(json.dumps(_serve(args, resolve_device(args.device))))
+
+
+def _serve(args: argparse.Namespace, dev: torch.device,
+           mesh=None) -> dict:
+    """Load (or build) the model on ``dev``, this rank's shard of it
+    under a ``mesh``, run the requested path and return its record."""
     quant = QuantConfig(quant_type=args.quant_type,
                         pair_pipeline=args.pipeline)
     serve = ServeConfig(
@@ -102,11 +141,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         cfg = dataclasses.replace(TINY_LLAMA, quant=quant,
                                   kv_cache_dtype=args.kv_dtype)
         params = init_llama_params(cfg, seed=0, device=dev)
+        if mesh is not None:
+            from ..parallel.shard import shard_llama_params
+
+            params = shard_llama_params(params, mesh, cfg)
         serve = dataclasses.replace(serve, max_seq_len=min(args.max_seq, 128))
     else:
         from ..models.hf_loader import load_hf_llama
 
-        cfg, params = load_hf_llama(args.model, quant=quant, device=dev)
+        cfg, params = load_hf_llama(args.model, quant=quant, device=dev,
+                                    mesh=mesh)
         cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_dtype)
         try:
             from transformers import AutoTokenizer
@@ -116,7 +160,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             tokenizer = None
 
     if args.fuse:
-        params = fuse_projections(params)
+        params = fuse_projections(params)    # each rank fuses its own rows
 
     if args.prompt_ids:
         prompts = [[int(t) for t in grp.split(",")]
@@ -135,7 +179,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
             eng = Engine(params, cfg, serve, slots=args.slots,
                          temperature=serve.temperature,
-                         top_k=serve.top_k, top_p=serve.top_p)
+                         top_k=serve.top_k, top_p=serve.top_p, mesh=mesh)
         else:
             from .paged import PagedEngine
 
@@ -146,7 +190,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                 params, cfg, num_pages=npages, page_size=psz,
                 slots=args.slots, max_seq=serve.max_seq_len,
                 temperature=serve.temperature, top_k=serve.top_k,
-                top_p=serve.top_p, prefix_cache=args.prefix_cache)
+                top_p=serve.top_p, prefix_cache=args.prefix_cache,
+                mesh=mesh)
         t0 = time.perf_counter()
         uids = [eng.submit(p_, max_new_tokens=args.max_new_tokens,
                            eos_id=args.eos_id,
@@ -156,7 +201,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                        steps_per_dispatch=args.steps_per_dispatch)
         dt = time.perf_counter() - t0
         total = sum(len(done[u].output_ids) for u in uids)
-        print(json.dumps({
+        return {
             "engine": args.engine,
             "requests": [{
                 "prompt_ids": p_,
@@ -165,8 +210,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             } for p_, u in zip(prompts, uids)],
             "wall_s": round(dt, 3),
             "tokens_per_s_incl_compile": round(total / dt, 2),
-        }))
-        return
+        }
 
     if args.speculative:
         from .speculative import make_speculative_generate_fn
@@ -175,7 +219,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     else:
         from .generate import make_generate_fn
 
-        gen = make_generate_fn(cfg, serve)
+        gen = make_generate_fn(cfg, serve, axis_name=(
+            None if mesh is None else mesh.axis("tp")))
 
     # every ';'-separated prompt runs in turn (the generate path is
     # batch-1; the engines serve several at once). One generator, seeded
@@ -186,7 +231,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     t0 = time.perf_counter()
     for ids in prompts:
         prompt = torch.tensor([ids], dtype=torch.int32, device=dev)
-        cache = KVCache.create(cfg, 1, serve.max_seq_len, device=dev)
+        if mesh is None:
+            cache = KVCache.create(cfg, 1, serve.max_seq_len, device=dev)
+        else:
+            from ..parallel.shard import sharded_cache
+
+            cache = sharded_cache(cfg, 1, serve.max_seq_len, mesh)
         tp0 = time.perf_counter()
         verify_steps = None
         if args.speculative:
@@ -208,15 +258,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         recs.append(rec)
         del cache
     if len(recs) == 1:
-        print(json.dumps(recs[0]))
-    else:
-        total = sum(len(r["output_ids"]) for r in recs)
-        dt = time.perf_counter() - t0
-        print(json.dumps({
-            "requests": recs,
-            "wall_s": round(dt, 3),
-            "tokens_per_s_incl_compile": round(total / dt, 2),
-        }))
+        return recs[0]
+    total = sum(len(r["output_ids"]) for r in recs)
+    dt = time.perf_counter() - t0
+    return {
+        "requests": recs,
+        "wall_s": round(dt, 3),
+        "tokens_per_s_incl_compile": round(total / dt, 2),
+    }
+
+
 
 
 if __name__ == "__main__":

@@ -169,12 +169,13 @@ def clamp_buckets(buckets, max_seq: int) -> tuple:
 
 def prefill_round(params: LlamaParams, cfg: LlamaConfig, cache: KVCache,
                   ids: np.ndarray, starts: np.ndarray, plens: np.ndarray,
-                  max_seq: int) -> torch.Tensor:
+                  max_seq: int, axis_name: Any = None) -> torch.Tensor:
     """One admission chunk ``ids [rows, blen]`` written into ``cache``'s
     rows, each at its own start (on the cache's device); returns the logits
     ``[rows, vocab]`` of each row's last valid position (only those are
     computed). Attention reads the cache up to the furthest written
-    position."""
+    position. ``axis_name``: the tensor-parallel axis of a sharded
+    engine."""
     dev = cache.k.device
 
     def put(a):
@@ -184,7 +185,7 @@ def prefill_round(params: LlamaParams, cfg: LlamaConfig, cache: KVCache,
     with torch.inference_mode():
         logits, _ = prefill(params, put(ids), cache, cfg,
                             pos=put(starts.astype(np.int64)),
-                            attend_len=attend,
+                            axis_name=axis_name, attend_len=attend,
                             logits_at=put(plens.astype(np.int64) - 1))
     return logits[:, 0]
 
@@ -244,17 +245,28 @@ class Engine:
     (at least 128) of cache positions that covers every live row; with
     ``use_flash_attention`` a decode step runs K3 (K4 over an int8 cache),
     and verify windows the einsum path. The engine runs on its
-    parameters' device."""
+    parameters' device.
+
+    ``mesh`` (a :class:`~quantizations_tpu_torch.parallel.Mesh` with a
+    ``"tp"`` axis): ``params`` are this rank's tensor-parallel shard
+    (``parallel.shard_llama_params``), the caches hold its kv heads, and
+    every forward runs with the axis's collectives. Every rank runs this
+    same engine loop on the same gathered logits with an identically
+    seeded generator, so every rank makes the same admissions, samples
+    and retirements and holds the same ``finished``."""
 
     def __init__(self, params: LlamaParams, cfg: LlamaConfig,
                  serve: ServeConfig, slots: int = 4,
                  prefill_buckets: tuple = (16, 64, 256),
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, seed: int = 0, mesh=None):
+        # the caches are shaped by the shard's config under a mesh
+        self._axis, self._cache_cfg = None, cfg
         if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=...) (quantizations_tpu/serve/engine.py:248, "
-                "the tensor-parallel engine) is not ported")
+            from ..parallel.shard import AXIS, check_mesh, shard_config
+
+            self._cache_cfg = shard_config(cfg, check_mesh(mesh).shape[AXIS])
+            self._axis = mesh.axis(AXIS)
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -279,7 +291,8 @@ class Engine:
         self._spec_accepted = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self.cache = KVCache.create(cfg, slots, self.max_seq, self.device)
+        self.cache = KVCache.create(self._cache_cfg, slots, self.max_seq,
+                                    self.device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -347,7 +360,7 @@ class Engine:
         with torch.inference_mode():
             logits, self.cache = decode_step(
                 self.params, self._dev(self._cur_tok)[:, None], self.cache,
-                self._dev(self.pos), self.cfg,
+                self._dev(self.pos), self.cfg, axis_name=self._axis,
                 attend_len=self._attend_bucket())
             nxt = sample_rows_samp(logits, self._slot_samp(),
                                    self._gen).cpu().numpy()
@@ -379,7 +392,7 @@ class Engine:
                 logits, self.cache = decode_step(
                     self.params, tok[:, None], self.cache,
                     pos_v.clamp(max=self.max_seq - 1), self.cfg,
-                    attend_len=attend)
+                    axis_name=self._axis, attend_len=attend)
                 emitted.append(tok)
                 tok = sample_rows_samp(logits, samp, self._gen)
                 pos_v = pos_v + 1
@@ -421,6 +434,7 @@ class Engine:
             logits, self.cache = prefill(
                 self.params, self._dev(feed), self.cache, self.cfg,
                 pos=self._dev(self.pos).to(torch.int64),
+                axis_name=self._axis,
                 attend_len=self._attend_bucket(extra=k))
             draft_d = self._dev(draft)
             okk, corr = spec_accept_sample_vec(logits, draft_d, self._gen,
@@ -525,7 +539,7 @@ class Engine:
         """:func:`prefill_round` over ``cache``'s rows (the batch cache or
         a scratch)."""
         return prefill_round(self.params, self.cfg, cache, ids, starts,
-                             plens, self.max_seq)
+                             plens, self.max_seq, self._axis)
 
     def _sample_first(self, logits: torch.Tensor,
                       samp: torch.Tensor) -> List[int]:
@@ -576,7 +590,8 @@ class Engine:
         """Per-request admission through a one-row scratch cache, copied
         into the slot's row of the batch cache."""
         for slot, r, chunks in admits:
-            scratch = KVCache.create(self.cfg, 1, self.max_seq, self.device)
+            scratch = KVCache.create(self._cache_cfg, 1, self.max_seq,
+                                     self.device)
             logits = None
             for start, take, blen in chunks:
                 ids = np.zeros((1, blen), np.int32)

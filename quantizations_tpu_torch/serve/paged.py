@@ -15,14 +15,15 @@
   admission, a prefix cache, OOM rollback, multi-step windows and
   speculative decoding (``step_spec``, ``step_spec_multi``).
 
-``mesh=`` is not ported; it raises.
+``mesh=`` serves a tensor-parallel shard on each rank: the pool holds the
+rank's kv heads and every forward runs with the mesh's ``"tp"`` axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict, deque
-from typing import List, Optional, Tuple, Union
+from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,11 +65,6 @@ __all__ = ["PagedKVCache", "PageAllocator", "PagedEngine",
            "paged_decode_step", "paged_verify_step", "insert_prefill"]
 
 
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (quantizations_tpu/serve/{where}) is not ported")
-
-
 @dataclasses.dataclass
 class PagedKVCache:
     """Device page pool. Page ``p`` of layer ``l`` holds ``page_size``
@@ -84,6 +80,8 @@ class PagedKVCache:
     @classmethod
     def create(cls, cfg: LlamaConfig, num_pages: int, page_size: int = 128,
                device: Union[str, torch.device] = "cuda") -> "PagedKVCache":
+        """A zeroed pool shaped by ``cfg`` alone (a shard's pool by its
+        shard's config: ``parallel.shard.shard_config``)."""
         dev = resolve_device(device)
         shape = (cfg.num_hidden_layers, num_pages, cfg.num_key_value_heads,
                  page_size, cfg.head_dim)
@@ -240,7 +238,8 @@ def check_window(cfg: LlamaConfig, T: int, page_size: int,
 
 def _paged_forward(params: LlamaParams, token_ids: torch.Tensor,
                    pages: PagedKVCache, block_table: torch.Tensor,
-                   pos: torch.Tensor, cfg: LlamaConfig, max_pages: int
+                   pos: torch.Tensor, cfg: LlamaConfig, max_pages: int,
+                   axis_name: Any = None
                    ) -> Tuple[torch.Tensor, PagedKVCache]:
     """The paged forward of ``T`` tokens per row (decode at ``T = 1``, a
     verify window above): row ``b``'s token ``t`` sits at position
@@ -250,7 +249,8 @@ def _paged_forward(params: LlamaParams, token_ids: torch.Tensor,
     position past the table (an empty slot's stale position) reads its
     last entry. Raises ``ValueError`` before any launch for a window
     :func:`check_window` refuses. Returns (logits [B, T, vocab], pages),
-    the pool updated in place."""
+    the pool updated in place. ``axis_name``: the tensor-parallel axis
+    of a sharded pool and params (kv heads and rows of this rank)."""
     B, T = token_ids.shape
     dev = token_ids.device
     psz = pages.page_size
@@ -270,25 +270,27 @@ def _paged_forward(params: LlamaParams, token_ids: torch.Tensor,
         attend = _paged_attend(pages, i, attn_table, page_of, off, lengths,
                                cfg)
         x = _layer_forward(x, layer_params(params.layers, i), cos, sin, cfg,
-                           i, attend)
-    return lm_head_logits(params, x, cfg), pages
+                           i, attend, axis_name)
+    return lm_head_logits(params, x, cfg, axis_name), pages
 
 
 def paged_decode_step(params: LlamaParams, token_ids: torch.Tensor,
                       pages: PagedKVCache, block_table: torch.Tensor,
-                      pos: torch.Tensor, cfg: LlamaConfig, max_pages: int
+                      pos: torch.Tensor, cfg: LlamaConfig, max_pages: int,
+                      axis_name: Any = None
                       ) -> Tuple[torch.Tensor, PagedKVCache]:
     """One ``T = 1`` decode step over the paged pool (see
     :func:`_paged_forward`). Returns (logits [B, vocab], pages)."""
     with torch.inference_mode():
         logits, pages = _paged_forward(params, token_ids, pages, block_table,
-                                       pos, cfg, max_pages)
+                                       pos, cfg, max_pages, axis_name)
     return logits[:, 0], pages
 
 
 def paged_verify_step(params: LlamaParams, token_ids: torch.Tensor,
                       pages: PagedKVCache, block_table: torch.Tensor,
-                      pos: torch.Tensor, cfg: LlamaConfig, max_pages: int
+                      pos: torch.Tensor, cfg: LlamaConfig, max_pages: int,
+                      axis_name: Any = None
                       ) -> Tuple[torch.Tensor, PagedKVCache]:
     """A speculative verify window over the pool: ``token_ids [B, K]``
     (the pending token and ``K - 1`` drafts) written at ``pos .. pos +
@@ -297,21 +299,21 @@ def paged_verify_step(params: LlamaParams, token_ids: torch.Tensor,
     query attends them. Returns (logits [B, K, vocab], pages)."""
     with torch.inference_mode():
         return _paged_forward(params, token_ids, pages, block_table, pos,
-                              cfg, max_pages)
+                              cfg, max_pages, axis_name)
 
 
 def _paged_spec(params: LlamaParams, feed: torch.Tensor, pages: PagedKVCache,
                 block_table: torch.Tensor, pos: torch.Tensor,
                 draft: torch.Tensor, samp: torch.Tensor,
                 generator: Optional[torch.Generator], cfg: LlamaConfig,
-                max_pages: int):
+                max_pages: int, axis_name: Any = None):
     """A verify window and its accept step: (g [B, K] window tokens, a [B]
     accepted drafts, pages). ``samp [B, 3]`` is the host sampling matrix;
     acceptance reads its temperatures only (exact speculative sampling is
     defined against the untruncated distribution)."""
     with torch.inference_mode():
         logits, pages = _paged_forward(params, feed, pages, block_table, pos,
-                                       cfg, max_pages)
+                                       cfg, max_pages, axis_name)
         okk, corr = spec_accept_sample_vec(logits, draft, generator,
                                            samp[:, 0])
         g, a = spec_window_tokens(okk, corr, draft)
@@ -323,7 +325,7 @@ def _paged_spec_multi(params: LlamaParams, pending: torch.Tensor,
                       pos: torch.Tensor, hist: torch.Tensor,
                       hcnt: torch.Tensor, samp: torch.Tensor,
                       generator: Optional[torch.Generator], cfg: LlamaConfig,
-                      max_pages: int, n: int, k: int):
+                      max_pages: int, n: int, k: int, axis_name: Any = None):
     """``n`` verify windows with no host read in between: each window's
     drafts come from :func:`draft_prompt_lookup` over the per-slot history
     ``hist [B, H]`` (prompt, outputs and the pending token; ``hcnt [B]``
@@ -342,7 +344,7 @@ def _paged_spec_multi(params: LlamaParams, pending: torch.Tensor,
             feed = torch.cat([pending[:, None], draft[:, :k - 1]], dim=1)
             g, a, pages = _paged_spec(params, feed, pages, block_table,
                                       pos_v, draft, samp, generator, cfg,
-                                      max_pages)
+                                      max_pages, axis_name)
             append_window(hist, hcnt, g, a + 1)
             pending = g.gather(1, a[:, None])[:, 0]
             pos_v = pos_v + a + 1
@@ -356,7 +358,7 @@ def _paged_multi(params: LlamaParams, tokens: torch.Tensor,
                  pages: PagedKVCache, block_table: torch.Tensor,
                  pos: torch.Tensor, samp: torch.Tensor,
                  generator: Optional[torch.Generator], cfg: LlamaConfig,
-                 max_pages: int, n: int):
+                 max_pages: int, n: int, axis_name: Any = None):
     """``n`` decode steps over the pool with no host read in between:
     each step's sampled tokens feed the next as device tensors. Emitted
     column ``j`` is the token fed INTO step ``j``; the final tokens are
@@ -370,7 +372,7 @@ def _paged_multi(params: LlamaParams, tokens: torch.Tensor,
         for _ in range(n):
             logits, pages = _paged_forward(params, tok[:, None], pages,
                                            block_table, pos_v, cfg,
-                                           max_pages)
+                                           max_pages, axis_name)
             nxt = sample_rows_samp(logits[:, 0], samp, generator)
             emitted.append(tok)
             tok = nxt
@@ -439,7 +441,15 @@ class PagedEngine:
     chunk round), scatters it into freshly allocated pages, then decode
     runs :func:`paged_decode_step` (or verify windows: :meth:`step_spec`,
     :meth:`step_spec_multi`) over the batched block table. The engine
-    runs on its parameters' device."""
+    runs on its parameters' device.
+
+    ``mesh`` (a :class:`~quantizations_tpu_torch.parallel.Mesh` with a
+    ``"tp"`` axis): ``params`` are this rank's tensor-parallel shard, the
+    pool and the scratch caches hold its kv heads, and every forward runs
+    with the axis's collectives. Every rank runs this same engine loop
+    on the same gathered logits with an identically seeded generator,
+    so the host's allocator, tables and queue stay the same on every
+    rank."""
 
     def __init__(self, params: LlamaParams, cfg: LlamaConfig, *,
                  num_pages: int, page_size: Optional[int] = None,
@@ -448,9 +458,13 @@ class PagedEngine:
                  top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                  prefix_cache: bool = False, admit_width: int = 4,
                  mesh=None):
+        # the pool and scratch caches are shaped by the shard's config
+        self._axis, self._cache_cfg = None, cfg
         if mesh is not None:
-            raise _not_ported("PagedEngine(mesh=...)",
-                              "paged.py:735 the tensor-parallel pool")
+            from ..parallel.shard import AXIS, check_mesh, shard_config
+
+            self._cache_cfg = shard_config(cfg, check_mesh(mesh).shape[AXIS])
+            self._axis = mesh.axis(AXIS)
         if page_size is None:
             page_size = next((p for p in (384, 256, 128, 64, 32, 16, 8)
                               if max_seq % p == 0), 0)
@@ -463,8 +477,8 @@ class PagedEngine:
         self.max_seq = max_seq
         self.slots = slots
         self.max_pages = max_seq // page_size
-        self.pages = PagedKVCache.create(cfg, num_pages, page_size,
-                                         device=self.device)
+        self.pages = PagedKVCache.create(self._cache_cfg, num_pages,
+                                         page_size, device=self.device)
         self.alloc = PageAllocator(num_pages)
         self.table = np.zeros((slots, self.max_pages), np.int32)
         self.owned: List[List[int]] = [[] for _ in range(slots)]
@@ -545,7 +559,8 @@ class PagedEngine:
     # -- pages ---------------------------------------------------------
 
     def _mk_scratch(self, rows: int) -> KVCache:
-        return KVCache.create(self.cfg, rows, self.max_seq, self.device)
+        return KVCache.create(self._cache_cfg, rows, self.max_seq,
+                              self.device)
 
     def _alloc_pages(self, n: int) -> List[int]:
         """Allocate, evicting prefix-cache pages (LRU, unshared only) when
@@ -703,7 +718,7 @@ class PagedEngine:
                        ) -> torch.Tensor:
         """:func:`prefill_round` over the scratch rows."""
         return prefill_round(self.params, self.cfg, scratch, ids, starts,
-                             plens, self.max_seq)
+                             plens, self.max_seq, self._axis)
 
     def _sample_first(self, logits: torch.Tensor,
                       samp: torch.Tensor) -> np.ndarray:
@@ -797,7 +812,8 @@ class PagedEngine:
         mp = self._attend_pages(act, 1)
         logits, self.pages = paged_decode_step(
             self.params, self._dev(self._cur)[:, None], self.pages,
-            self._dev(self.table), self._dev(self.pos), self.cfg, mp)
+            self._dev(self.table), self._dev(self.pos), self.cfg, mp,
+            self._axis)
         nxt = sample_rows_samp(logits, self._slot_samp(),
                                self._gen).cpu().numpy()
         self._steps += 1
@@ -824,7 +840,7 @@ class PagedEngine:
         nxt, emitted, self.pages = _paged_multi(
             self.params, self._dev(self._cur), self.pages,
             self._dev(self.table), self._dev(self.pos), self._slot_samp(),
-            self._gen, self.cfg, mp, n)
+            self._gen, self.cfg, mp, n, self._axis)
         nxt = nxt.cpu().numpy()
         emitted = emitted.cpu().numpy()    # [slots, n]
         self._steps += n
@@ -878,7 +894,7 @@ class PagedEngine:
         g, a, self.pages = _paged_spec(
             self.params, self._dev(feed), self.pages, self._dev(self.table),
             self._dev(self.pos), self._dev(draft), self._slot_samp(),
-            self._gen, self.cfg, mp)
+            self._gen, self.cfg, mp, self._axis)
         g = g.cpu().numpy()
         a = a.cpu().numpy()
         self._steps += 1
@@ -921,7 +937,8 @@ class PagedEngine:
         gs, accs, self.pages = _paged_spec_multi(
             self.params, self._dev(pending), self.pages,
             self._dev(self.table), self._dev(self.pos), self._dev(hist),
-            self._dev(hcnt), self._slot_samp(), self._gen, self.cfg, mp, n, k)
+            self._dev(hcnt), self._slot_samp(), self._gen, self.cfg, mp, n, k,
+            self._axis)
         gs = gs.cpu().numpy()            # [n, slots, k]
         accs = accs.cpu().numpy()        # [n, slots]
         self._steps += n

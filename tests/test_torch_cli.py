@@ -8,7 +8,8 @@ synthetic HF checkpoint written with numpy from a seed), once each for
 port's own direct calls on the same loaded parameters: ``--fuse``,
 ``--kv-dtype int8``, ``--spec-k``, ``--steps-per-dispatch``,
 ``--prefix-cache``, ``--pipeline manual``, several prompts through the
-generate path. ``--tp 2`` raises before any load, ``--demo`` runs, and
+generate path. ``--tp 2 --speculative`` raises before any load (``--tp``
+itself is tests/test_torch_engine_tp.py's), ``--demo`` runs, and
 ``--device`` defaults to the card, which raises without one.
 
 The prompts are 5 tokens from seeds 400 and 404, whose greedy streams on
@@ -218,9 +219,12 @@ def test_cli_speculative_equals_direct_call(hf_dir, loaded):
 
 
 def test_cli_tp_raises_before_loading(tmp_path):
-    with pytest.raises(SystemExit, match="not ported"):
+    """``--tp 2`` serves over two ranks (tests/test_torch_engine_tp.py);
+    with ``--speculative``, single-device as in the JAX package, it is
+    refused before any rank starts or any file is read."""
+    with pytest.raises(SystemExit, match="single-device"):
         tcli.main(["--model", str(tmp_path / "absent"), "--tp", "2",
-                   "--device", "cpu"])
+                   "--speculative", "--device", "cpu"])
 
 
 def test_cli_demo_runs():

@@ -252,5 +252,7 @@ def test_engine_sampling_and_refusals(params):
     eng = _engine(te, tparams, tcfg)
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(list(range(1, MAX_SEQ + 1)))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # the tensor-parallel engine is tests/test_torch_engine_tp.py's; a
+    # mesh that is not the port's is refused
+    with pytest.raises(TypeError, match="parallel.make_mesh"):
         _engine(te, tparams, tcfg, mesh=object())

@@ -1420,3 +1420,103 @@ def test_evals_cli_runs_on_card_by_default(cuda, monkeypatch):
     assert tqz.DEQUANTIZE_4BIT_PAIR.launches - k10 == 3 * (7 * L + 1)
     for rep in out.values():
         assert all(np.isfinite(v) for v in rep.values())
+
+
+# -- tensor parallelism on the card (ranks sharing it under gloo) ----------
+
+TP_PROMPT = [[3, 1, 4, 1, 5]]
+TP_NEW = 6
+# the TP forward's logits against the single device's: the same planar
+# weights, only the fp32 order of the o and down sums differs (1e-2 of
+# max|logit| on TINY_LLAMA; 4-6e-2 at Llama3-8B's 32 layers, PERF.md)
+TP_LOGIT_TOL = 1e-2
+
+
+def _greedy(params, cfg, ids, axis_name=None, cache=None):
+    """Greedy tokens of TP_NEW steps and each step's logits."""
+    toks, logits = [], []
+    with torch.inference_mode():
+        lg, cache = tl.prefill(params, ids, cache, cfg, axis_name=axis_name,
+                               last_token_only=True)
+        lg = lg[:, -1]
+        for step in range(TP_NEW):
+            logits.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+            toks.append(tok)
+            if step + 1 < TP_NEW:
+                lg, cache = tl.decode_step(params, tok[:, None], cache,
+                                           ids.shape[1] + step, cfg,
+                                           axis_name=axis_name)
+    return torch.stack(toks, 1), torch.stack(logits, 1)
+
+
+def _tp_generate_rank(tp):
+    """One rank of the card test below: the TP generate on its shard
+    (flash attention: K3 over its kv heads) with each kernel's launches
+    in it, the TP forward's logits step by step, and the single-device
+    greedy stream on the same planar o/down."""
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.ops.cuda import KERNELS
+    from quantizations_tpu_torch.parallel import (make_mesh,
+                                                  make_sharded_generate_fn,
+                                                  shard_llama_params,
+                                                  sharded_cache)
+    from quantizations_tpu_torch.parallel.shard import ensure_planar
+
+    mesh = make_mesh((tp,), ("tp",))
+    cfg = dataclasses.replace(tl.TINY_LLAMA, use_flash_attention=True)
+    params = tl.init_llama_params(cfg, seed=1, device=mesh.device)
+    serve = ServeConfig(max_seq_len=32, max_new_tokens=TP_NEW)
+    ids = torch.tensor(TP_PROMPT, dtype=torch.int32, device=mesh.device)
+    local = shard_llama_params(params, mesh, cfg)
+    for k in KERNELS:
+        k.launches = 0
+    toks, _ = make_sharded_generate_fn(cfg, serve, mesh)(
+        local, ids, sharded_cache(cfg, 1, 32, mesh), None)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in KERNELS}
+    stats = mesh.stats.as_dict()
+    _, tp_logits = _greedy(local, cfg, ids, mesh.axis("tp"),
+                           sharded_cache(cfg, 1, 32, mesh))
+    st = params.layers
+    planar = dataclasses.replace(params, layers=dataclasses.replace(
+        st, o=ensure_planar(st.o), down=ensure_planar(st.down)))
+    ref, ref_logits = _greedy(planar, cfg, ids, cache=tl.KVCache.create(
+        cfg, 1, 32, mesh.device))
+    return (toks, tp_logits, ref, ref_logits, counts, mesh.backend,
+            str(mesh.device), stats)
+
+
+@pytest.mark.cuda
+def test_tp_generate_on_card(cuda):
+    """TP = 2 on the one card: two gloo ranks on ``cuda:0``, the same
+    tokens on both; the first forward's logits within TP_LOGIT_TOL of
+    max|logit| of the single device's on the same planar weights, and the
+    greedy stream the single device's up to a step whose top-2 margin
+    lies within that tolerance; each kernel's launches per rank at the
+    shard shapes: K1 over the 5 column shards and the vocab shard, K6
+    (prefill, 5 rows) and K5 (decode) over the planar row shards, K3 over
+    the rank's kv heads; the sums and the logits gather by all_gather,
+    which gloo takes for CUDA tensors (none staged)."""
+    from quantizations_tpu_torch.parallel import launch
+
+    L = tl.TINY_LLAMA.num_hidden_layers
+    res = launch(_tp_generate_rank, 2, 2, device="cuda", deadline=300)
+    for toks, tp_lg, ref, ref_lg, counts, backend, dev, stats in res:
+        assert backend == "gloo" and dev == "cuda:0"
+        assert torch.equal(toks, res[0][0])
+        scale = float(ref_lg[:, 0].abs().max())
+        assert float((tp_lg[:, 0] - ref_lg[:, 0]).abs().max()) \
+            <= TP_LOGIT_TOL * scale
+        parted = (toks[0] != ref[0]).nonzero()
+        if len(parted):
+            s = int(parted[0])
+            top = ref_lg[0, s].topk(2).values
+            assert float(top[0] - top[1]) <= TP_LOGIT_TOL * scale
+            assert torch.equal(toks[0, :s], ref[0, :s])
+        assert counts["pair_matmul"] == TP_NEW * (5 * L + 1)
+        assert counts["gemv_4bit"] == 2 * L
+        assert counts["planar_matmul"] == (TP_NEW - 1) * 2 * L
+        assert counts["flash_decode"] == (TP_NEW - 1) * L
+        assert stats["calls"] == {"all_gather": TP_NEW * (2 * L + 1)}
+        assert stats["staged"] == {}

@@ -355,10 +355,12 @@ def test_mixed_bnb_types_raise(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
+    """The loads onto a mesh are tests/test_torch_engine_tp.py's; a mesh
+    that is not the port's is refused before anything is read."""
     d = write_hf(tmp_path / "hf", "llama")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="parallel.make_mesh"):
         th.load_hf_llama(d, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="parallel.make_mesh"):
         tckpt.load_checkpoint(str(tmp_path), mesh=object(), device="cpu")
 
 

@@ -301,11 +301,22 @@ def test_eos_freezes_rows(models):
 
 @pytest.mark.parametrize("knob", ["axis_name"])
 def test_unported_knobs_raise(models, knob):
+    """``axis_name`` is a mesh axis (tests/test_torch_parallel.py runs it
+    over ranks): one of this one process gives the logits without it, bit
+    for bit; the JAX package's axis-name string is refused."""
+    from quantizations_tpu_torch.parallel import make_mesh
+
     _, tp = models[False]
-    cache = tl.KVCache.create(tl.TINY_LLAMA, 1, MAX_SEQ, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tl.prefill(tp, torch.zeros((1, 2), dtype=torch.int32), cache,
-                   tl.TINY_LLAMA, **{knob: "tp"})
+    ids = torch.tensor([[3, 1, 4, 1]], dtype=torch.int32)
+
+    def run(**kw):
+        cache = tl.KVCache.create(tl.TINY_LLAMA, 1, MAX_SEQ, device="cpu")
+        return tl.prefill(tp, ids, cache, tl.TINY_LLAMA, **kw)[0]
+
+    axis = make_mesh((1,), ("tp",), device="cpu").axis("tp")
+    assert torch.equal(run(**{knob: axis}), run())
+    with pytest.raises(TypeError, match="mesh axis"):
+        run(**{knob: "tp"})
 
 
 # -- A.5: the presets, and KVCache.create against the reference's default ---

@@ -484,7 +484,9 @@ def test_paged_engine_page_size_pick_and_unported_paths():
                           max_seq=2048).page_size == 256
     with pytest.raises(ValueError, match="multiple"):
         tp.PagedEngine(tparams, tcfg, num_pages=8, max_seq=60, page_size=16)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # the tensor-parallel pool is tests/test_torch_engine_tp.py's; a mesh
+    # that is not the port's is refused
+    with pytest.raises(TypeError, match="parallel.make_mesh"):
         tp.PagedEngine(tparams, tcfg, mesh=object(), **ENGINE)
 
 
