@@ -9,10 +9,11 @@ Phases, each raising on failure:
 2. ``build``: compile every kernel from ``quantizations_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and time it; beside it
    ``nvcc -Xptxas -v`` on ``flash_decode.cu``, ``pair_matmul.cu``,
-   ``planar_matmul.cu`` and ``quantize.cu`` logs the registers and
-   spills of every K3/K4 instantiation, of K1/K9's body at each token
-   tile, of K5's two bodies and K6 at each of theirs and of K2's two
-   bodies by lanes a block, input type and code, and a spill or a
+   ``pair_splitk.cu``, ``planar_matmul.cu`` and ``quantize.cu`` logs the
+   registers and spills of every K3/K4 instantiation, of K1/K9's
+   CUDA-core body at each token tile and their split-K body at each
+   block shape, of K5's two bodies and K6 at each of theirs and of K2's
+   two bodies by lanes a block, input type and code, and a spill or a
    missing instantiation fails the run;
 3. ``k2``: the quantize kernel against its plain version, bit-exact
    (absmax NaN-aware), FP4 and NF4, at every shape that model build
@@ -22,11 +23,14 @@ Phases, each raising on failure:
    subnormal absmax; then timed at each shape (inputs rotating so that
    they do not sit in the 50 MB L2) with its TB/s and share of the
    bound, and summed over one model build's launches;
-4. ``k1``: the pair dequant-matmul kernel against its plain version at
-   every Llama3-8B main-path shape, T in {1, 4, 8, 16, 64, 128, 256}
-   (its CUDA-core body up to 128 rows, its tensor-core body above),
-   FP4 and NF4, fp32 and ``bf16x2`` scales, stacked at a layer other
-   than 0 and unstacked. Tolerance: 1e-5 * max|y|, for the fp32
+4. ``k1``: the pair dequant-matmul kernel's three bodies (CUDA-core
+   below ``PAIR_SPLITK_MIN_TOKENS`` rows, split-K tensor-core up to 128,
+   K8's tensor-core body above), each launched directly, against its
+   plain version and launched twice with the same bits, and the dispatch
+   (stacked at a layer other than 0, and unstacked) bit for bit the body
+   ``pair_body`` names, at every Llama3-8B main-path shape and 3071 row
+   pairs, T in {1, 2, 3, 4, 8, 16, 32, 64, 100, 128, 256}, FP4 and NF4,
+   fp32 and ``bf16x2`` scales. Tolerance: 1e-5 * max|y|, for the fp32
    summation order only (both sides round every operand identically);
 5. ``attn``: the flash-decode kernels K3 (bf16 cache) and K4 (int8
    codes with bf16 steps) against their plain versions at the main
@@ -65,8 +69,10 @@ Phases, each raising on failure:
    prompt at batch 1, 4 and 8: FP4 on the einsum path, with
    ``use_flash_attention`` (K3) and with flash and an int8 KV cache
    (K4); NF4 at batch 1. Every generate must launch K1 exactly
-   60 * (4 * 32 + 1) = 7740 times (and K3 or K4 exactly 59 * 32 = 1888
-   times, K10 never) and give the same tokens on every run; tok/s is new tokens
+   60 * (4 * 32 + 1) = 7740 times, each on the body ``pair_body`` names
+   for its rows (the split-K body's count exact: the 16B-row prefill and,
+   from B = 4, every launch), and K3 or K4 exactly 59 * 32 = 1888
+   times, K10 never, and give the same tokens on every run; tok/s is new tokens
    over the whole generate call, from CUDA events, the median of
    TIMED_RUNS (3)
    timed runs after a warm-up, printed with their min and max. A tiny
@@ -106,8 +112,10 @@ Phases, each raising on failure:
    kernel) bit-identical to K1, at every Llama3-8B pair shape (the
    tensor-core body also at M = 6142, a row tail), FP4 and NF4, fp32,
    bf16 and ``bf16x2`` scales, stacked at layer 1 and unstacked: K8 at T
-   in {8, 129, 200, 256, 512}, K1 through its tensor-core body at {129,
-   200, 256, 512}, K9 at T in {1, 4, 8, 16, 64, 128}. The dense pair band
+   in {8, 129, 200, 256, 512} (against K1, whichever body it runs), K1
+   through its tensor-core body at {129, 200, 256, 512}, K9 at T in {1,
+   2, 3, 4, 8, 16, 64, 128} (on either side of K1's switch to its split-K
+   body, which K9 follows). The dense pair band
    (the default route above the K1 band): K10 (pair-layout dequantize)
    bit-exact against ``dense_weight`` and its plain version at every pair
    shape, FP4 and NF4, fp32, bf16 and ``bf16x2`` scales, layer 1 of a
@@ -123,13 +131,16 @@ Phases, each raising on failure:
    T = 1 decode forward over the projections it takes (qkv, o, down x
    32), K8 per 512-row prefill forward (all 128 projections), beside
    K1's CUDA-core body, the plain versions, dense bf16 ``torch.matmul``
-   and (K8) the dense pair path; K1's two bodies, each launched
-   directly, at T in {16, 64, 128, 256, 512} on the four layer shapes
-   beside the bound and ``torch.matmul``, where the tensor-core body
-   starts to win, and the body with each of its row tiles at T = 128, 256
-   and 512 (the tile rule's data). Then the knobs end to
+   and (K8) the dense pair path; K1's three bodies, each launched
+   directly, at T in {1, 2, 3, 4, 8, 16, 32, 64, 128, 256, 512} on the
+   four layer shapes and (up to 128 rows) the lm_head, per shape and
+   per forward beside the bound and ``torch.matmul`` (the plain version
+   at 8 and 256), with both crossovers (CUDA-core to split-K, split-K to
+   tensor-core), and the tensor-core body with each of its row tiles at T
+   = 128, 256 and 512 (the tile rule's data). Then the knobs end to
    end on the model phase's parameters: ``pair_pipeline="manual"``
-   generates at B = 1, 4, 8 with exact K9/K1 counts (MANUAL_LAUNCHES) and
+   generates at B = 1, 4, 8 with exact K9/K1 counts (MANUAL_LAUNCHES, and
+   the split-K body's launches by K1's and K9's rows) and
    the model phase's tokens; ``QT_PREFILL_PAIR=1`` generates after a
    1024-token prompt with exactly 256 K8 and 7612 K1 launches (no K10),
    and its prefill forward is timed on three routes in turns: K8, the
@@ -147,9 +158,11 @@ Phases, each raising on failure:
    prompt's first 512 tokens (it must hit the prefix cache for two
    pages). Then again on a fresh engine (the same tokens), then with an
    int8 pool (its agreement with the bf16 tokens is printed). Each run
-   must launch K3 (K4) exactly 32 * steps times, K1 at least
-   129 * steps times and K1's tensor-core body exactly 128 times per
-   admission forward of 129-256 rows (20 chunks of 256: 2,560) and K10
+   must launch K3 (K4) exactly 32 * steps times, K1 exactly 129 times
+   per decode forward (4 rows: the split-K body) and 129 per admission
+   forward up to 256 rows (the lm_head at one row a sequence), each on
+   the body ``pair_body`` names (the tensor-core body 128 times per
+   admission forward of 129-256 rows: 20 chunks of 256, 2,560) and K10
    exactly 128 times per admission forward above 256 rows (the batched
    group's 3 rounds of 1024: 384), finish
    every request with 32 in-vocabulary
@@ -165,9 +178,8 @@ Phases, each raising on failure:
    requests) through ``step_spec(8)`` twice (the same tokens),
    ``step_spec_multi(8, 4)`` and ``step_spec(8)`` on an int8 pool: K3 (K4)
    exactly 32 per forward (verify windows at q_span 8 and plain
-   fallback steps), K1's CUDA-core body exactly 129 per forward and per
-   admission forward of at most 128 rows (one per larger one), its
-   tensor-core body and K10 as in the paged phase, 32 tokens a request,
+   fallback steps), K1 by body as in the paged phase (a verify window's
+   32 rows on the split-K body) and K10 as there, 32 tokens a request,
    pages returned; printed beside the paged phase's plain run, with the
    tokens that agree with it. One verify window (B = 4, T = 8) is timed
    against one plain step at 1900 tokens. The slot ``Engine(slots=4,
@@ -175,9 +187,10 @@ Phases, each raising on failure:
    requests: ``run()`` twice (the same tokens),
    ``run(steps_per_dispatch=4)``, ``run(spec_k=8)``, and ``run()`` with
    flash (K3) and with flash and an int8 cache (K4), each with exact
-   K1/K3/K4/K10 counts. Last ``make_speculative_generate_fn`` at B = 1,
-   k = 8, 60 tokens after the model phase's prompt (K1 exactly 129 per
-   forward, the same tokens every run; tok/s the median of 3) beside the
+   K1 (by body)/K3/K4/K10 counts. Last ``make_speculative_generate_fn``
+   at B = 1, k = 8, 60 tokens after the model phase's prompt (K1 exactly
+   129 per forward by body, the same tokens every run; tok/s the median
+   of 3) beside the
    model phase's generate;
 12. ``load``: the checkpoint path and the command line. A synthetic HF
    checkpoint at Llama3-8B's width cut to 4 of its 32 layers (3.85 GB of
@@ -276,7 +289,7 @@ FP4_THRESHOLDS = (0.29166667, 0.583333, 0.8333333, 0.4166667, 0.0859375,
 K1_SHAPES = (("qkv", 6144, 4096), ("o", 4096, 4096),
              ("gate_up", 28672, 4096), ("down", 4096, 14336),
              ("lm_head", 128256, 4096))
-K1_TOKENS = (1, 4, 8, 16, 64, 128, 256)
+K1_TOKENS = (1, 2, 3, 4, 8, 16, 32, 64, 100, 128, 256)
 K1_DECODE_TOKENS = (1, 4, 8)               # decode at B = 1, 4, 8
 K1_TIMED_TOKENS = K1_DECODE_TOKENS + (16, 64, 128)   # and their prefill
 K1_CHUNK_TOKENS = 256          # one admission chunk of the paged engine
@@ -297,8 +310,13 @@ ATTN_SWEEP_CHUNKS = (64, 128, 256, 512, 1024, 2048)   # the split sweep
 # the instantiations that csrc/flash_decode.cu's dispatch launches: row
 # tiles R (4 up to 4 rows a group, else 8) and head dims D, per type
 FD_ROW_TILES, FD_HEAD_DIMS = (4, 8), (64, 128)
-# the token tiles TT of csrc/pair_matmul.cu's body (K1 up to 128 rows, K9)
+# the token tiles TT of csrc/pair_matmul.cu's body (K1's and K9's CUDA-core
+# body)
 PAIR_TILES = (1, 2, 4, 8, 16)
+# the shapes (NT n8 tiles, MT m16 tiles, KS K slices, ST stages) of
+# csrc/pair_splitk.cu's body (K1 and K9 from PAIR_SPLITK_MIN_TOKENS up to
+# 128 rows) that its entry launches
+PAIR_SPLITK_SHAPES = ((1, 1, 8, 2), (2, 2, 8, 2), (4, 2, 8, 2), (8, 2, 4, 2))
 # csrc/planar_matmul.cu: the CUDA-core body's token tiles (K5, K6; above 8
 # tokens K5 loops over 8-token tiles) and the tensor-core body's (NT n8
 # tiles, MT 16-row tiles) that its dispatch launches
@@ -325,8 +343,11 @@ MODULE_SHAPE = (14336, 4096)   # the Linear4bit of the planar phase
 K8_TOKENS = (8, 129, 200, 256, 512)
 MMA_TOKENS = (129, 200, 256, 512)         # K1 through its tensor-core body
 MMA_SHAPES = K1_SHAPES + (("odd", 6142, 4096),)   # 3071 row pairs
-BODY_TIMED_T = (16, 64, 128, 256, 512)    # both K1 bodies, the crossover
-K9_TOKENS = (1, 4, 8, 16, 64, 128)
+# K1's three bodies are timed at these rows (the crossovers), with the
+# lm_head up to 128; the plain versions at BODY_PLAIN_T
+BODY_TIMED_T = (1, 2, 3, 4, 8, 16, 32, 64, 128, 256, 512)
+BODY_PLAIN_T = (8, 256)
+K9_TOKENS = (1, 2, 3, 4, 8, 16, 64, 128)
 K8_TIMED_T = 512               # one chunk of a prefill forward
 K8_GATE = 1e-5                 # max|K8 - plain| / max|plain|, and to K1
 K9_SHAPES = ("qkv", "o", "down")   # the decode projections K9 takes
@@ -405,11 +426,12 @@ def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 def start_ptxas_report():
     """Start ``nvcc -Xptxas -v`` with the build's flags on
     ``csrc/flash_decode.cu``, ``csrc/pair_matmul.cu``,
-    ``csrc/planar_matmul.cu`` and ``csrc/quantize.cu`` (beside the build,
-    which it does not replace), all at once, and return ``{source stem:
-    process}``."""
+    ``csrc/pair_splitk.cu``, ``csrc/planar_matmul.cu`` and
+    ``csrc/quantize.cu`` (beside the build, which it does not replace),
+    all at once, and return ``{source stem: process}``."""
     from quantizations_tpu_torch.ops.cuda import (BUILD, FLASH_DECODE,
                                                   NVCC_FLAGS, PAIR_MATMUL,
+                                                  PAIR_MATMUL_SPLITK,
                                                   PLANAR_MATMUL,
                                                   QUANTIZE_4BIT, nvcc_path)
 
@@ -418,13 +440,15 @@ def start_ptxas_report():
         [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
          str(BUILD / f"{k.path.stem}_ptxas.so"), str(k.path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for k in (FLASH_DECODE, PAIR_MATMUL, PLANAR_MATMUL, QUANTIZE_4BIT)}
+        for k in (FLASH_DECODE, PAIR_MATMUL, PAIR_MATMUL_SPLITK,
+                  PLANAR_MATMUL, QUANTIZE_4BIT)}
 
 
 def _ptxas_label(stem, fn):
     """The instantiation a mangled kernel name stands for: K3/K4 by type,
     row tile and head dim (and the combine) in ``flash_decode``; K1/K9's
-    token tile TT in ``pair_matmul``; in ``planar_matmul`` the CUDA-core
+    token tile TT in ``pair_matmul``; the split-K body's NT, MT, KS and
+    ST in ``pair_splitk``; in ``planar_matmul`` the CUDA-core
     body's class (K5 or K6) and token tile, or K5's tensor-core body by
     its n8 tiles NT and 16-row tiles MT (K6 on fp32 activations is its
     own instantiation, "fp32 x"); in ``quantize`` K2's group body by its
@@ -441,6 +465,10 @@ def _ptxas_label(stem, fn):
     if stem == "pair_matmul":
         tile = re.search(r"pair_matmul_kernelILi(\d+)E", fn).group(1)
         return f"TT={tile}"
+    if stem == "pair_splitk":
+        m = re.search(r"pair_splitk_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                      fn)
+        return "NT={} MT={} KS={} ST={}".format(*m.groups())
     if stem == "planar_matmul":
         m = re.search(r"planar_mma_kernelILi(\d+)ELi(\d+)E", fn)
         if m:
@@ -480,9 +508,11 @@ def read_ptxas_report(procs, results):
     source's ``ptxas -v`` log; raise on a spill, or unless it holds exactly
     the instantiations that the source's dispatch launches: K3 and K4 at
     each row tile and head dim of FD_ROW_TILES x FD_HEAD_DIMS and the
-    combine (``results["ptxas"]``), K1/K9's body at each token tile of
-    PAIR_TILES (``results["ptxas_pair_matmul"]``; both entry points
-    launch the same instantiations), and in ``planar_matmul`` K5's and
+    combine (``results["ptxas"]``), K1/K9's CUDA-core body at each token
+    tile of PAIR_TILES (``results["ptxas_pair_matmul"]``; both entry
+    points launch the same instantiations), their split-K body at each
+    shape of PAIR_SPLITK_SHAPES (``results["ptxas_pair_splitk"]``), and
+    in ``planar_matmul`` K5's and
     K6's CUDA-core body at K5_TILES and K6_TILES (K6 on bf16 and on fp32
     activations) and K5's tensor-core body
     at PLANAR_MMA_TILES (``results["ptxas_planar_matmul"]``), and K2's
@@ -492,6 +522,8 @@ def read_ptxas_report(procs, results):
                              for r in FD_ROW_TILES for d in FD_HEAD_DIMS}
             | {"combine"},
             "pair_matmul": {f"TT={t}" for t in PAIR_TILES},
+            "pair_splitk": {"NT={} MT={} KS={} ST={}".format(*sh)
+                            for sh in PAIR_SPLITK_SHAPES},
             "planar_matmul": {f"K5 TT={t}" for t in K5_TILES}
             | {f"K6 TT={t}{x}" for t in K6_TILES for x in ("", " fp32 x")}
             | {f"K5 mma NT={n} MT={m}" for n, m in PLANAR_MMA_TILES},
@@ -646,15 +678,38 @@ def _pair_operands(M, K, L, dev, gen):
     return wp2, scales
 
 
-def phase_k1(dev, gen, results):
-    from quantizations_tpu_torch.ops import (matmul_4bit_pair,
-                                             matmul_4bit_pair_plain,
-                                             matmul_4bit_pair_stacked,
-                                             matmul_4bit_pair_stacked_plain,
-                                             pack_scale_pairs)
+# K1's bodies: (its wrapper, its plain version) by ops/qmatmul.py
+# pair_body's name. The split-K and the tensor-core body take K8's plain
+# version (original column order), the CUDA-core body K1's
+K1_BODIES = ("cuda_core", "splitk", "mma")
+K1_ODD = ("odd", 6142, 4096)       # 3071 row pairs: a row tail in a block
 
-    worst, worst_abs = 0.0, 0.0
-    for name, M, K in K1_SHAPES:
+
+def _k1_body_fns():
+    from quantizations_tpu_torch.ops import qmatmul as qm
+
+    return {"cuda_core": (qm.matmul_4bit_pair_cuda_core,
+                          qm.matmul_4bit_pair_plain),
+            "splitk": (qm.matmul_4bit_pair_splitk,
+                       qm.matmul_4bit_pair_prefill_plain),
+            "mma": (qm.matmul_4bit_pair_mma,
+                    qm.matmul_4bit_pair_prefill_plain)}
+
+
+def phase_k1(dev, gen, results):
+    """Each of K1's three bodies, launched directly, against its plain
+    version, and launched twice with the same bits; the dispatch
+    (stacked, layer 2 of 3) bit for bit the body ``pair_body`` names, and
+    the unstacked form at T = 1 and 16 likewise: at every K1_SHAPES shape
+    and 3071 row pairs, FP4 and NF4, fp32 and ``bf16x2`` scales, T in
+    K1_TOKENS."""
+    from quantizations_tpu_torch.ops import pack_scale_pairs
+    from quantizations_tpu_torch.ops import qmatmul as qm
+
+    fns = _k1_body_fns()
+    by_body = {b: dict(max_abs_err=0.0, max_err_over_max_y=0.0, cases=0)
+               for b in K1_BODIES}
+    for name, M, K in K1_SHAPES + (K1_ODD,):
         wp2, scales = _pair_operands(M, K, 3, dev, gen)
         packed = pack_scale_pairs(scales)
         x = torch.randn(max(K1_TOKENS), K, generator=gen,
@@ -662,36 +717,59 @@ def phase_k1(dev, gen, results):
         n = 0
         for qt in ("fp4", "nf4"):
             for skind, s in (("fp32", scales), ("bf16x2", packed)):
-                cases = [("stacked", T) for T in K1_TOKENS]
-                cases += [("unstacked", T) for T in (1, 16)]
-                for form, T in cases:
-                    if form == "stacked":
-                        y = matmul_4bit_pair_stacked(wp2, s, x[:T], 2, qt)
-                        yp = matmul_4bit_pair_stacked_plain(wp2, s, x[:T], 2,
-                                                            qt)
-                    else:
-                        y = matmul_4bit_pair(wp2[0], s[0], x[:T], qt)
-                        yp = matmul_4bit_pair_plain(wp2[0], s[0], x[:T], qt)
-                    torch.cuda.synchronize()
-                    if y.shape != (T, M) or not torch.isfinite(y).all():
-                        raise AssertionError(f"K1 {name} {qt} {skind} T={T}: "
-                                             f"bad output {tuple(y.shape)}")
-                    err = (y - yp).abs().max().item()
-                    tol = 1e-5 * yp.abs().max().item()
-                    if not err <= tol:
-                        raise AssertionError(
-                            f"K1 {name} [{M},{K}] {qt} {skind} {form} T={T}: "
-                            f"max|err| {err:.3e} > tol {tol:.3e}")
-                    worst = max(worst, err / max(tol, 1e-30) * 1e-5)
-                    worst_abs = max(worst_abs, err)
-                    n += 1
-        log(f"  K1 {name} [{M}, {K}]: {n} cases within 1e-5 * max|y| of "
-            f"the plain version")
+                plains = {p: p(wp2[2], s[2], x, qt)
+                          for p in {p for _, p in fns.values()}}
+                for T in K1_TOKENS:
+                    xt = x[:T]
+                    what = f"K1 {name} [{M},{K}] {qt} {skind} T={T}"
+                    y_disp = qm.matmul_4bit_pair_stacked(wp2, s, xt, 2, qt)
+                    y_flat = (qm.matmul_4bit_pair(wp2[2], s[2], xt, qt)
+                              if T in (1, 16) else y_disp)
+                    for body, (fn, plain) in fns.items():
+                        y = fn(wp2[2], s[2], xt, qt)
+                        again = fn(wp2[2], s[2], xt, qt)
+                        torch.cuda.synchronize()
+                        if y.shape != (T, M) or not torch.isfinite(y).all():
+                            raise AssertionError(f"{what} {body} body: bad "
+                                                 f"output {tuple(y.shape)}")
+                        ref = plains[plain][:T]
+                        err = (y - ref).abs().max().item()
+                        rel = err / ref.abs().max().item()
+                        if not rel <= 1e-5:
+                            raise AssertionError(
+                                f"{what} {body} body: max|err| {err:.3e} = "
+                                f"{rel:.3e} of max|y| > 1e-5")
+                        if not torch.equal(y.view(torch.int32),
+                                           again.view(torch.int32)):
+                            raise AssertionError(f"{what} {body} body: two "
+                                                 "launches differ")
+                        if qm.pair_body(T) == body and not (
+                                torch.equal(y.view(torch.int32),
+                                            y_disp.view(torch.int32))
+                                and torch.equal(y.view(torch.int32),
+                                                y_flat.view(torch.int32))):
+                            raise AssertionError(f"{what}: the dispatch is "
+                                                 f"not its {body} body")
+                        rec = by_body[body]
+                        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                        rec["max_err_over_max_y"] = max(
+                            rec["max_err_over_max_y"], rel)
+                        rec["cases"] += 1
+                        n += 1
+                del plains
+        log(f"  K1 {name} [{M}, {K}]: {n} cases, each body within 1e-5 * "
+            "max|y| of its plain version, the same bits twice; the dispatch "
+            "the body pair_body names, bit for bit")
         del wp2, scales, packed, x
         torch.cuda.empty_cache()
-    results["k1_err"] = dict(max_abs_err=worst_abs, max_rel_err=worst)
-    log(f"  K1 worst max|err|: {worst_abs:.3e}; worst max|err| / max|y|: "
-        f"{worst:.3e}")
+    run = {b: by_body[b] for b in K1_BODIES}
+    results["k1_err"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in run.values()),
+        max_rel_err=max(r["max_err_over_max_y"] for r in run.values()),
+        by_body=run)
+    log("  K1 worst max|err| / max|y| by body: " + ", ".join(
+        f"{b} {r['max_err_over_max_y']:.3e} ({r['cases']} cases)"
+        for b, r in run.items()))
 
 
 def phase_time(dev, gen, results):
@@ -1069,12 +1147,15 @@ def phase_model(dev, results):
         init_llama_params, map_tensors, named_tensors, prefill)
     from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
                                              KERNELS, PAIR_MATMUL,
+                                             PAIR_MATMUL_MMA,
+                                             PAIR_MATMUL_SPLITK,
                                              QUANTIZE_4BIT)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
 
     serve = ServeConfig(max_seq_len=128, max_new_tokens=60, temperature=0.0)
     layers = LLAMA3_8B.num_hidden_layers
     per_generate = serve.max_new_tokens * (4 * layers + 1)
+    k1_recs = (PAIR_MATMUL, PAIR_MATMUL_SPLITK, PAIR_MATMUL_MMA)
     per_generate_attn = (serve.max_new_tokens - 1) * layers
     variants = (("fp4", "einsum", {}, (1, 4, 8)),
                 ("fp4", "flash", dict(use_flash_attention=True), (1, 4, 8)),
@@ -1133,9 +1214,15 @@ def phase_model(dev, results):
         for B in batches:
             idsb = ids.repeat(B, 1)
             times, first = [], None
+            # K1 by body: the 16B-row prefill (its lm_head at B rows), then
+            # 59 decode steps at B rows
+            want_k1 = _generate_k1(B, PROMPT_LEN, serve.max_new_tokens,
+                                   layers)
+            if want_k1[PAIR_MATMUL.name] != per_generate:
+                raise AssertionError(f"K1's closed form {want_k1}")
             for it in range(TIMED_RUNS + 1):
                 cache = KVCache.create(cfg, B, serve.max_seq_len, dev)
-                before = PAIR_MATMUL.launches
+                before = {k.name: k.launches for k in k1_recs}
                 before_attn = (0 if attn_kernel is None
                                else attn_kernel.launches)
                 start = torch.cuda.Event(enable_timing=True)
@@ -1144,10 +1231,10 @@ def phase_model(dev, results):
                 toks, _ = gen(params, idsb, cache, None)
                 end.record()
                 end.synchronize()
-                got = PAIR_MATMUL.launches - before
-                if got != per_generate:
-                    raise AssertionError(f"K1 launched {got} times in one "
-                                         f"generate, expected {per_generate}")
+                got = {k.name: k.launches - before[k.name] for k in k1_recs}
+                if got != want_k1:
+                    raise AssertionError(f"K1 launched {got} in one "
+                                         f"generate, expected {want_k1}")
                 if attn_kernel is not None:
                     got = attn_kernel.launches - before_attn
                     if got != per_generate_attn:
@@ -1174,6 +1261,7 @@ def phase_model(dev, results):
                              tok_per_s_max=hi, generate_s=t,
                              generate_s_all=times,
                              k1_launches_per_generate=per_generate,
+                             k1_by_body_per_generate=want_k1,
                              attn_launches_per_generate=(
                                  0 if attn_kernel is None
                                  else per_generate_attn),
@@ -1181,7 +1269,8 @@ def phase_model(dev, results):
                              tokens=first.tolist()))
             log(f"  {qt} {attn} B={B}: {tps:.2f} tok/s, median of "
                 f"{len(times)} (min {lo:.2f}, max {hi:.2f}; {t:.4f} s per "
-                f"generate, K1 launches {per_generate} each"
+                f"generate, K1 launches {per_generate} each, "
+                f"{want_k1[PAIR_MATMUL_SPLITK.name]} on its split-K body"
                 + ("" if attn_kernel is None else
                    f", {attn_kernel.name} {per_generate_attn}") + ")")
         if qt == "nf4":
@@ -1922,10 +2011,12 @@ def _gate(rec, what, y, ref, gate=K8_GATE):
 
 def phase_pair_variants_check(dev, gen, results):
     """The tensor-core body (K8, and K1 from PAIR_MMA_MIN_TOKENS rows on)
-    within K8_GATE * max|y| of its plain versions and of K1's CUDA-core
-    body at K8_TOKENS, with K1 above 128 rows bit-identical to K8 (one
-    body, one tile rule); K9 equal to K1 bit for bit at K9_TOKENS (and
-    within 1e-5 * max|y| of its plain version). Every Llama3-8B pair
+    within K8_GATE * max|y| of its plain versions and of K1 (whichever
+    body K1 runs) at K8_TOKENS, with K1 above 128 rows bit-identical to
+    K8 (one body, one tile rule) and within the gate of its CUDA-core
+    body; K9 equal to K1 bit for bit at K9_TOKENS, on either side of
+    K1's switch to its split-K body (and within 1e-5 * max|y| of its
+    plain version). Every Llama3-8B pair
     shape (and, for the tensor-core body, 3071 row pairs: a row tail in
     every tile), FP4 and NF4, fp32, bf16 and ``bf16x2`` scales; the layer
     shapes stacked and read at layer 1, the lm_head unstacked."""
@@ -1962,14 +2053,14 @@ def phase_pair_variants_check(dev, gen, results):
                     xt = x[:T]
                     y8 = run(qm.matmul_4bit_pair_prefill,
                              qm.matmul_4bit_pair_prefill_stacked, xt)
-                    ycc = qm.matmul_4bit_pair_cuda_core(wp2[lay], s[lay], xt,
-                                                        qt)
+                    # K1 through whichever body it runs at T rows
+                    yk1 = qm.matmul_4bit_pair(wp2[lay], s[lay], xt, qt)
                     torch.cuda.synchronize()
                     if y8.shape != (T, M) or not torch.isfinite(y8).all():
                         raise AssertionError(f"K8 {what} T={T}: bad output")
                     rel = _gate(k8, f"K8 {what} T={T}", y8, plain8[:T])
-                    rel1 = _gate(rec(), f"K8 {what} T={T} against K1's "
-                                 "CUDA-core body", y8, ycc)
+                    rel1 = _gate(rec(), f"K8 {what} T={T} against K1", y8,
+                                 yk1)
                     k8["max_diff_from_k1_over_max"] = max(
                         k8["max_diff_from_k1_over_max"], rel1)
                     k8["by_shape"][name] = max(k8["by_shape"].get(name, 0.0),
@@ -1979,6 +2070,8 @@ def phase_pair_variants_check(dev, gen, results):
                         continue
                     y1 = run(qm.matmul_4bit_pair, qm.matmul_4bit_pair_stacked,
                              xt)
+                    ycc = qm.matmul_4bit_pair_cuda_core(wp2[lay], s[lay], xt,
+                                                        qt)
                     torch.cuda.synchronize()
                     if not torch.equal(y1.view(torch.int32),
                                        y8.view(torch.int32)):
@@ -2020,8 +2113,8 @@ def phase_pair_variants_check(dev, gen, results):
                     k9["bit_identical"] += 1
                 del plain9
         log(f"  {name} [{M}, {K}]: K8 within {K8_GATE:.0e} * max|y| of its "
-            f"plain version (worst {k8['by_shape'][name]:.3e}) and of K1's "
-            f"CUDA-core body, K1 above 128 rows its own tensor-core body "
+            f"plain version (worst {k8['by_shape'][name]:.3e}) and of K1, "
+            f"K1 above 128 rows its own tensor-core body "
             f"bit-identical to K8, K9 bit-identical to K1 ({k8['cases']} + "
             f"{mma['cases']} + {k9['bit_identical']} cases so far)")
         del wp2, s32, x
@@ -2030,7 +2123,7 @@ def phase_pair_variants_check(dev, gen, results):
                                         pair_matmul_mma=mma)
     log(f"  K8: {k8['cases']} cases, worst max|err| {k8['max_abs_err']:.3e},"
         f" worst max|err| / max|y| {k8['max_err_over_max_y']:.3e} "
-        f"({k8['worst_case']}), from K1's CUDA-core body "
+        f"({k8['worst_case']}), from K1 "
         f"{k8['max_diff_from_k1_over_max']:.3e}; K1's tensor-core body: "
         f"{mma['cases']} cases at T {MMA_TOKENS}, worst "
         f"{mma['max_err_over_max_y']:.3e} of max|y| ({mma['worst_case']}), "
@@ -2295,18 +2388,23 @@ def phase_pair_variants_time(dev, gen, results):
 
 
 def phase_body_time(dev, gen, results):
-    """K1's two bodies, each launched directly, at BODY_TIMED_T on the four
-    layer shapes, beside the bound, dense bf16 ``torch.matmul`` and (from
-    256 rows) the plain version; weights rotating over a 32-layer stack.
-    Per-forward sums (32 x the four shapes, no lm_head: an admission
-    chunk's runs at T = 1) at every T, and the crossover: the fewest
-    timed rows at which the tensor-core body is the faster."""
+    """K1's three bodies, each launched directly, at BODY_TIMED_T on the
+    four layer shapes and, up to 128 rows, the lm_head, beside the bound,
+    dense bf16 ``torch.matmul`` and, at BODY_PLAIN_T, the plain version
+    (K8's, in original order: the split-K and the tensor-core body's);
+    weights rotating over a 32-layer stack. Per-forward sums (32 x the
+    four shapes, with the lm_head at T up to 128 rows, as a decode
+    forward's; without it above, as an admission chunk's, whose lm_head
+    runs at one row) at every T, and the two crossovers: the fewest timed
+    rows from which the split-K body is the faster per forward than the
+    CUDA-core body at every larger count up to 128, and from which the
+    tensor-core body is the faster than the split-K body at every larger
+    count."""
     from quantizations_tpu_torch.ops import qmatmul as qm
 
+    fns = _k1_body_fns()
     rows = []
     for name, M, K in K1_SHAPES:
-        if name == "lm_head":
-            continue
         L = LAYERS
         wp2, scales = _pair_operands(M, K, L, dev, gen)
         R = max(2, math.ceil(4 * L2_BYTES / (M * K * 2)))
@@ -2314,56 +2412,84 @@ def phase_body_time(dev, gen, results):
         x = torch.randn(max(BODY_TIMED_T), K, generator=gen,
                         device=dev).to(torch.bfloat16)
         for T in BODY_TIMED_T:
+            if name == "lm_head" and T > 128:
+                continue
             xt = x[:T].contiguous()
-            cc = device_ms(lambda i: qm.matmul_4bit_pair_cuda_core(
-                wp2[i % L], scales[i % L], xt, "fp4"), 8 if T > 128 else 64)
-            mm = device_ms(lambda i: qm.matmul_4bit_pair_mma(
-                wp2[i % L], scales[i % L], xt, "fp4"), 64)
-            lms = device_ms(lambda i: torch.matmul(xt, Wd[i % R].T), 64)
-            pms = (device_ms(lambda i: qm.matmul_4bit_pair_plain(
+            r = dict(shape=name, M=M, K=K, T=T)
+            for body, (fn, _) in fns.items():
+                r[body + "_ms"] = device_ms(lambda i: fn(
+                    wp2[i % L], scales[i % L], xt, "fp4"),
+                    8 if T > 128 and body == "cuda_core" else 32)
+            r["library_ms"] = device_ms(lambda i: torch.matmul(
+                xt, Wd[i % R].T), 32)
+            r["plain_ms"] = (device_ms(lambda i: qm.matmul_4bit_pair_prefill_plain(
                 wp2[0], scales[0], xt, "fp4"), 2, warmup=1)
-                if T >= 256 else None)
+                if T in BODY_PLAIN_T else None)
             nbytes = M * K // 2 + M * (K // 64) * 4 + T * K * 2 + T * M * 4
-            bms, by = bound(nbytes, 2 * T * M * K)
-            rows.append(dict(shape=name, M=M, K=K, T=T, cuda_core_ms=cc,
-                             mma_ms=mm, plain_ms=pms, library_ms=lms,
-                             bound_ms=bms, bound_by=by,
-                             tiles=qm.pair_mma_tiles(T),
-                             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                             ops_ms=2 * T * M * K / BF16_FLOP_PER_S * 1e3))
-            log(f"  K1 bodies {name:8s} T={T:3d}: CUDA-core {cc * 1e3:9.2f} us"
-                f"  tensor-core {mm * 1e3:8.2f} us (tiles "
-                f"{qm.pair_mma_tiles(T)})  bound {bms * 1e3:8.2f} us "
-                f"({by})  torch.matmul bf16 {lms * 1e3:8.2f} us")
+            r["bound_ms"], r["bound_by"] = bound(nbytes, 2 * T * M * K)
+            r["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            r["ops_ms"] = 2 * T * M * K / BF16_FLOP_PER_S * 1e3
+            r["tiles"] = qm.pair_mma_tiles(T)
+            rows.append(r)
+            log(f"  K1 bodies {name:8s} T={T:3d}: CUDA-core "
+                f"{r['cuda_core_ms'] * 1e3:9.2f} us  split-K "
+                f"{r['splitk_ms'] * 1e3:8.2f} us  tensor-core "
+                f"{r['mma_ms'] * 1e3:8.2f} us  bound "
+                f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']})  "
+                f"torch.matmul bf16 {r['library_ms'] * 1e3:8.2f} us")
         del wp2, scales, Wd, x
         torch.cuda.empty_cache()
+    keys = ("cuda_core_ms", "splitk_ms", "mma_ms", "library_ms", "bound_ms",
+            "bytes_ms", "ops_ms")
     per = {}
     for T in BODY_TIMED_T:
         sel = [r for r in rows if r["T"] == T]
-        f = {k: LAYERS * sum(r[k] for r in sel)
-             for k in ("cuda_core_ms", "mma_ms", "library_ms", "bound_ms",
-                       "bytes_ms", "ops_ms")}
-        if T >= 256:
-            f["plain_ms"] = LAYERS * sum(r["plain_ms"] for r in sel)
+        f = {k: sum((1 if r["shape"] == "lm_head" else LAYERS) * r[k]
+                    for r in sel) for k in keys}
+        if T in BODY_PLAIN_T:
+            f["plain_ms"] = sum((1 if r["shape"] == "lm_head" else LAYERS)
+                                * r["plain_ms"] for r in sel)
         f["bound_by"] = ("bytes" if f["bytes_ms"] >= f["ops_ms"]
                          else "operations")
-        f["launches"] = LAYERS * len(sel)
-        f["mma_tflops"] = (2 * T * LAYERS * sum(r["M"] * r["K"] for r in sel)
-                           / (f["mma_ms"] * 1e-3) / 1e12)
+        f["launches"] = sum(1 if r["shape"] == "lm_head" else LAYERS
+                            for r in sel)
+        flops = 2 * T * sum((1 if r["shape"] == "lm_head" else LAYERS)
+                            * r["M"] * r["K"] for r in sel)
+        for b in K1_BODIES:
+            f[b + "_tflops"] = flops / (f[b + "_ms"] * 1e-3) / 1e12
+        f["body"] = qm.pair_body(T)
+        f["ms"] = f[f["body"] + "_ms"]
         per[T] = f
-        log(f"  K1 per forward at T={T} ({f['launches']} launches): "
-            f"CUDA-core body {f['cuda_core_ms']:.3f} ms, tensor-core body "
-            f"{f['mma_ms']:.3f} ms ({f['mma_tflops']:.0f} TFLOP/s), bound "
-            f"{f['bound_ms']:.3f} ms ({f['bound_by']}), torch.matmul bf16 "
-            f"{f['library_ms']:.3f} ms"
-            + (f", plain {f['plain_ms']:.1f} ms" if T >= 256 else ""))
-    cross = {}
-    for name, _, _ in K1_SHAPES[:4]:
-        faster = [r["T"] for r in rows
-                  if r["shape"] == name and r["mma_ms"] < r["cuda_core_ms"]]
-        cross[name] = min(faster) if faster else None
-    log(f"  crossover (fewest timed rows where the tensor-core body is "
-        f"faster): {cross}; K1 switches at {qm.PAIR_MMA_MIN_TOKENS}")
+        log(f"  K1 per forward at T={T} ({f['launches']} launches"
+            + (", with the lm_head" if T <= 128 else "") + "): CUDA-core "
+            f"body {f['cuda_core_ms']:.3f} ms, split-K body "
+            f"{f['splitk_ms']:.3f} ms ({f['splitk_tflops']:.0f} TFLOP/s), "
+            f"tensor-core body {f['mma_ms']:.3f} ms "
+            f"({f['mma_tflops']:.0f} TFLOP/s); K1 runs the {f['body']} body; "
+            f"bound {f['bound_ms']:.3f} ms ({f['bound_by']}), torch.matmul "
+            f"bf16 {f['library_ms']:.3f} ms"
+            + (f", plain {f['plain_ms']:.1f} ms" if "plain_ms" in f else ""))
+
+    def from_on(ts, a, b):
+        """The fewest of ``ts`` from which body ``b`` is the faster per
+        forward than ``a`` at every larger count (None: at none)."""
+        out = None
+        for T in reversed(ts):
+            if per[T][b + "_ms"] < per[T][a + "_ms"]:
+                out = T
+            else:
+                break
+        return out
+
+    cross = dict(
+        splitk=from_on([T for T in BODY_TIMED_T if T <= 128], "cuda_core",
+                       "splitk"),
+        mma=from_on(BODY_TIMED_T, "splitk", "mma"))
+    log(f"  crossovers: the split-K body the faster than the CUDA-core body "
+        f"from {cross['splitk']} rows on (K1 switches at "
+        f"{qm.PAIR_SPLITK_MIN_TOKENS}); the tensor-core body the faster than "
+        f"the split-K body from {cross['mma']} rows on (K1 switches at "
+        f"{qm.PAIR_MMA_MIN_TOKENS})")
     results["body_time"] = dict(rows=rows, per_forward=per, crossover=cross,
                                 tiles=_tile_sweep(dev, gen))
 
@@ -2443,7 +2569,8 @@ def phase_pair_variants_model(dev, params, results):
     from quantizations_tpu_torch.nn import linear as tlin
     from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR, KERNELS,
                                              PAIR_MANUAL, PAIR_MATMUL,
-                                             PAIR_PREFILL)
+                                             PAIR_MATMUL_MMA,
+                                             PAIR_MATMUL_SPLITK, PAIR_PREFILL)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
 
     base = dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
@@ -2459,12 +2586,19 @@ def phase_pair_variants_model(dev, params, results):
     runs = []
     for k in KERNELS:
         k.launches = 0
+    layers = base.num_hidden_layers
     for B in PV_BATCHES:
         want = MANUAL_LAUNCHES[B]
+        # K9 launches K1's bodies by K1's rule: the split-K body's launches
+        # are K1's and K9's at rows of its band
+        splitk = _generate_k1(B, PROMPT_LEN, serve.max_new_tokens,
+                              layers)[PAIR_MATMUL_SPLITK.name]
         toks, times = _generate_runs(gen, params, ids.repeat(B, 1), manual,
                                      serve, dev, (PAIR_MANUAL, PAIR_MATMUL,
+                                                  PAIR_MATMUL_SPLITK,
+                                                  PAIR_MATMUL_MMA,
                                                   DEQUANTIZE_4BIT_PAIR),
-                                     want + (0,), f"manual B={B}")
+                                     want + (splitk, 0, 0), f"manual B={B}")
         if toks.tolist() != grid_tokens[B]:
             raise AssertionError(f"manual B={B}: tokens differ from the grid "
                                  "run's")
@@ -2473,11 +2607,13 @@ def phase_pair_variants_model(dev, params, results):
         runs.append(dict(batch=B, tok_per_s=n / t, tok_per_s_min=n / max(times),
                          tok_per_s_max=n / min(times), generate_s=t,
                          generate_s_all=times, launches_per_generate=dict(
-                             pair_manual=want[0], pair_matmul=want[1])))
+                             pair_manual=want[0], pair_matmul=want[1],
+                             pair_matmul_splitk=splitk)))
         log(f"  manual B={B}: {n / t:.2f} tok/s, median of {TIMED_RUNS} "
             f"(min "
             f"{n / max(times):.2f}, max {n / min(times):.2f}); K9/K1 "
-            f"launches {want} each; the grid run's tokens")
+            f"launches {want} each, {splitk} of them on the split-K body; "
+            "the grid run's tokens")
     results["launches_pair_manual"] = {k.name: k.launches for k in KERNELS}
     results["pair_manual_generate"] = runs
 
@@ -2488,16 +2624,21 @@ def phase_pair_variants_model(dev, params, results):
                              generator=torch.Generator().manual_seed(3)
                              ).to(dev)
     gen = make_generate_fn(base, long_serve)
-    layers = base.num_hidden_layers
-    want = (4 * layers * math.ceil(LONG_PROMPT / 512),     # K8: 2 chunks
-            60 * (4 * layers + 1) - 4 * layers)            # K1: the rest
+    # K8: 2 chunks a projection; K1: the prefill's lm_head and the decode
+    k1 = _k1_forwards([(1, LONG_PROMPT, 1), (59, 1, 1)], layers)
+    want = (4 * layers * math.ceil(LONG_PROMPT / 512),
+            60 * (4 * layers + 1) - 4 * layers)
+    if k1[PAIR_MATMUL.name] != want[1] or k1[PAIR_MATMUL_MMA.name]:
+        raise AssertionError(f"K1's closed form {k1}")
     os.environ["QT_PREFILL_PAIR"] = "1"
     try:
         for k in KERNELS:
             k.launches = 0
         toks, times = _generate_runs(gen, params, long_ids, base, long_serve,
                                      dev, (PAIR_PREFILL, PAIR_MATMUL,
-                                           DEQUANTIZE_4BIT_PAIR), want + (0,),
+                                           PAIR_MATMUL_SPLITK,
+                                           DEQUANTIZE_4BIT_PAIR),
+                                     want + (k1[PAIR_MATMUL_SPLITK.name], 0),
                                      "QT_PREFILL_PAIR generate")
         results["launches_pair_prefill"] = {k.name: k.launches
                                             for k in KERNELS}
@@ -2639,18 +2780,55 @@ def _paged_prompts(vocab_size):
     return prompts
 
 
-def _k1_cuda_core_launches(admission_rows, forwards, layers, proj=4):
-    """K1's CUDA-core launches (``PAIR_MATMUL`` less ``PAIR_MATMUL_MMA``)
-    in a serving run: ``proj * layers + 1`` per decode forward (a plain
-    step or a verify window of at most ``PAIR_MMA_MIN_TOKENS - 1`` rows;
-    ``proj`` 4 with fused projections, 7 without), as many per admission
-    forward of that many rows, and one per larger admission forward (its
-    lm_head samples one row per request)."""
-    from quantizations_tpu_torch.ops import PAIR_MMA_MIN_TOKENS
+def _k1_by_body(launches):
+    """K1's launches by record for ``launches``, a list of ``(rows, n)``:
+    ``n`` K1 launches at ``rows`` token rows. Every one counts in
+    ``pair_matmul``; those that ``pair_body`` sends to the split-K body
+    also in ``pair_matmul_splitk``, to the tensor-core body in
+    ``pair_matmul_mma``."""
+    from quantizations_tpu_torch.ops import pair_body
 
-    per = proj * layers + 1
-    return per * forwards + sum(per if r < PAIR_MMA_MIN_TOKENS else 1
-                                for r in admission_rows)
+    out = dict(pair_matmul=0, pair_matmul_splitk=0, pair_matmul_mma=0)
+    for rows, n in launches:
+        out["pair_matmul"] += n
+        body = pair_body(rows)
+        if body != "cuda_core":
+            out["pair_matmul_" + body] += n
+    return out
+
+
+def _k1_forwards(forwards, layers, proj=4):
+    """K1's launches by record (:func:`_k1_by_body`) over ``forwards``, a
+    list of ``(n, rows, heads)``: ``n`` forwards of ``rows`` token rows,
+    each ``proj`` pair projections a layer (4 fused, 7 unfused) through K1
+    where ``rows`` lie in its band (up to ``pair_max_tokens()``; above,
+    the dense band or K8) and the lm_head through K1 at ``heads`` rows (a
+    decode step or verify window: all its rows; a prefill or admission
+    forward: one a sequence)."""
+    from quantizations_tpu_torch.nn.linear import pair_max_tokens
+
+    launches = []
+    for n, rows, heads in forwards:
+        if rows <= pair_max_tokens():
+            launches.append((rows, n * proj * layers))
+        launches.append((heads, n))
+    return _k1_by_body(launches)
+
+
+def _k1_serving(rows, heads, decode, layers, proj=4):
+    """K1's launches by record in a serving run: one admission forward
+    per entry of ``rows`` (its token rows) and ``heads`` (its sequences),
+    and ``decode``, a list of ``(forwards, rows)`` of decode steps and
+    verify windows."""
+    return _k1_forwards([(1, r, h) for r, h in zip(rows, heads)]
+                        + [(n, r, r) for n, r in decode if n], layers, proj)
+
+
+def _generate_k1(B, prompt, new, layers, proj=4):
+    """K1's launches by record in one generate: a prefill of ``B`` rows
+    of ``prompt`` tokens (its lm_head at ``B`` rows), then ``new - 1``
+    decode steps at ``B`` rows."""
+    return _k1_forwards([(1, B * prompt, B), (new - 1, B, B)], layers, proj)
 
 
 def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
@@ -2667,7 +2845,7 @@ def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
                                              FLASH_DECODE, FLASH_DECODE_I8,
                                              KERNELS, PAIR_MATMUL,
                                              PAIR_MATMUL_MMA,
-                                             PAIR_MMA_MIN_TOKENS)
+                                             PAIR_MATMUL_SPLITK)
     from quantizations_tpu_torch.serve.paged import PagedEngine
 
     cfg = dataclasses.replace(base, kv_cache_dtype=kv)
@@ -2678,7 +2856,8 @@ def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
         raise AssertionError(f"page size {eng.page_size}, expected 256")
     # instrumentation: admission wall time, group sizes, forward rows,
     # prefix hits
-    spent = {"admit_s": 0.0, "groups": [], "hits": {}, "rows": []}
+    spent = {"admit_s": 0.0, "groups": [], "hits": {}, "rows": [],
+             "heads": []}
     admit, group, one, lookup, rnd = (eng._admit, eng._admit_group,
                                       eng._admit_one, eng._prefix_lookup,
                                       eng._prefill_round)
@@ -2705,6 +2884,7 @@ def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
 
     def counted_round(ids, *a):
         spent["rows"].append(int(ids.shape[0] * ids.shape[1]))
+        spent["heads"].append(int(ids.shape[0]))
         return rnd(ids, *a)
 
     eng._admit, eng._admit_group = timed_admit, counted_group
@@ -2741,23 +2921,23 @@ def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
                              f"{st['steps']} steps")
     if launches[other.name] != 0:
         raise AssertionError(f"{other.name} launched on a {kv} pool")
-    # K1's tensor-core body: every projection of an admission forward of
-    # PAIR_MMA_MIN_TOKENS .. pair_max_tokens() rows (4 per layer; its
-    # lm_head samples one row)
+    # K1 by body: every projection of an admission forward up to
+    # pair_max_tokens() rows (4 per layer) and its lm_head at one row a
+    # sequence; every decode step at the slots' rows, every verify window
+    # at slots x spec_k rows, the lm_head at all of them
+    win = st["spec_windows"]
+    want_k1 = _k1_serving(spent["rows"], spent["heads"],
+                          [(st["steps"] - win, eng.slots),
+                           (win, eng.slots * spec_k)], layers)
+    got_k1 = {n: launches[n] for n in want_k1}
+    if got_k1 != want_k1 or want_k1[PAIR_MATMUL_MMA.name] == 0:
+        raise AssertionError(f"K1 launched {got_k1} in {st['steps']} "
+                             f"forwards ({win} windows), expected {want_k1} "
+                             f"(admission rows {spent['rows']}, sequences "
+                             f"{spent['heads']})")
     mma = launches[PAIR_MATMUL_MMA.name]
-    core = launches[PAIR_MATMUL.name] - mma
-    want_core = _k1_cuda_core_launches(spent["rows"], st["steps"], layers)
-    if core != want_core:
-        raise AssertionError(f"K1's CUDA-core body launched {core} times in "
-                             f"{st['steps']} forwards, expected {want_core} "
-                             f"(admission rows {spent['rows']})")
-    want_mma = 4 * layers * sum(
-        1 for r in spent["rows"]
-        if PAIR_MMA_MIN_TOKENS <= r <= pair_max_tokens())
-    if mma != want_mma or want_mma == 0:
-        raise AssertionError(f"K1's tensor-core body launched {mma} times, "
-                             f"expected {want_mma} (admission rows "
-                             f"{spent['rows']})")
+    splitk = launches[PAIR_MATMUL_SPLITK.name]
+    core = launches[PAIR_MATMUL.name] - mma - splitk
     # K10: every projection of an admission forward above the K1 band (4
     # per layer), unless QT_PREFILL_PAIR sends it to K8 (rows % 8 == 0)
     knob = prefill_pair_enabled()
@@ -2783,7 +2963,8 @@ def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
                new_tokens=new, tok_per_s=new / wall, admit_s=spent["admit_s"],
                decode_s=wall - spent["admit_s"], steps=st["steps"],
                admissions=spent["groups"], admission_rows=spent["rows"],
-               mma_launches=mma, k1_cuda_core_launches=core,
+               admission_sequences=spent["heads"], mma_launches=mma,
+               splitk_launches=splitk, k1_cuda_core_launches=core,
                k10_launches=k10, launches=launches, stats=st, tokens=toks)
     how = (f"spec_k={spec_k} x {steps_per_dispatch}: {st['spec_windows']} "
            f"windows, accept rate {st['spec_accept_rate']:.3f}, "
@@ -2792,8 +2973,8 @@ def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
         f"{new / wall:.2f} tok/s aggregate; {st['steps']} forwards; "
         f"admission {spent['admit_s']:.3f} s (groups {spent['groups']}),"
         f" decode {wall - spent['admit_s']:.3f} s; K1's CUDA-core body "
-        f"{core} launches, its tensor-core body {mma}, K10 {k10} (as "
-        f"reckoned); launches {launches}; "
+        f"{core} launches, its split-K body {splitk}, its tensor-core body "
+        f"{mma}, K10 {k10} (as reckoned); launches {launches}; "
         f"pages free {st['pages_free']} of {usable} "
         f"({st['prefix_cache_pages']} pinned by the prefix cache)")
     return run
@@ -2970,26 +3151,24 @@ def _serve_slot(params, base, prompts, knobs, run):
     """One slot ``Engine(slots=4, max_seq=2048, prefill_buckets=(16, 64,
     256))`` run over ``prompts`` with config ``knobs`` and ``run``'s
     arguments. Counts are zeroed just before the run and read just after
-    it: K1's CUDA-core body, its tensor-core body, K10 and K3/K4 exactly as
-    the admission forwards' rows and the counted forwards say. Returns the
-    run's record."""
+    it: K1 by body, K10 and K3/K4 exactly as the admission forwards' rows
+    and the counted forwards say. Returns the run's record."""
     from quantizations_tpu_torch.config import ServeConfig
     from quantizations_tpu_torch.nn.linear import pair_max_tokens
     from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
                                              FLASH_DECODE, FLASH_DECODE_I8,
-                                             KERNELS, PAIR_MATMUL,
-                                             PAIR_MATMUL_MMA,
-                                             PAIR_MMA_MIN_TOKENS)
+                                             KERNELS)
     from quantizations_tpu_torch.serve.engine import Engine
 
     cfg = dataclasses.replace(base, **knobs)
     eng = Engine(params, cfg, ServeConfig(max_seq_len=2048), slots=4,
                  prefill_buckets=(16, 64, 256))
-    rows, spent = [], {"admit_s": 0.0}
+    rows, heads, spent = [], [], {"admit_s": 0.0}
     rnd, admit = eng._prefill_round, eng._admit
 
     def counted_round(ids, *a):
         rows.append(int(ids.shape[0] * ids.shape[1]))
+        heads.append(int(ids.shape[0]))
         return rnd(ids, *a)
 
     def timed_admit():
@@ -3017,14 +3196,13 @@ def _serve_slot(params, base, prompts, knobs, run):
                                  f"tokens, range {min(t)}..{max(t)}")
     layers = base.num_hidden_layers
     band = pair_max_tokens()
-    mma = launches[PAIR_MATMUL_MMA.name]
-    want = dict(
-        core=_k1_cuda_core_launches(rows, st["steps"], layers),
-        mma=4 * layers * sum(1 for r in rows
-                             if PAIR_MMA_MIN_TOKENS <= r <= band),
-        k10=4 * layers * sum(1 for r in rows if r > band))
-    got = dict(core=launches[PAIR_MATMUL.name] - mma, mma=mma,
-               k10=launches[DEQUANTIZE_4BIT_PAIR.name])
+    win = st["spec_windows"]
+    want = _k1_serving(rows, heads, [(st["steps"] - win, eng.slots),
+                                     (win, eng.slots * run.get("spec_k", 0))],
+                       layers)
+    want["k10"] = 4 * layers * sum(1 for r in rows if r > band)
+    got = {n: launches[n] for n in want if n != "k10"}
+    got["k10"] = launches[DEQUANTIZE_4BIT_PAIR.name]
     # K3/K4 in every plain decode step with the flash knob (a verify
     # window stays on the einsum path)
     flash = FLASH_DECODE_I8 if knobs.get("kv_cache_dtype") else FLASH_DECODE
@@ -3047,9 +3225,10 @@ def _serve_slot(params, base, prompts, knobs, run):
         f"{wall - spent['admit_s']:.3f} s); {st['steps']} forwards"
         + (f", {st['spec_windows']} windows, accept rate "
            f"{st['spec_accept_rate']:.3f}" if st["spec_windows"] else "")
-        + f"; K1 CUDA-core {got['core']}, tensor-core {got['mma']}, K10 "
-        f"{got['k10']}, K3/K4 {got_attn} (as reckoned; admission rows "
-        f"{rows})")
+        + f"; K1 {got['pair_matmul']} (split-K body "
+        f"{got['pair_matmul_splitk']}, tensor-core body "
+        f"{got['pair_matmul_mma']}), K10 {got['k10']}, K3/K4 {got_attn} (as "
+        f"reckoned; admission rows {rows})")
     return rec
 
 
@@ -3075,7 +3254,7 @@ def phase_spec(dev, params, results):
     (bf16 near-ties flip between a T = 8 and a T = 1 forward)."""
     from quantizations_tpu_torch.config import QuantConfig, ServeConfig
     from quantizations_tpu_torch.models.llama import LLAMA3_8B, KVCache
-    from quantizations_tpu_torch.ops import KERNELS, PAIR_MATMUL
+    from quantizations_tpu_torch.ops import KERNELS
     from quantizations_tpu_torch.serve.speculative import (
         make_speculative_generate_fn)
 
@@ -3137,10 +3316,15 @@ def phase_spec(dev, params, results):
         toks, steps, _ = fn(params, ids, cache, None)
         end.record()
         end.synchronize()
-        n = PAIR_MATMUL.launches
-        if n != (4 * base.num_hidden_layers + 1) * (1 + steps):
-            raise AssertionError(f"speculative generate: K1 launched {n} "
-                                 f"times for {steps} windows")
+        # the 16-row prefill (its lm_head at one row), then windows of 8
+        # rows (the lm_head at all of them)
+        n = {k.name: k.launches for k in KERNELS}
+        want = _k1_forwards([(1, 16, 1), (steps, 8, 8)],
+                            base.num_hidden_layers)
+        if {k: n[k] for k in want} != want:
+            raise AssertionError(f"speculative generate: K1 launched "
+                                 f"{ {k: n[k] for k in want} } for {steps} "
+                                 f"windows, expected {want}")
         if toks.shape != (1, 60) or int(toks.min()) < 0 or int(
                 toks.max()) >= base.vocab_size:
             raise AssertionError(f"speculative generate tokens bad: "
@@ -3345,9 +3529,9 @@ def _requantized_close(a, b, what):
 
 def _cli_direct(kind, params, cfg, prompts, dev, rows):
     """The CLI run's direct counterpart on the same loaded params: the
-    same function, arguments and seed. Engines record the rows of their
-    admission forwards into ``rows``. Returns (tokens per request,
-    forwards or windows run)."""
+    same function, arguments and seed. Engines record the (token rows,
+    sequences) of their admission forwards into ``rows``. Returns (tokens
+    per request, forwards or windows run)."""
     from quantizations_tpu_torch.config import ServeConfig
     from quantizations_tpu_torch.models.llama import KVCache
     from quantizations_tpu_torch.serve.engine import Engine
@@ -3375,7 +3559,7 @@ def _cli_direct(kind, params, cfg, prompts, dev, rows):
     rnd = eng._prefill_round
 
     def counted_round(ids, *a):
-        rows.append(int(ids.shape[0] * ids.shape[1]))
+        rows.append((int(ids.shape[0] * ids.shape[1]), int(ids.shape[0])))
         return rnd(ids, *a)
 
     eng._prefill_round = counted_round
@@ -3386,27 +3570,27 @@ def _cli_direct(kind, params, cfg, prompts, dev, rows):
 
 
 def _cli_want(kind, flags, rows, forwards, L):
-    """The direct run's launches by formula: K1's CUDA-core body per
-    forward (and per admission forward up to 128 rows), its tensor-core
-    body and K10 per larger admission forward, K3 or K4 per paged decode
-    step."""
+    """The direct run's launches by formula: K1 by body (generate: the
+    16-row prefill, then decode steps at one row; speculative: the
+    prefill, then windows of 8 rows; the engines: each admission forward
+    of ``rows`` (token rows, sequences), then decode steps at their 4
+    slots' rows), K10 per admission forward above the K1 band, K3 or K4
+    per paged decode step."""
     from quantizations_tpu_torch.nn.linear import pair_max_tokens
     from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
-                                             FLASH_DECODE, FLASH_DECODE_I8,
-                                             PAIR_MATMUL, PAIR_MATMUL_MMA,
-                                             PAIR_MMA_MIN_TOKENS)
+                                             FLASH_DECODE, FLASH_DECODE_I8)
 
     proj = 4 if "--fuse" in flags else 7
-    if kind in ("generate", "speculative"):
-        windows = forwards if kind == "generate" else 1 + forwards
-        return {PAIR_MATMUL.name: (proj * L + 1) * windows}
-    band = pair_max_tokens()
-    mma = proj * L * sum(1 for r in rows if PAIR_MMA_MIN_TOKENS <= r <= band)
-    want = {PAIR_MATMUL.name: mma + _k1_cuda_core_launches(
-                rows, forwards, L, proj),
-            PAIR_MATMUL_MMA.name: mma,
-            DEQUANTIZE_4BIT_PAIR.name: proj * L * sum(
-                1 for r in rows if r > band)}
+    if kind == "generate":
+        return {k: v for k, v in _generate_k1(1, 16, forwards, L,
+                                              proj).items() if v}
+    if kind == "speculative":
+        return {k: v for k, v in _k1_forwards(
+            [(1, 16, 1), (forwards, 8, 8)], L, proj).items() if v}
+    want = _k1_serving([r for r, _ in rows], [h for _, h in rows],
+                       [(forwards, 4)], L, proj)
+    want[DEQUANTIZE_4BIT_PAIR.name] = proj * L * sum(
+        1 for r, _ in rows if r > pair_max_tokens())
     if kind == "paged":
         attn = FLASH_DECODE_I8 if "int8" in flags else FLASH_DECODE
         want[attn.name] = L * forwards
@@ -3830,11 +4014,12 @@ def _ifeval_arms(dev):
         for e, a in arms:
             if e is eng:
                 return a
-        arms.append((eng, dict(rows=[])))
+        arms.append((eng, dict(rows=[], heads=[])))
         return arms[-1][1]
 
     def counted_round(self, ids, *a):
         arm(self)["rows"].append(int(ids.shape[0] * ids.shape[1]))
+        arm(self)["heads"].append(int(ids.shape[0]))
         return real_round(self, ids, *a)
 
     def counted_run(self, *a, **kw):
@@ -3895,9 +4080,7 @@ def phase_evals(dev, results):
     from quantizations_tpu_torch.models import llama as M
     from quantizations_tpu_torch.nn.linear import pair_max_tokens
     from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
-                                             PAIR_MATMUL, PAIR_MATMUL_MMA,
-                                             PAIR_MMA_MIN_TOKENS,
-                                             QUANTIZE_4BIT)
+                                             PAIR_MATMUL, QUANTIZE_4BIT)
 
     cfg = dataclasses.replace(M.LLAMA3_8B, quant=QuantConfig())
     L = cfg.num_hidden_layers
@@ -3962,11 +4145,15 @@ def phase_evals(dev, results):
     twin = dataclasses.replace(cfg, quant=dataclasses.replace(
         cfg.quant, dense_twin=True))
     reports = {}
+    # a quantized run: one forward of EVALS_TOKENS rows, the lm_head at all
+    k1 = {k: v for k, v in _k1_forwards(
+        [(1, EVALS_TOKENS, EVALS_TOKENS)], L, proj=7).items() if v}
+    if k1[PAIR_MATMUL.name] != per:
+        raise AssertionError(f"K1's closed form {k1}")
     for name, c, want in (
-            ("bf16", cfg, {PAIR_MATMUL.name: per,
-                           DEQUANTIZE_4BIT_PAIR.name: per}),
+            ("bf16", cfg, {**k1, DEQUANTIZE_4BIT_PAIR.name: per}),
             ("int8", dataclasses.replace(cfg, kv_cache_dtype="int8"),
-             {PAIR_MATMUL.name: per, DEQUANTIZE_4BIT_PAIR.name: per}),
+             {**k1, DEQUANTIZE_4BIT_PAIR.name: per}),
             ("control", twin, {DEQUANTIZE_4BIT_PAIR.name: 2 * per})):
         rep, wall, n = _counted(lambda: parity.logit_parity(params, c, ids))
         _expect(f"parity {name}", n, want)
@@ -3992,8 +4179,7 @@ def phase_evals(dev, results):
     try:
         rounded = {}
         for name, c, want in (
-                ("bf16", cfg, {PAIR_MATMUL.name: per,
-                               DEQUANTIZE_4BIT_PAIR.name: per}),
+                ("bf16", cfg, {**k1, DEQUANTIZE_4BIT_PAIR.name: per}),
                 ("control", twin, {DEQUANTIZE_4BIT_PAIR.name: 2 * per})):
             rep, wall, n = _counted(
                 lambda: parity.logit_parity(params, c, ids))
@@ -4039,13 +4225,9 @@ def phase_evals(dev, results):
     band = pair_max_tokens()
     for what, a, want in (
             ("quantized", quant, {
-                PAIR_MATMUL.name: _k1_cuda_core_launches(
-                    quant["rows"], quant["stats"]["steps"], L, proj=7)
-                + 7 * L * sum(1 for r in quant["rows"]
-                              if PAIR_MMA_MIN_TOKENS <= r <= band),
-                PAIR_MATMUL_MMA.name: 7 * L * sum(
-                    1 for r in quant["rows"]
-                    if PAIR_MMA_MIN_TOKENS <= r <= band),
+                **_k1_serving(quant["rows"], quant["heads"],
+                              [(quant["stats"]["steps"], EVALS_SLOTS)], L,
+                              proj=7),
                 DEQUANTIZE_4BIT_PAIR.name: 7 * L * sum(
                     1 for r in quant["rows"] if r > band)}),
             ("dense twin", twin_arm, {DEQUANTIZE_4BIT_PAIR.name: per * (
@@ -4393,24 +4575,25 @@ class _LogitTap:
 
 
 def _par_fwd(rows, layers, attn=None, col=5, planar=2,
-             col_kernel="pair_matmul"):
+             col_kernel="pair_matmul", head=None):
     """Each kernel's launches in one forward of ``rows`` token rows over
     ``layers`` layers: ``col`` pair-word projections a layer (q, k, v,
     gate and up, the column shards; all seven unsharded) and ``planar``
     planar ones (o and down, the row shards), through the bands of
     ``_ql`` (pair words: K1 or ``col_kernel`` up to ``pair_max_tokens()``
-    rows, K1's tensor-core body from PAIR_MMA_MIN_TOKENS, above the band
-    K8 by 512-row chunks under ``QT_PREFILL_PAIR`` or K10; planar words:
-    K5, its tensor-core body from PLANAR_MMA_MIN_TOKENS, K6, or K7 above
-    64 rows); one K1 launch for the lm_head (its sampled rows, at most 128
-    here); with ``attn`` (K3 or K4) one attention launch a layer."""
+    rows, each through the body ``pair_body`` names (K9 picks K1's, and
+    counts in K1's body records too), above the band K8 by 512-row chunks
+    under ``QT_PREFILL_PAIR`` or K10; planar words: K5, its tensor-core
+    body from PLANAR_MMA_MIN_TOKENS, K6, or K7 above 64 rows); one K1
+    launch for the lm_head at ``head`` rows (its sampled rows, at most
+    128 here; None: ``rows``, 0: no lm_head); with ``attn`` (K3 or K4) one
+    attention launch a layer."""
     from quantizations_tpu_torch.models.llama import prefill_pair_enabled
     from quantizations_tpu_torch.nn.linear import (GEMV_MAX_TOKENS,
                                                    QMATMUL_MAX_TOKENS,
                                                    pair_max_tokens, qmm_ok)
-    from quantizations_tpu_torch.ops import (PAIR_MMA_MIN_TOKENS,
-                                             PLANAR_MMA_MIN_TOKENS,
-                                             PREFILL_PAIR_CHUNK_T)
+    from quantizations_tpu_torch.ops import (PLANAR_MMA_MIN_TOKENS,
+                                             PREFILL_PAIR_CHUNK_T, pair_body)
 
     n = {}
 
@@ -4418,11 +4601,14 @@ def _par_fwd(rows, layers, attn=None, col=5, planar=2,
         if v:
             n[k] = n.get(k, 0) + v
 
+    def add_k1(kernel, at, v):
+        add(kernel, v)
+        if pair_body(at) != "cuda_core":
+            add("pair_matmul_" + pair_body(at), v)
+
     c, p = col * layers, planar * layers
     if rows <= pair_max_tokens():
-        add(col_kernel, c)
-        if col_kernel == "pair_matmul" and rows >= PAIR_MMA_MIN_TOKENS:
-            add("pair_matmul_mma", c)
+        add_k1(col_kernel, rows, c)
     elif prefill_pair_enabled() and rows % 8 == 0:
         add("pair_prefill", c * -(-rows // PREFILL_PAIR_CHUNK_T))
     else:
@@ -4435,7 +4621,9 @@ def _par_fwd(rows, layers, attn=None, col=5, planar=2,
         add("gemv_4bit", p)
     else:
         add("dequantize_4bit", p)
-    add("pair_matmul", 1)
+    head = rows if head is None else head
+    if head:
+        add_k1("pair_matmul", head, 1)
     if attn:
         add(attn, layers)
     return n
@@ -4450,11 +4638,14 @@ def _par_sum(*parts):
     return out
 
 
-def _par_generate_launches(rows, new, layers, attn=None, **kw):
+def _par_generate_launches(rows, new, layers, attn=None, lm_head=True,
+                           **kw):
     """A generate's launches: the prompt's forward (``PAR_PROMPT`` tokens
-    a row, ``rows`` rows), then ``new - 1`` decode forwards."""
-    return _par_sum((1, _par_fwd(rows * PAR_PROMPT, layers, **kw)),
-                    (new - 1, _par_fwd(rows, layers, attn, **kw)))
+    a row, ``rows`` rows; its lm_head at ``rows``), then ``new - 1``
+    decode forwards (``lm_head`` False: none of them runs the lm_head)."""
+    head = rows if lm_head else 0
+    return _par_sum((1, _par_fwd(rows * PAR_PROMPT, layers, head=head, **kw)),
+                    (new - 1, _par_fwd(rows, layers, attn, head=head, **kw)))
 
 
 def _par_measure(mesh, fn):
@@ -4675,7 +4866,8 @@ def _par_k8(tp):
 
     with _prefill_pair_knob():
         logits, m = _par_measure(mesh, run)
-        m["expected"] = _par_fwd(PAR_K8_PROMPT, cfg.num_hidden_layers)
+        m["expected"] = _par_fwd(PAR_K8_PROMPT, cfg.num_hidden_layers,
+                                 head=1)
     first = logits[:, -1]
     return dict(tokens=first.argmax(-1, keepdim=True).to(torch.int32),
                 first=first, **m)
@@ -4736,9 +4928,8 @@ def _par_pp(pp, tp, B):
     stage = mesh.axis("pp").rank
     m["expected"] = _par_sum((pp, _par_generate_launches(
         B // pp, PAR_NEW, cfg.num_hidden_layers // pp,
+        lm_head=stage == pp - 1,        # the last stage runs the lm_head
         **({} if tp else dict(col=7, planar=0)))))
-    if stage < pp - 1:      # no lm_head on this stage
-        m["expected"]["pair_matmul"] -= pp * PAR_NEW
     return dict(tokens=toks, first=first, stage=stage, **m)
 
 
@@ -4773,7 +4964,7 @@ def _par_sp(sp):
     # torch), the last token's lm_head, then the decode steps unsharded
     L = cfg.num_hidden_layers
     m["expected"] = _par_sum(
-        (1, _par_fwd(PAR_SP_PROMPT // sp, L, col=7, planar=0)),
+        (1, _par_fwd(PAR_SP_PROMPT // sp, L, col=7, planar=0, head=1)),
         (PAR_SP_DECODE - 1, _par_fwd(1, L, col=7, planar=0)))
     return dict(tokens=toks, first=first, **m)
 
@@ -4804,7 +4995,7 @@ def _par_engine_run(params, kind, kv, spec_k, mesh):
     rows, rnd = [], eng._prefill_round
 
     def counted_round(ids, *a):
-        rows.append(int(ids.shape[0] * ids.shape[1]))
+        rows.append((int(ids.shape[0] * ids.shape[1]), int(ids.shape[0])))
         return rnd(ids, *a)
 
     eng._prefill_round = counted_round
@@ -4825,7 +5016,7 @@ def _par_engine_run(params, kind, kv, spec_k, mesh):
             if kind == "paged" else None)
     win = st.get("spec_windows", 0)
     m["expected"] = _par_sum(
-        *[(1, _par_fwd(r, L)) for r in rows],
+        *[(1, _par_fwd(r, L, head=h)) for r, h in rows],
         (st["steps"] - win, _par_fwd(slots, L, attn)),
         (win, _par_fwd(slots * spec_k, L, attn)))
     m["kv_heads"] = (eng.pages.pages_k if kind == "paged"
@@ -5203,8 +5394,10 @@ def kernel_entries(results, kernels_seq):
     launches = results.get("launches", {})
     paged_launches = results.get("launches_paged", {})
     from quantizations_tpu_torch.ops import (PAIR_MMA_MIN_TOKENS,
+                                             PAIR_SPLITK_MIN_TOKENS,
                                              PLANAR_MMA_MIN_TOKENS)
     planar_launches = results.get("launches_planar", {})
+    body_time = results.get("body_time", {})
     for k in kernels_seq:
         entry = dict(name=k.name, route="cuda", source=k.source,
                      replaces=k.replaces)
@@ -5219,12 +5412,34 @@ def kernel_entries(results, kernels_seq):
                 bound_ms=f1.get("bound_ms"), bound_by="bytes",
                 library_ms=f1.get("library_ms"),
                 unit="one decode forward at T=1: the K1 launches of "
-                     f"{LAYERS} layers x 4 projections + the lm_head; "
-                     "launches: the generate path",
+                     f"{LAYERS} layers x 4 projections + the lm_head (the "
+                     "body pair_body picks); max_abs_err: any of its three "
+                     "bodies; launches: the generate path (every body)",
                 by_shape=results.get("k1_time", {}).get("rows"))
+        elif k.name == "pair_matmul_splitk":
+            f = body_time.get("per_forward", {}).get(8, {})
+            err = results.get("k1_err", {}).get("by_body", {}).get(
+                "splitk", {})
+            entry.update(
+                launches=launches.get(k.name, 0),
+                max_abs_err=err.get("max_abs_err"),
+                max_err_over_max_y=err.get("max_err_over_max_y"),
+                ms=f.get("splitk_ms"), plain_ms=f.get("plain_ms"),
+                bound_ms=f.get("bound_ms"), bound_by=f.get("bound_by"),
+                library_ms=f.get("library_ms"),
+                cuda_core_ms=f.get("cuda_core_ms"), mma_ms=f.get("mma_ms"),
+                unit=f"K1 from {PAIR_SPLITK_MIN_TOKENS} to "
+                     f"{PAIR_MMA_MIN_TOKENS - 1} rows: one decode forward at "
+                     f"T=8 (B = 8), {LAYERS} layers x 4 projections + the "
+                     "lm_head; cuda_core_ms / mma_ms: K1's other bodies "
+                     "there; library_ms: dense bf16 torch.matmul; launches: "
+                     "the generate path",
+                per_forward={T: {b: v.get(b + "_ms") for b in K1_BODIES}
+                             for T, v in body_time.get(
+                                 "per_forward", {}).items()},
+                crossover=body_time.get("crossover"))
         elif k.name == "pair_matmul_mma":
-            f = results.get("body_time", {}).get("per_forward", {}).get(
-                K1_CHUNK_TOKENS, {})
+            f = body_time.get("per_forward", {}).get(K1_CHUNK_TOKENS, {})
             err = results.get("pair_variants_err", {}).get(k.name, {})
             entry.update(
                 launches=paged_launches.get(k.name, 0),
@@ -5234,14 +5449,15 @@ def kernel_entries(results, kernels_seq):
                 bound_ms=f.get("bound_ms"), bound_by=f.get("bound_by"),
                 library_ms=f.get("library_ms"),
                 cuda_core_ms=f.get("cuda_core_ms"),
+                splitk_ms=f.get("splitk_ms"),
                 unit=f"K1 above {PAIR_MMA_MIN_TOKENS - 1} rows: one "
                      f"{K1_CHUNK_TOKENS}-row admission forward, {LAYERS} "
                      "layers x 4 projections (its lm_head samples one row "
-                     "on the CUDA-core body); cuda_core_ms: K1's CUDA-core "
-                     "body there; library_ms: dense bf16 torch.matmul; "
-                     "launches: the paged engine's first bf16 run",
-                per_forward=results.get("body_time", {}).get("per_forward"),
-                crossover=results.get("body_time", {}).get("crossover"))
+                     "a sequence on another body); cuda_core_ms / "
+                     "splitk_ms: K1's other bodies there; library_ms: dense "
+                     "bf16 torch.matmul; launches: the paged engine's first "
+                     "bf16 run",
+                crossover=body_time.get("crossover"))
         elif k.name == "quantize_4bit":
             k2 = results.get("k2", {})
             entry.update(launches=launches.get(k.name, 0),

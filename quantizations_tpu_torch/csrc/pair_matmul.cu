@@ -1,5 +1,9 @@
 // Pair-layout 4-bit dequant + matmul for sm_90a: kernel K1's CUDA-core
-// body and kernel K9, one body behind two entry points.
+// body and kernel K9, one body behind two entry points. K1 runs it below
+// ops/qmatmul.py PAIR_SPLITK_MIN_TOKENS (3) token rows, its split-K
+// tensor-core body (csrc/pair_splitk.cu) from there up to 128 rows and
+// K8's tensor-core body (csrc/pair_prefill.cu) above; K9 picks its body
+// by the same rule (pair_body), so this body serves K9 at 1 and 2 rows.
 //
 // K1 replaces quantizations_tpu/ops/qmatmul.py:481 _pair_kernel, reached
 // through matmul_4bit_pair_pallas (:588, the lm_head) and
@@ -60,9 +64,9 @@
 // not carry over: the grid covers M.)
 //
 // What sets the pace is no longer the loads but the instructions per
-// weight (table decode, bf16 product, fp32 products per token row).
-// Tensor cores for the products, TMA for the ring and a cheaper decode
-// are left for later.
+// weight (table decode, bf16 product, fp32 products per token row). From
+// 3 rows on the tensor cores take the products (csrc/pair_splitk.cu);
+// TMA for the ring and a cheaper decode are left for later.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -2,10 +2,12 @@
 
 Each ``csrc/*.cu`` source holds one or more kernels with a plain C
 interface (``flash_decode.cu`` holds K3 and K4, ``planar_matmul.cu`` K5's
-two bodies and K6, ``dequantize.cu`` K7 and K10, ``pair_matmul.cu`` K1's CUDA-core
-body and K9,
-``pair_prefill.cu`` the tensor-core body that K8 and K1 above 128 rows
-launch, each with its own :class:`Kernel` record and launch counter). A
+two bodies and K6, ``dequantize.cu`` K7 and K10, ``pair_matmul.cu`` K1's
+CUDA-core body and K9, ``pair_splitk.cu`` the split-K tensor-core body
+that K1 and K9 launch at 3-128 token rows (from ``PAIR_SPLITK_MIN_TOKENS``
+in ``ops/qmatmul.py``), ``pair_prefill.cu`` the tensor-core body that K8
+and K1 above 128 rows launch, each with its own :class:`Kernel` record
+and launch counter). A
 source is compiled by its own ``nvcc`` call for ``sm_90a`` into a shared
 library under ``quantizations_tpu_torch/build/`` (named by a hash of the source,
 so an edited source rebuilds) and loaded with ``ctypes``. :func:`build`
@@ -29,7 +31,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["Kernel", "PAIR_MATMUL", "PAIR_MATMUL_MMA", "QUANTIZE_4BIT",
+__all__ = ["Kernel", "PAIR_MATMUL", "PAIR_MATMUL_MMA", "PAIR_MATMUL_SPLITK",
+           "QUANTIZE_4BIT",
            "FLASH_DECODE", "FLASH_DECODE_I8", "PLANAR_MATMUL",
            "PLANAR_MATMUL_MMA", "GEMV_4BIT",
            "DEQUANTIZE_4BIT", "DEQUANTIZE_4BIT_PAIR", "PAIR_PREFILL",
@@ -152,15 +155,21 @@ PAIR_PREFILL = Kernel(
 PAIR_MATMUL_MMA = Kernel(
     "pair_matmul_mma", "quantizations_tpu_torch/csrc/pair_prefill.cu",
     PAIR_MATMUL.replaces, {"qt_pair_mma": _MMA_ARGS})
+# K1 and K9 from PAIR_SPLITK_MIN_TOKENS up to 128 rows (ops/qmatmul.py
+# pair_body): the split-K tensor-core body, counted here and in
+# PAIR_MATMUL's count of every K1 launch (PAIR_MANUAL's of every K9 one).
+PAIR_MATMUL_SPLITK = Kernel(
+    "pair_matmul_splitk", "quantizations_tpu_torch/csrc/pair_splitk.cu",
+    PAIR_MATMUL.replaces, {"qt_pair_splitk": _PAIR_ARGS})
 PAIR_MANUAL = Kernel(
     "pair_manual", "quantizations_tpu_torch/csrc/pair_matmul.cu",
     "quantizations_tpu/ops/qmatmul.py:1048 _manual_kernel_body "
     "(matmul_4bit_pair_manual :1103, matmul_4bit_pair_manual_stacked :1163)",
     {"qt_pair_manual": _PAIR_ARGS})
-KERNELS = (PAIR_MATMUL, PAIR_MATMUL_MMA, QUANTIZE_4BIT, FLASH_DECODE,
-           FLASH_DECODE_I8, PLANAR_MATMUL, PLANAR_MATMUL_MMA, GEMV_4BIT,
-           DEQUANTIZE_4BIT,
-           PAIR_PREFILL, PAIR_MANUAL, DEQUANTIZE_4BIT_PAIR)
+KERNELS = (PAIR_MATMUL, PAIR_MATMUL_SPLITK, PAIR_MATMUL_MMA, QUANTIZE_4BIT,
+           FLASH_DECODE, FLASH_DECODE_I8, PLANAR_MATMUL, PLANAR_MATMUL_MMA,
+           GEMV_4BIT, DEQUANTIZE_4BIT, PAIR_PREFILL, PAIR_MANUAL,
+           DEQUANTIZE_4BIT_PAIR)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

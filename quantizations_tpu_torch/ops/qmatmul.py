@@ -26,15 +26,17 @@ with row 2i's code at bits [4p, 4p+4) and row 2i+1's at [16+4p, 16+4p+4).
 
 K1 serves both the stacked form (a layer of ``[L, M/2, K/4]``: the view
 ``wp2[idx]`` is a pointer offset, no copy) and the unstacked one (the
-lm_head). It has two bodies, chosen by the token count alone
-(:func:`pair_body`): up to 128 rows the CUDA-core body
-(``csrc/pair_matmul.cu``, entry ``qt_pair_matmul``), from
-``PAIR_MMA_MIN_TOKENS`` = 129 rows on the tensor-core body
-(``csrc/pair_prefill.cu``, entry ``qt_pair_mma``, tiles from
-:func:`pair_mma_tiles`). ``PAIR_MATMUL`` counts every K1 launch,
-``PAIR_MATMUL_MMA`` those of the tensor-core body. The wrappers launch
-for CUDA tensors and run the plain version, which repeats K1's
-arithmetic, for CPU tensors.
+lm_head). It has three bodies, chosen by the token count alone
+(:func:`pair_body`): below ``PAIR_SPLITK_MIN_TOKENS`` rows the CUDA-core
+body (``csrc/pair_matmul.cu``, entry ``qt_pair_matmul``), from there up
+to 128 rows the split-K tensor-core body (``csrc/pair_splitk.cu``, entry
+``qt_pair_splitk``: ``mma.sync`` bf16 with fp32 sums, K split over the
+warps of a block), from ``PAIR_MMA_MIN_TOKENS`` = 129 rows on the
+tensor-core body (``csrc/pair_prefill.cu``, entry ``qt_pair_mma``, tiles
+from :func:`pair_mma_tiles`). ``PAIR_MATMUL`` counts every K1 launch,
+``PAIR_MATMUL_SPLITK`` and ``PAIR_MATMUL_MMA`` those of their bodies.
+The wrappers launch for CUDA tensors and run the plain version, which
+repeats K1's arithmetic, for CPU tensors.
 
 Two more kernels compute K1's function over the same words, in K1's
 rounding class:
@@ -42,8 +44,9 @@ rounding class:
 - K9 (``csrc/pair_matmul.cu``, entry ``qt_pair_manual``), the
   manual-pipeline pair kernel: its weight words stream through a
   ``cp.async`` ring in shared memory, as K1's CUDA-core body's do, so
-  the two entry points launch one body and K9's output is K1's bit for
-  bit.
+  the two entry points launch one body. K9 picks its body by K1's rule,
+  so from ``PAIR_SPLITK_MIN_TOKENS`` rows on it launches K1's other
+  bodies, and its output is K1's bit for bit at every row count.
 - K8 (``csrc/pair_prefill.cu``, entry ``qt_pair_mma``), the prefill pair
   kernel: the tensor-core body (``mma.sync`` bf16 -> fp32, weights
   decoded in registers once per token tile), within 1e-5 * max|y| of its
@@ -63,16 +66,19 @@ from typing import Optional, Tuple
 import torch
 
 from ..quant.codebooks import FP4_CODE, get_4bit_code
-from .cuda import (PAIR_MANUAL, PAIR_MATMUL, PAIR_MATMUL_MMA, PAIR_PREFILL,
-                   PLANAR_MATMUL, PLANAR_MATMUL_MMA, launch)
+from .cuda import (PAIR_MANUAL, PAIR_MATMUL, PAIR_MATMUL_MMA,
+                   PAIR_MATMUL_SPLITK, PAIR_PREFILL, PLANAR_MATMUL,
+                   PLANAR_MATMUL_MMA, launch)
 from .gemv import (_SHIFTS, check_planar_args, device_planar_table,
                    pack_i32_rows, planar_table)
 
 __all__ = [
+    "PAIR_SPLITK_MIN_TOKENS",
     "PAIR_MMA_MIN_TOKENS",
     "pair_body",
     "pair_mma_tiles",
     "matmul_4bit_pair_cuda_core",
+    "matmul_4bit_pair_splitk",
     "matmul_4bit_pair_mma",
     "PREFILL_PAIR_CHUNK_T",
     "prefill_pair_ok",
@@ -319,9 +325,9 @@ def _check_pair_args(wp2, scales, x, name="pair_matmul"):
 
 def _launch_pair(wp2, scales, x, quant_type, kernel=PAIR_MATMUL,
                  entry="qt_pair_matmul", tiles=()):
-    """Launch K1's CUDA-core body or K9 through ``entry``, or the
-    tensor-core body (``qt_pair_mma``, K8 and K1 above the switch) with
-    its ``tiles`` (bm, bn)."""
+    """Launch K1's CUDA-core body or K9 through ``entry``, K1's split-K
+    body (``qt_pair_splitk``), or the tensor-core body (``qt_pair_mma``,
+    K8 and K1 above 128 rows) with its ``tiles`` (bm, bn)."""
     kind = _check_pair_args(wp2, scales, x, kernel.name)
     M2, K4 = wp2.shape
     T = x.shape[0]
@@ -337,16 +343,23 @@ def _launch_pair(wp2, scales, x, quant_type, kernel=PAIR_MATMUL,
     return y
 
 
-# K1 runs its CUDA-core body (``qt_pair_matmul``) up to 128 token rows and
-# the tensor-core body it shares with K8 (``qt_pair_mma``) from here on:
-# above every row count at which K9 is taken or held bit-identical to K1.
+# K1 runs its CUDA-core body (``qt_pair_matmul``) below
+# PAIR_SPLITK_MIN_TOKENS rows, its split-K tensor-core body
+# (``qt_pair_splitk``) from there up to 128 rows and the tensor-core body
+# it shares with K8 (``qt_pair_mma``) from PAIR_MMA_MIN_TOKENS on; K9
+# follows the same rule. The split-K body is the faster per Llama3-8B
+# forward on an H100 from 3 rows on, not at 1 or 2 (``chip_smoke.py
+# phase_body_time``'s crossover).
+PAIR_SPLITK_MIN_TOKENS = 3
 PAIR_MMA_MIN_TOKENS = 129
 
 
 def pair_body(tokens: int) -> str:
-    """Which body K1 runs for ``tokens`` rows: ``"cuda_core"`` or
-    ``"mma"``."""
-    return "mma" if tokens >= PAIR_MMA_MIN_TOKENS else "cuda_core"
+    """Which body K1 (and K9) runs for ``tokens`` rows: ``"cuda_core"``,
+    ``"splitk"`` or ``"mma"``."""
+    if tokens >= PAIR_MMA_MIN_TOKENS:
+        return "mma"
+    return "splitk" if tokens >= PAIR_SPLITK_MIN_TOKENS else "cuda_core"
 
 
 def pair_mma_tiles(T: int) -> Tuple[int, int]:
@@ -369,11 +382,25 @@ def matmul_4bit_pair_cuda_core(wp2: torch.Tensor, scales: torch.Tensor,
                                x: torch.Tensor, quant_type: str = "fp4"
                                ) -> torch.Tensor:
     """K1's CUDA-core body at any ``T``: what :func:`matmul_4bit_pair`
-    launches up to ``PAIR_MMA_MIN_TOKENS - 1`` rows, counted in
+    launches below ``PAIR_SPLITK_MIN_TOKENS`` rows, counted in
     ``PAIR_MATMUL``. CPU tensors run its plain version."""
     if x.device.type == "cpu":
         return matmul_4bit_pair_plain(wp2, scales, x, quant_type)
     return _launch_pair(wp2, scales, x, quant_type)
+
+
+def matmul_4bit_pair_splitk(wp2: torch.Tensor, scales: torch.Tensor,
+                            x: torch.Tensor, quant_type: str = "fp4"
+                            ) -> torch.Tensor:
+    """K1's split-K tensor-core body at any ``T``: what
+    :func:`matmul_4bit_pair` launches from ``PAIR_SPLITK_MIN_TOKENS`` up
+    to 128 rows, counted in ``PAIR_MATMUL_SPLITK`` only. CPU tensors run
+    its plain version, which sums in original column order as the body's
+    B fragments do (K8's)."""
+    if x.device.type == "cpu":
+        return matmul_4bit_pair_prefill_plain(wp2, scales, x, quant_type)
+    return _launch_pair(wp2, scales, x, quant_type, PAIR_MATMUL_SPLITK,
+                        "qt_pair_splitk")
 
 
 def matmul_4bit_pair_mma(wp2: torch.Tensor, scales: torch.Tensor,
@@ -388,11 +415,18 @@ def matmul_4bit_pair_mma(wp2: torch.Tensor, scales: torch.Tensor,
     return _launch_mma(wp2, scales, x, quant_type, PAIR_MATMUL_MMA)
 
 
-def _launch_k1(wp2, scales, x, quant_type):
-    if pair_body(x.shape[0]) == "cuda_core":
-        return matmul_4bit_pair_cuda_core(wp2, scales, x, quant_type)
-    y = matmul_4bit_pair_mma(wp2, scales, x, quant_type)
-    PAIR_MATMUL.launches += 1        # K1's count holds both bodies
+def _launch_k1(wp2, scales, x, quant_type, kernel=PAIR_MATMUL,
+               entry="qt_pair_matmul"):
+    """K1's dispatch, and K9's: launch the body :func:`pair_body` names
+    for ``x``'s rows, counted also in ``kernel``, K1's ``PAIR_MATMUL`` or
+    K9's ``PAIR_MANUAL`` (whose ``entry`` is the CUDA-core body's other
+    name)."""
+    body = pair_body(x.shape[0])
+    if body == "cuda_core":
+        return _launch_pair(wp2, scales, x, quant_type, kernel, entry)
+    y = (matmul_4bit_pair_splitk if body == "splitk"
+         else matmul_4bit_pair_mma)(wp2, scales, x, quant_type)
+    kernel.launches += 1       # K1's (K9's) count holds every body
     return y
 
 
@@ -401,9 +435,8 @@ def matmul_4bit_pair(wp2: torch.Tensor, scales: torch.Tensor, x: torch.Tensor,
     """Fused 4-bit dequant + matmul over pair words: ``y [T, M] = x [T, K]
     @ dequant(wp2 [M/2, K/4], scales).T`` in fp32. ``scales`` are fp32 or
     bf16 ``[M, K/64]``, or ``bf16x2`` int32 ``[M/2, K/64]``. CUDA tensors
-    launch K1 (``x`` must be bf16): its CUDA-core body up to 128 rows,
-    its tensor-core body above (:func:`pair_body`); CPU tensors run the
-    plain version."""
+    launch K1 (``x`` must be bf16) through the body :func:`pair_body`
+    names for its rows; CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return matmul_4bit_pair_plain(wp2, scales, x, quant_type)
     return _launch_k1(wp2, scales, x, quant_type)
@@ -601,12 +634,13 @@ def matmul_4bit_pair_manual(wp2: torch.Tensor, scales: torch.Tensor,
                             x: torch.Tensor, quant_type: str = "fp4"
                             ) -> torch.Tensor:
     """:func:`matmul_4bit_pair` with the weight words streamed through
-    shared memory: CUDA tensors launch K9 (``x`` bf16), whose output is
-    K1's bit for bit; CPU tensors run the plain version."""
+    shared memory: CUDA tensors launch K9 (``x`` bf16) through the body
+    :func:`pair_body` names, as K1 does, so its output is K1's bit for
+    bit; CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return matmul_4bit_pair_manual_plain(wp2, scales, x, quant_type)
-    return _launch_pair(wp2, scales, x, quant_type, PAIR_MANUAL,
-                        "qt_pair_manual")
+    return _launch_k1(wp2, scales, x, quant_type, PAIR_MANUAL,
+                      "qt_pair_manual")
 
 
 def matmul_4bit_pair_manual_stacked(wp2: torch.Tensor, scales: torch.Tensor,
@@ -619,8 +653,8 @@ def matmul_4bit_pair_manual_stacked(wp2: torch.Tensor, scales: torch.Tensor,
                                                      layer_idx, quant_type)
     if wp2.dim() != 3 or scales.dim() != 3:
         raise ValueError("pair_manual stacked: wp2/scales must be [L, ...]")
-    return _launch_pair(wp2[layer_idx], scales[layer_idx], x, quant_type,
-                        PAIR_MANUAL, "qt_pair_manual")
+    return _launch_k1(wp2[layer_idx], scales[layer_idx], x, quant_type,
+                      PAIR_MANUAL, "qt_pair_manual")
 
 
 # --------------------------------------------------------------------------

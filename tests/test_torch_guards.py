@@ -6,13 +6,16 @@
   no card they raise rather than fall back to the CPU.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card,
   and raises on a spill or a missing instantiation in the ``ptxas -v``
-  log of K1/K9 or of ``csrc/planar_matmul.cu`` (K5's two bodies, K6).
+  log of K1/K9's CUDA-core body, of their split-K body
+  (``csrc/pair_splitk.cu``) or of ``csrc/planar_matmul.cu`` (K5's two
+  bodies, K6).
 - The checkpoint path and the CLIs import no ``safetensors`` or
   ``orbax``, and only the serving CLI's optional tokenizer imports
   ``transformers``.
-- Tests marked ``cuda`` hold each kernel (K1 to K10, and both of K5's
-  bodies) against its plain version on the card (K9 against K1, bit for
-  bit; K1 above 128 rows,
+- Tests marked ``cuda`` hold each kernel (K1 to K10, each of K1's three
+  bodies and both of K5's) against its plain version on the card (K9
+  against K1, bit for bit, on either side of K1's switches; K1 above 128
+  rows,
   its tensor-core body, against its CUDA-core body and K8; K10 bit for
   bit, and the dense bands' bf16 products within 1e-5 * max|y| of their
   fp32 plain products), the per-body launch counts, and the wrappers'
@@ -253,6 +256,49 @@ def test_chip_smoke_checks_planar_matmul_ptxas(case):
     assert {e["smem"] for e in results["ptxas_planar_matmul"]} == {64}
 
 
+def _splitk_ptxas_log(cs, drop=None, spilled=None):
+    """A ``ptxas -v`` log of ``csrc/pair_splitk.cu`` with every shape that
+    its entry launches (less ``drop``; ``spilled`` with a spill)."""
+    log = ""
+    labels = set()
+    for sh in cs.PAIR_SPLITK_SHAPES:
+        label = "NT={} MT={} KS={} ST={}".format(*sh)
+        labels.add(label)
+        if label == drop:
+            continue
+        fn = ("_ZN12_GLOBAL__N_118pair_splitk_kernelILi{}ELi{}ELi{}ELi{}EEEvPK"
+              "iPKviPK13__nv_bfloat16S8_Pfiiiiif").format(*sh)
+        sp = 8 * (label == spilled)
+        log += (f"ptxas info    : Compiling entry function '{fn}' for "
+                f"'sm_90a'\nptxas info    : Function properties for {fn}\n"
+                f"    0 bytes stack frame, {sp} bytes spill stores, {sp} "
+                f"bytes spill loads\nptxas info    : Used 128 registers, used "
+                f"1 barriers, 32 bytes smem, 420 bytes cmem[0]\n")
+    return log, labels
+
+
+@pytest.mark.parametrize("case", ["complete", "missing", "spill"])
+def test_chip_smoke_checks_pair_splitk_ptxas(case):
+    """``chip_smoke.py`` reads ``csrc/pair_splitk.cu``'s ``ptxas -v`` log:
+    every shape of K1's split-K body that its entry launches once, no
+    spill, or it raises."""
+    cs = _chip_smoke()
+    last = "NT={} MT={} KS={} ST={}".format(*cs.PAIR_SPLITK_SHAPES[-1])
+    first = "NT={} MT={} KS={} ST={}".format(*cs.PAIR_SPLITK_SHAPES[0])
+    log, labels = _splitk_ptxas_log(
+        cs, drop=last if case == "missing" else None,
+        spilled=first if case == "spill" else None)
+    results = {}
+    if case != "complete":
+        with pytest.raises(AssertionError):
+            cs.read_ptxas_report({"pair_splitk": _DoneNvcc(log)}, results)
+        return
+    cs.read_ptxas_report({"pair_splitk": _DoneNvcc(log)}, results)
+    assert {e["kernel"] for e in results["ptxas_pair_splitk"]} == labels
+    assert len(labels) == len(cs.PAIR_SPLITK_SHAPES)
+    assert {e["registers"] for e in results["ptxas_pair_splitk"]} == {128}
+
+
 def _quantize_ptxas_log(cs, drop=None, spilled=None):
     """A ``ptxas -v`` log of ``csrc/quantize.cu`` with every K2
     instantiation that its dispatch launches (less ``drop``; ``spilled``
@@ -316,23 +362,29 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-# K1's CUDA-core body (and K9) on the tails its ring must handle: token
-# tiles cut short (T 2, 5, 7, 12, 17: zero-filled rows), row pairs past
-# the block's 8 (M 18 and 130), an odd count of scale blocks (K 576, the
-# 4-byte copies) and more than 64 of them (K 4608: two chunks a step).
-PAIR_TAIL_T = [1, 2, 3, 5, 7, 8, 12, 16, 17, 40]
+# K1's bodies (and K9) on the tails their rings must handle: token tiles
+# cut short (T 2, 5, 7, 12, 17, 33, 40, 100: zero-filled rows), each of
+# the split-K body's token tiles (T up to 8, 16, 32, 64) and its second
+# 64-token tile (65, 100, 128), row pairs past a block's 8 or 16 (M 18 and
+# 130), an odd count of scale blocks (K 576: the 4-byte copies, a word
+# chunk cut short) and more than 64 of them (K 4608: two chunks a step of
+# the CUDA-core body, 9 word chunks over the split-K body's warps).
+PAIR_TAIL_T = [1, 2, 3, 5, 7, 8, 12, 16, 17, 33, 40, 64, 65, 100, 128]
 PAIR_TAIL_MK = [(256, 512), (18, 576), (130, 4608)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("body", ["cuda_core", "splitk", "mma"])
 @pytest.mark.parametrize("quant_type", ["fp4", "nf4"])
 @pytest.mark.parametrize("scale_kind", ["fp32", "bf16", "bf16x2"])
 @pytest.mark.parametrize("T", PAIR_TAIL_T)
 @pytest.mark.parametrize("M,K", PAIR_TAIL_MK)
-def test_k1_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T, M,
-                                  K):
-    """K1 within 1e-5 * max|y| of its plain version, and two launches give
-    the same bits."""
+def test_k1_matches_plain_on_card(cuda, rng, body, quant_type, scale_kind, T,
+                                  M, K):
+    """Each of K1's bodies, launched directly, within 1e-5 * max|y| of its
+    plain version (on the CPU tensors, the same wrapper), two launches
+    give the same bits, and the dispatch is the body ``pair_body`` names,
+    bit for bit."""
     wp2 = torch.from_numpy(rng.integers(-2**31, 2**31, (3, M // 2, K // 4),
                                         dtype=np.int64).astype(np.int32))
     scales = torch.from_numpy(
@@ -343,14 +395,18 @@ def test_k1_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T, M,
         scales = tqm.pack_scale_pairs(scales)
     x = torch.from_numpy(rng.standard_normal((T, K)).astype(
         np.float32)).to(torch.bfloat16)
-    ref = tqm.matmul_4bit_pair_stacked(wp2, scales, x, 1, quant_type)
+    fn = getattr(tqm, f"matmul_4bit_pair_{body}")
+    ref = fn(wp2[1], scales[1], x, quant_type)
     on = [t.to(cuda) for t in (wp2, scales, x)]
-    got = tqm.matmul_4bit_pair_stacked(*on, 1, quant_type)
-    again = tqm.matmul_4bit_pair_stacked(*on, 1, quant_type)
+    got = fn(on[0][1], on[1][1], on[2], quant_type)
+    again = fn(on[0][1], on[1][1], on[2], quant_type)
+    disp = tqm.matmul_4bit_pair_stacked(*on, 1, quant_type)
     torch.cuda.synchronize()
     # same rounding class on both sides: fp32 summation order only
     assert (got.cpu() - ref).abs().max() <= 1e-5 * ref.abs().max()
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if tqm.pair_body(T) == body:
+        assert torch.equal(disp.view(torch.int32), got.view(torch.int32))
 
 
 def _k2_check(W, blocksize, quant_type, cuda):
@@ -968,8 +1024,9 @@ def test_k8_matches_plain_on_card(cuda, rng, quant_type, scale_kind, T, M,
 @pytest.mark.parametrize("T", PAIR_TAIL_T)
 @pytest.mark.parametrize("M,K", PAIR_TAIL_MK)
 def test_k9_equals_k1_on_card(cuda, rng, quant_type, scale_kind, T, M, K):
-    """K9 is K1 bit for bit, with 16-byte (K 512, 4608) and 4-byte (K 576,
-    an odd number of scale blocks) word copies, on the tails of
+    """K9 is K1 bit for bit on either side of K1's switch to its split-K
+    body (K9 picks K1's body), with 16-byte (K 512, 4608) and 4-byte (K
+    576, an odd number of scale blocks) word copies, on the tails of
     ``PAIR_TAIL_T`` and ``PAIR_TAIL_MK``, and within 1e-5 * max|y| of the
     plain version."""
     wp2, scales = _pair_operands(rng, M, K, scale_kind=scale_kind)
@@ -1018,33 +1075,43 @@ def test_k1_tensor_core_body_on_card(cuda, rng, quant_type, scale_kind, T,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,bodies", [(1, (1, 0)), (128, (1, 0)),
-                                      (129, (1, 1)), (300, (1, 1))])
-def test_k1_counts_each_body_on_card(cuda, rng, T, bodies):
-    """``PAIR_MATMUL`` counts every K1 launch, ``PAIR_MATMUL_MMA`` those
-    of the tensor-core body; a direct launch of either body counts in its
-    own record only, and K8 in ``PAIR_PREFILL`` only."""
-    from quantizations_tpu_torch.ops import PAIR_MATMUL, PAIR_MATMUL_MMA
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 8, 100, 128, 129, 300])
+def test_k1_counts_each_body_on_card(cuda, rng, T):
+    """``PAIR_MATMUL`` counts every K1 launch (``PAIR_MANUAL`` every K9
+    launch), ``PAIR_MATMUL_SPLITK`` and ``PAIR_MATMUL_MMA`` those of their
+    bodies, the one ``pair_body`` names for T rows; a direct launch of a
+    body counts in its own record only, and K8 in ``PAIR_PREFILL`` only."""
+    from quantizations_tpu_torch.ops import (PAIR_MATMUL, PAIR_MATMUL_MMA,
+                                             PAIR_MATMUL_SPLITK)
 
     wp2, scales = [t.to(cuda) for t in _pair_operands(rng, 64, 256)]
     x = torch.zeros((T, 256), dtype=torch.bfloat16, device=cuda)
-    kerns = (PAIR_MATMUL, PAIR_MATMUL_MMA, PAIR_PREFILL)
+    kerns = (PAIR_MATMUL, PAIR_MATMUL_SPLITK, PAIR_MATMUL_MMA, PAIR_PREFILL,
+             PAIR_MANUAL)
 
     def counted(fn, *a):
         before = [k.launches for k in kerns]
         fn(*a)
         return tuple(k.launches - b for k, b in zip(kerns, before))
 
+    body = tqm.pair_body(T)
+    bodies = (int(body == "splitk"), int(body == "mma"))
     assert counted(tqm.matmul_4bit_pair_stacked, wp2, scales, x, 2) == (
-        bodies + (0,))
+        (1,) + bodies + (0, 0))
     assert counted(tqm.matmul_4bit_pair, wp2[0], scales[0], x) == (
-        bodies + (0,))
+        (1,) + bodies + (0, 0))
+    assert counted(tqm.matmul_4bit_pair_manual_stacked, wp2, scales, x,
+                   2) == (0,) + bodies + (0, 1)
+    assert counted(tqm.matmul_4bit_pair_manual, wp2[0], scales[0], x) == (
+        (0,) + bodies + (0, 1))
     assert counted(tqm.matmul_4bit_pair_cuda_core, wp2[0], scales[0],
-                   x) == (1, 0, 0)
+                   x) == (1, 0, 0, 0, 0)
+    assert counted(tqm.matmul_4bit_pair_splitk, wp2[0], scales[0], x) == (
+        0, 1, 0, 0, 0)
     assert counted(tqm.matmul_4bit_pair_mma, wp2[0], scales[0], x) == (
-        0, 1, 0)
+        0, 0, 1, 0, 0)
     assert counted(tqm.matmul_4bit_pair_prefill, wp2[0], scales[0], x) == (
-        0, 0, 1)
+        0, 0, 0, 1, 0)
 
 
 @pytest.mark.cuda
