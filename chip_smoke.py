@@ -43,7 +43,11 @@ Phases, each raising on failure:
    positions split across blocks (16 x 128 at B = 1, boundaries inside
    the pages), and every pool case launched twice gives the same bits.
    Tolerance 1e-5 * max|out| (the same values on both sides; fp32
-   summation order only);
+   summation order only). Then the same at Gemma2-9B's shapes (8 kv
+   heads, 2 query heads each, D 256): the slot cache of 4352 positions
+   and the pool (page 256, 17 pages a row), q_span 1, 4 and 16, B 1 and
+   4 with lengths up to 4300, past the 4096 window, softcap 50 with the
+   window 4096 and 2**30, and neither;
 6. ``time``: each kernel timed with CUDA events over many launches after
    a warm-up (K1 at the decode and prefill T of batch 1, 4 and 8 and at
    the paged engine's 256-token admission chunk), K1's weights rotating
@@ -57,8 +61,12 @@ Phases, each raising on failure:
    split the wrapper chose and the blocks launched, the plain version
    and, for K3, ``scaled_dot_product_attention(..., enable_gqa=True)``
    over the same keys laid out contiguously; 32 query rows over the
-   pool; and the pool cases again with each chunk of
-   ``ATTN_SWEEP_CHUNKS`` forced (the split sweep);
+   pool (SDPA there with the verify window's causal mask); the pool
+   cases again with each chunk of ``ATTN_SWEEP_CHUNKS`` forced (the split
+   sweep); and K3/K4 at Gemma2-9B's shape (B = 4, 1900 tokens, D 256,
+   softcap 50, window 4096): slot, paged, and paged at q_span 16, beside
+   the bound, the plain version and SDPA on contiguous bf16 keys, with
+   the paged cases' split sweep;
 7. ``model``: first one FP4 model build under ``torch.profiler``: the
    host and device time of K2, ``torch.randn``, the plain double
    quantization, ``planar_to_pair`` and ``fuse_projections``, and the
@@ -74,7 +82,7 @@ Phases, each raising on failure:
    from B = 4, every launch), and K3 or K4 exactly 59 * 32 = 1888
    times, K10 never, and give the same tokens on every run; tok/s is new tokens
    over the whole generate call, from CUDA events, the median of
-   TIMED_RUNS (3)
+   TIMED_RUNS (2)
    timed runs after a warm-up, printed with their min and max. A tiny
    model then checks the CUDA path against the CPU's plain path on the
    same parameters (prefill, and a flash decode step, bf16 and int8);
@@ -192,7 +200,36 @@ Phases, each raising on failure:
    129 per forward by body, the same tokens every run; tok/s the median
    of 3) beside the
    model phase's generate;
-12. ``load``: the checkpoint path and the command line. A synthetic HF
+12. ``gemma2``: Gemma2-9B at full width and depth (42 layers, hidden
+   3584, 16 query and 8 kv heads of 256, GeGLU, sandwich norms, softcaps
+   50 and 30, the 4096 window on the even layers), FP4, random normal
+   weights from seed 0, the 4-bit embedding tied to the lm_head, fused
+   q|k|v and gate|up. K2 bit-exact at the build's weight shapes, K1
+   within 1e-5 * max|y| at its five projection shapes at T = 1, 8, 64,
+   256 (each body), K8 within 1e-5 * max|y| there at 256, 512 and 1024
+   rows and K10 bit-exact there (bf16 and fp32 out); the build (exactly
+   296 K2 launches); greedy generates of 60 tokens after 16 at B = 1,
+   4, 8 on the einsum arm, with flash (K3) and with flash and an int8
+   cache (K4), each run twice (the same tokens), K1 exact by body, K3/K4
+   exactly 59 x 42 a flash generate; one B = 4 decode step's flash
+   logits within ``G2_LOGIT_BOUND`` (0.25) of max|logit| of the einsum
+   arm's on the same cache, bf16 and int8, each K3/K4 call of that step
+   within 1e-5 * max|out| of its plain version on the same inputs, and
+   K3 with the newest position planted away outside the bound (read
+   beside them: each arm against the flash arm's fp32 plain version and
+   that version with 1e-6 noise a call, at 2, 8 and 42 layers of the
+   same weights, K3 with the softcap dropped, and one step after 4,200
+   tokens with the window dropped); a B = 1 generate after a 4,200-token
+   prompt
+   (the window masks positions; K10 on the prefill) on einsum and flash,
+   twice each; ``PagedEngine`` with the paged cell's settings under
+   ``QT_PREFILL_PAIR=1`` at max_seq 4352, the paged phase's 8 requests
+   and one of 4,200 tokens, through ``step`` and ``step_spec(16)`` (32
+   query rows a kv head), bf16 and int8 pools, each twice (the same
+   tokens), K3/K4 exactly 42 a forward and K8 168 x ceil(rows / 512) a
+   forward above the K1 band. tok/s, admission and decode walls and
+   peak memory printed;
+13. ``load``: the checkpoint path and the command line. A synthetic HF
    checkpoint at Llama3-8B's width cut to 4 of its 32 layers (3.85 GB of
    bf16, 4 shards and an index, the port's own writer, in a temporary
    directory; it raises when the disk has less than 10 GB free) loaded
@@ -211,7 +248,7 @@ Phases, each raising on failure:
    raises, a ``PagedEngine`` that hangs past the deadline and a healthy
    one: every request finishes, the pages return, the healthy engine's
    own requests equal an undisturbed run;
-13. ``evals``: the accuracy path at Llama3-8B's full width and depth,
+14. ``evals``: the accuracy path at Llama3-8B's full width and depth,
    FP4 with the evals CLI's ``QuantConfig`` (a dense embedding),
    ``dist="trained_proxy"`` from seed 0. The proxy sampler's statistics
    at three shapes (the Student-t draws' excess kurtosis and variance,
@@ -230,8 +267,9 @@ Phases, each raising on failure:
    ``python -m quantizations_tpu_torch.evals --preset 8b --proxy
    --parity --parity-control`` as a subprocess, its JSON equal to the
    direct calls field for field;
-14. ``parallel``: the parallel path at Llama3-8B's full width and depth
-   (FP4, random normal weights from seed 0, 4-bit embedding and lm_head)
+15. ``parallel``: the parallel path at Llama3-8B's full width, 8 of its
+   32 layers (FP4, random normal weights from seed 0, 4-bit embedding and
+   lm_head)
    on ranks that share this one card under gloo (``parallel.launch``;
    NCCL refuses two ranks on one GPU): TP at tp = 4 and 2 (B = 1 and 4,
    flash attention; the manual pipeline; a ``QT_PREFILL_PAIR`` prefill of
@@ -254,7 +292,7 @@ Phases, each raising on failure:
    card: no TP speed), the collectives' share of the wall, the staged
    collectives, the shard shapes each kernel ran, each rank's peak
    memory;
-15. ``profile``: one FP4 batch-1 generate of 8 new tokens under
+16. ``profile``: one FP4 batch-1 generate of 8 new tokens under
    ``torch.profiler``: device kernel time by name, kernels per forward,
    the device's busy share of the wall time, the host's enqueue time.
 
@@ -295,8 +333,9 @@ K1_TIMED_TOKENS = K1_DECODE_TOKENS + (16, 64, 128)   # and their prefill
 K1_CHUNK_TOKENS = 256          # one admission chunk of the paged engine
 PROMPT_LEN = 16
 # timed generates after a warm-up, their tok/s the median (the model,
-# planar and pair_variants phases)
-TIMED_RUNS = 3
+# planar and pair_variants phases); two leave the run room for the
+# gemma2 phase
+TIMED_RUNS = 2
 # decode attention at Llama3-8B: 8 kv heads, 4 query heads each, D 128
 KVH, GQA, HEAD_DIM = 8, 4, 128
 ATTN_BATCHES = (1, 4, 8)
@@ -309,7 +348,7 @@ ATTN_Q_SPANS = (1, 4, 8)
 ATTN_SWEEP_CHUNKS = (64, 128, 256, 512, 1024, 2048)   # the split sweep
 # the instantiations that csrc/flash_decode.cu's dispatch launches: row
 # tiles R (4 up to 4 rows a group, else 8) and head dims D, per type
-FD_ROW_TILES, FD_HEAD_DIMS = (4, 8), (64, 128)
+FD_ROW_TILES, FD_HEAD_DIMS = (4, 8), (64, 128, 256)
 # the token tiles TT of csrc/pair_matmul.cu's body (K1's and K9's CUDA-core
 # body)
 PAIR_TILES = (1, 2, 4, 8, 16)
@@ -830,8 +869,9 @@ def phase_time(dev, gen, results):
     results["k1_time"] = dict(rows=rows, per_forward=per_t)
 
 
-def _attn_pool(B, lengths, page, n_pages, q_span, dev, gen, int8, L=3):
-    """A pool [L, P, KVH, page, D] and a shuffled block table [B, n_pages]
+def _attn_pool(B, lengths, page, n_pages, q_span, dev, gen, int8, L=3,
+               kvh=KVH, D=HEAD_DIM):
+    """A pool [L, P, kvh, page, D] and a shuffled block table [B, n_pages]
     holding each row's pages for lengths[b] + q_span - 1 positions (at
     most n_pages), page 0 in the unused entries."""
     need = [min(n_pages, -(-(int(n) + q_span - 1) // page))
@@ -844,7 +884,7 @@ def _attn_pool(B, lengths, page, n_pages, q_span, dev, gen, int8, L=3):
     for b, n in enumerate(need):
         table[b, :n] = perm[at:at + n]
         at += n
-    return _attn_cache((L, P, KVH, page, HEAD_DIM), dev, gen, int8) + (
+    return _attn_cache((L, P, kvh, page, D), dev, gen, int8) + (
         table.to(dev),)
 
 
@@ -866,17 +906,20 @@ def _attn_cache(shape, dev, gen, int8):
     return k, v, None, None
 
 
-def phase_attn(dev, gen, results):
-    """K3 and K4 against their plain versions at the main path's shapes
-    (KVH 8, G 4, D 128, B 1/4/8): the slot cache (S 2048, attend_len 128
-    and 2048, unstacked and stacked at layer 1) and the paged pool (page
-    256 and 128, shuffled tables, pages_per_step 1 and 2, q_span 1, 4 and
-    8: up to 32 query rows), over lengths, window and softcap. The pool's
-    2048 positions split across blocks (16 chunks of 128 at B = 1, split
-    boundaries inside the pages); each pool case is launched twice and
-    must give the same bits. Tolerance 1e-5 * max|out|: both sides read
-    the same bf16 or int8 values and differ only in the fp32 summation
-    order."""
+def _attn_check_cases(dev, gen, *, kvh, gqa, D, S, batches, knobs, pages,
+                      q_spans, pps, tag=""):
+    """K3 and K4 against their plain versions over a slot cache of S
+    positions (attend_len 128 and S, stacked at layer 1; bf16 also
+    unstacked) and pools of S positions a row at each page size
+    (shuffled tables, pages_per_step ``pps``, each q_span), for each
+    ``(B, lengths)`` of ``batches`` and each (window, softcap) of
+    ``knobs``. The pool's splits fold in a fixed order: each (page,
+    q_span) case is launched again and must give the same bits.
+    Tolerance 1e-5 * max|out|: both sides read the same bf16 or int8
+    values and differ only in the fp32 summation order. Returns (worst
+    [max|err|, max|err| / max|out|, cases] by kernel, bit-identical
+    reruns by kernel, the pool's splits as (B, page, q_span, n_split,
+    chunk))."""
     from quantizations_tpu_torch.ops import attention as at
     from quantizations_tpu_torch.ops import paged_attention as pa
     from quantizations_tpu_torch.ops.cuda import (FLASH_DECODE,
@@ -884,34 +927,30 @@ def phase_attn(dev, gen, results):
 
     worst = {"flash_decode": [0.0, 0.0, 0], "flash_decode_i8": [0.0, 0.0, 0]}
     identical = {"flash_decode": 0, "flash_decode_i8": 0}
-    splits = set()      # (B, page, q_span, n_split, chunk) of the pool cases
+    splits = set()
 
     def check(name, what, got, ref):
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
-            raise AssertionError(f"{name} {what}: bad output")
+            raise AssertionError(f"{name}{tag} {what}: bad output")
         err = (got - ref).abs().max().item()
-        tol = 1e-5 * ref.abs().max().item()
-        if not err <= tol:
-            raise AssertionError(f"{name} {what}: max|err| {err:.3e} > tol "
-                                 f"{tol:.3e}")
+        top = ref.abs().max().item()
+        if not err <= 1e-5 * top:
+            raise AssertionError(f"{name}{tag} {what}: max|err| {err:.3e} > "
+                                 f"tol {1e-5 * top:.3e}")
         w = worst[name]
-        w[0] = max(w[0], err)
-        w[1] = max(w[1], err / max(ref.abs().max().item(), 1e-30))
-        w[2] += 1
+        w[0], w[1], w[2] = max(w[0], err), max(w[1], err / max(top, 1e-30)), \
+            w[2] + 1
 
-    S = 2048
-    for B in ATTN_BATCHES:
-        lens = [ATTN_LENGTHS[b % len(ATTN_LENGTHS)] for b in range(B)]
+    for B, lens in batches:
         for int8 in (False, True):
             name = "flash_decode_i8" if int8 else "flash_decode"
-            k, v, ks, vs = _attn_cache((3, B, KVH, S, HEAD_DIM), dev, gen,
-                                       int8)
-            q = torch.randn(B, KVH, GQA, HEAD_DIM, generator=gen, device=dev)
+            k, v, ks, vs = _attn_cache((3, B, kvh, S, D), dev, gen, int8)
+            q = torch.randn(B, kvh, gqa, D, generator=gen, device=dev)
             for attend in (128, S):
                 ln = torch.tensor([min(n, attend) for n in lens],
                                   dtype=torch.int32, device=dev)
-                for win, cap in ATTN_KNOBS:
+                for win, cap in knobs:
                     kw = dict(attend_len=attend, softcap=cap, window=win)
                     what = f"slot B={B} attend={attend} win={win} cap={cap}"
                     if int8:
@@ -935,19 +974,20 @@ def phase_attn(dev, gen, results):
                                   qb, k[0], v[0], ln, softcap=cap,
                                   window=win))
             del k, v, ks, vs
-            for page in (256, 128):
-                for q_span in ATTN_Q_SPANS:
+            for page in pages:
+                for q_span in q_spans:
                     k, v, ks, vs, table = _attn_pool(
-                        B, lens, page, S // page, q_span, dev, gen, int8)
+                        B, lens, page, S // page, q_span, dev, gen, int8,
+                        kvh=kvh, D=D)
                     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-                    q = torch.randn(B, KVH, q_span * GQA, HEAD_DIM,
-                                    generator=gen, device=dev)
-                    for pps in (1, 2):
-                        for win, cap in ATTN_KNOBS:
+                    q = torch.randn(B, kvh, q_span * gqa, D, generator=gen,
+                                    device=dev)
+                    for p_ in pps:
+                        for win, cap in knobs:
                             kw = dict(softcap=cap, window=win, q_span=q_span,
-                                      pages_per_step=pps)
+                                      pages_per_step=p_)
                             what = (f"paged B={B} page={page} "
-                                    f"q_span={q_span} pps={pps} win={win} "
+                                    f"q_span={q_span} pps={p_} win={win} "
                                     f"cap={cap}")
                             if int8:
                                 got = pa.paged_flash_decode_attention_i8(
@@ -969,32 +1009,79 @@ def phase_attn(dev, gen, results):
                         pa.paged_flash_decode_attention(
                             q, k, v, table, 2, ln, **kw))
                     if not torch.equal(again, got):
-                        raise AssertionError(f"{name} {what}: two launches "
-                                             "differ")
+                        raise AssertionError(f"{name}{tag} {what}: two "
+                                             "launches differ")
                     identical[name] += 1
                     del k, v, ks, vs
-        log(f"  B={B}: K3 {worst['flash_decode'][2]} and K4 "
+        log(f"  {tag.strip() or 'D=' + str(D)} B={B}: K3 "
+            f"{worst['flash_decode'][2]} and K4 "
             f"{worst['flash_decode_i8'][2]} cases so far within 1e-5 * "
             "max|out| of the plain versions")
         torch.cuda.empty_cache()
-    results["attn_err"] = {n: dict(max_abs_err=w[0], max_err_over_max_out=w[1],
-                                   cases=w[2], bit_identical_reruns=identical[n])
-                           for n, w in worst.items()}
-    results["attn_splits"] = sorted(splits)
     for n, w in worst.items():
-        log(f"  {n}: {w[2]} cases, worst max|err| {w[0]:.3e}, worst "
+        log(f"  {n}{tag}: {w[2]} cases, worst max|err| {w[0]:.3e}, worst "
             f"max|err| / max|out| {w[1]:.3e}; {identical[n]} pool cases "
             "launched twice, bit-identical")
-    log("  pool splits (B, page, q_span: n_split x chunk): " + ", ".join(
-        f"{b},{pg},{qs}: {n}x{c}" for b, pg, qs, n, c in sorted(splits)))
+    log(f"  {tag.strip() or 'pool'} splits (B, page, q_span: n_split x "
+        "chunk): " + ", ".join(f"{b},{pg},{qs}: {n}x{c}"
+                               for b, pg, qs, n, c in sorted(splits)))
+    return ({n: dict(max_abs_err=w[0], max_err_over_max_out=w[1], cases=w[2],
+                     bit_identical_reruns=identical[n])
+             for n, w in worst.items()}, sorted(splits))
 
 
-def _attn_bytes(B, ctx, int8, q_span=1):
+def phase_attn(dev, gen, results):
+    """K3 and K4 against their plain versions at the main path's shapes
+    (KVH 8, G 4, D 128, B 1/4/8): the slot cache (S 2048, attend_len 128
+    and 2048, unstacked and stacked at layer 1) and the paged pool (page
+    256 and 128, shuffled tables, pages_per_step 1 and 2, q_span 1, 4 and
+    8: up to 32 query rows), over lengths, window and softcap
+    (:func:`_attn_check_cases`). The pool's 2048 positions split across
+    blocks (16 chunks of 128 at B = 1, split boundaries inside the
+    pages)."""
+    results["attn_err"], results["attn_splits"] = _attn_check_cases(
+        dev, gen, kvh=KVH, gqa=GQA, D=HEAD_DIM, S=2048,
+        batches=[(B, [ATTN_LENGTHS[b % len(ATTN_LENGTHS)] for b in range(B)])
+                 for B in ATTN_BATCHES],
+        knobs=ATTN_KNOBS, pages=(256, 128), q_spans=ATTN_Q_SPANS, pps=(1, 2))
+
+
+def _attn_bytes(B, ctx, int8, q_span=1, kvh=KVH, gqa=GQA, D=HEAD_DIM):
     """Bytes a decode attention launch must move: the K/V (and step)
     rows of the live positions, q (fp32) and out (fp32)."""
-    row = HEAD_DIM + 2 if int8 else 2 * HEAD_DIM
-    return (2 * B * KVH * ctx * row
-            + 2 * B * KVH * q_span * GQA * HEAD_DIM * 4)
+    row = D + 2 if int8 else 2 * D
+    return 2 * B * kvh * ctx * row + 2 * B * kvh * q_span * gqa * D * 4
+
+
+def _sdpa_ms(B, ctx, q_span, dev, gen, kvh=KVH, gqa=GQA, D=HEAD_DIM,
+             window=None):
+    """The library figure of a decode attention launch: one
+    ``scaled_dot_product_attention(..., enable_gqa=True)`` of B rows of
+    ``q_span`` positions over ``ctx`` contiguous bf16 keys (the last
+    position at ctx - 1), the keys rotating over enough layers to exceed
+    the L2 four times; above one position with the mask the kernel
+    applies (causal inside the window, and ``window``). It has no
+    softcap. The port never calls it."""
+    F = torch.nn.functional
+    L = max(2, min(256, math.ceil(4 * L2_BYTES / _attn_bytes(
+        B, ctx, False, q_span, kvh, gqa, D))))
+    k = torch.randn(L, B, kvh, ctx, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn(L, B, kvh, ctx, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn(B, kvh * gqa, q_span, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    mask = None
+    if q_span > 1:
+        t = torch.arange(ctx, device=dev)[None, :]
+        last = (ctx - q_span + torch.arange(q_span, device=dev))[:, None]
+        mask = t <= last
+        if window is not None:
+            mask = mask & (t > last - window)
+    ms = device_ms(lambda i: F.scaled_dot_product_attention(
+        q, k[i % L], v[i % L], attn_mask=mask, enable_gqa=True), 200)
+    del k, v
+    return ms
 
 
 def phase_attn_time(dev, gen, results):
@@ -1006,49 +1093,80 @@ def phase_attn_time(dev, gen, results):
     keys laid out contiguously (the port never calls it). Each row prints
     the split the wrapper chose (n_split x chunk), the blocks launched and
     the share of the bound. Then 32 query rows (q_span 8) over the pool
-    at 1900 tokens, and the split sweep: paged K3 and K4 at every B and
-    context with each chunk of ATTN_SWEEP_CHUNKS forced."""
+    at 1900 tokens (SDPA, for K3, with the verify window's causal mask),
+    the split sweep: paged K3 and K4 at every B and context with each
+    chunk of ATTN_SWEEP_CHUNKS forced, and Gemma2-9B's shape: B = 4 rows
+    of 1900 positions, KVH 8, G 2, D 256, softcap 50 and the 4096 window,
+    slot at q_span 1 and paged at q_span 1 and 16, beside SDPA over
+    contiguous bf16 keys (at q_span 16 with the window's mask; for K4
+    too; it has no softcap), and the paged cases' split sweep."""
     from quantizations_tpu_torch.ops import attention as at
     from quantizations_tpu_torch.ops import paged_attention as pa
     from quantizations_tpu_torch.ops.cuda import (FLASH_DECODE,
                                                   FLASH_DECODE_I8)
 
     F = torch.nn.functional
-    rows, sweep = [], []
+    llama = (KVH, GQA, HEAD_DIM)
+    rows, sweep, rows_d256, sweep_d256 = [], [], [], []
 
-    def paged_case(B, ctx, int8, q_span):
+    def layers(B, ctx, int8, q_span, shape):
+        return max(2, min(256, math.ceil(
+            4 * L2_BYTES / _attn_bytes(B, ctx, int8, q_span, *shape))))
+
+    def slot_case(B, ctx, int8, shape=llama, knobs={}):
+        """A slot cache of exactly ctx positions a layer over L layers:
+        (operands, launch, plain version, L)."""
+        kvh, gqa, D = shape
+        L = layers(B, ctx, int8, 1, shape)
+        ln = torch.full((B,), ctx, dtype=torch.int32, device=dev)
+        q = torch.randn(B, kvh, gqa, D, generator=gen, device=dev)
+        k, v, ks, vs = _attn_cache((L, B, kvh, ctx, D), dev, gen, int8)
+        if int8:
+            run = lambda i: at.flash_decode_attention_stacked_i8(
+                q, k, v, ks, vs, i % L, ln, **knobs)
+            plain = lambda i: at.flash_decode_attention_stacked_i8_plain(
+                q, k, v, ks, vs, i % L, ln, **knobs)
+        else:
+            run = lambda i: at.flash_decode_attention_stacked(
+                q, k, v, i % L, ln, **knobs)
+            plain = lambda i: at.flash_decode_attention_stacked_plain(
+                q, k, v, i % L, ln, **knobs)
+        return (q, k, v), run, plain, L
+
+    def paged_case(B, ctx, int8, q_span, shape=llama, knobs={}):
         """A pool rotating over L layers for rows of ctx live tokens and
         q_span query positions: (operands, launch, plain version, launch
-        with a forced split, n_pos)."""
+        with a forced split, n_pos, L)."""
+        kvh, gqa, D = shape
         page = 256
         n_pages = -(-ctx // page)
-        nbytes = _attn_bytes(B, ctx, int8, q_span)
-        L = max(2, min(256, math.ceil(4 * L2_BYTES / nbytes)))
+        L = layers(B, ctx, int8, q_span, shape)
         k, v, ks, vs, table = _attn_pool(B, [ctx - q_span + 1] * B, page,
-                                         n_pages, q_span, dev, gen, int8, L=L)
+                                         n_pages, q_span, dev, gen, int8,
+                                         L=L, kvh=kvh, D=D)
         ln = torch.full((B,), ctx - q_span + 1, dtype=torch.int32,
                         device=dev)
-        q = torch.randn(B, KVH, q_span * GQA, HEAD_DIM, generator=gen,
-                        device=dev)
+        q = torch.randn(B, kvh, q_span * gqa, D, generator=gen, device=dev)
+        kw = dict(q_span=q_span, **knobs)
         if int8:
             run = lambda i: pa.paged_flash_decode_attention_i8(
-                q, k, v, ks, vs, table, i % L, ln, q_span=q_span)
+                q, k, v, ks, vs, table, i % L, ln, **kw)
             plain = lambda i: pa.paged_flash_decode_attention_i8_plain(
-                q, k, v, ks, vs, table, i % L, ln, q_span=q_span)
+                q, k, v, ks, vs, table, i % L, ln, **kw)
         else:
             run = lambda i: pa.paged_flash_decode_attention(
-                q, k, v, table, i % L, ln, q_span=q_span)
+                q, k, v, table, i % L, ln, **kw)
             plain = lambda i: pa.paged_flash_decode_attention_plain(
-                q, k, v, table, i % L, ln, q_span=q_span)
+                q, k, v, table, i % L, ln, **kw)
 
         def forced(split):
             return lambda i: at.launch_decode(
                 q, k[i % L], v[i % L], ln, page=page, n_pos=0,
-                scale=HEAD_DIM ** -0.5, softcap=None, window=None,
-                q_span=q_span, table=table,
+                scale=D ** -0.5, softcap=knobs.get("softcap"),
+                window=knobs.get("window"), q_span=q_span, table=table,
                 k_step=None if ks is None else ks[i % L],
                 v_step=None if vs is None else vs[i % L], split=split)
-        return (k, v, ks, vs, table, q), run, plain, forced, n_pages * page
+        return (k, v, ks, vs, table, q), run, plain, forced, n_pages * page, L
 
     def timed(name, fn):
         """(ms per launch, the (n_split, chunk, blocks) it launched)."""
@@ -1056,62 +1174,47 @@ def phase_attn_time(dev, gen, results):
         return ms, (FLASH_DECODE_I8 if "i8" in name else FLASH_DECODE
                     ).last_grid
 
-    def record(name, form, B, ctx, q_span, timing, pms, lib, L):
+    def record(name, form, B, ctx, q_span, timing, pms, lib, L, shape=llama,
+               out=rows, extra={}):
+        kvh, gqa, D = shape
         ms, (n_split, chunk, blocks) = timing
-        nbytes = _attn_bytes(B, ctx, "i8" in name, q_span)
-        flops = 4 * B * KVH * q_span * GQA * ctx * HEAD_DIM
+        nbytes = _attn_bytes(B, ctx, "i8" in name, q_span, *shape)
+        flops = 4 * B * kvh * q_span * gqa * ctx * D
         bms, by = bound(nbytes, flops, FP32_FLOP_PER_S)
-        row = dict(kernel=name, form=form, B=B, ctx=ctx, q_span=q_span,
-                   ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                   library_ms=lib, bytes=nbytes, layers_rotated=L,
-                   n_split=n_split, chunk=chunk, blocks=blocks,
-                   share_of_bound=bms / ms)
-        rows.append(row)
+        out.append(dict(kernel=name, form=form, B=B, ctx=ctx, q_span=q_span,
+                        **extra, ms=ms, plain_ms=pms, bound_ms=bms,
+                        bound_by=by, library_ms=lib, bytes=nbytes,
+                        layers_rotated=L, n_split=n_split, chunk=chunk,
+                        blocks=blocks, share_of_bound=bms / ms))
         libs = ("none" if lib is None else f"{lib * 1e3:8.2f} us" + (
-            " (contiguous keys)" if form == "paged" else ""))
-        log(f"  {name:15s} {form:5s} B={B} ctx={ctx:4d} rows={q_span * GQA:2d}"
-            f": {ms * 1e3:8.2f} us  bound {bms * 1e3:7.2f} us ({by}, "
-            f"{100 * bms / ms:5.1f}%)  split {n_split}x{chunk} "
-            f"{blocks} blocks  plain {pms * 1e3:8.1f} us  sdpa {libs}")
+            " (contiguous keys)" if form == "paged" or extra else ""))
+        log(f"  {name:15s} {'D=256 ' if extra else ''}{form:5s} B={B} "
+            f"ctx={ctx:4d} rows={q_span * gqa:2d}: {ms * 1e3:8.2f} us  bound "
+            f"{bms * 1e3:7.2f} us ({by}, {100 * bms / ms:5.1f}%)  split "
+            f"{n_split}x{chunk} {blocks} blocks  plain {pms * 1e3:8.1f} us  "
+            f"sdpa {libs}")
 
     for int8 in (False, True):
         name = "flash_decode_i8" if int8 else "flash_decode"
         for B in ATTN_BATCHES:
             for ctx in ATTN_TIMED_CTX:
-                nbytes = _attn_bytes(B, ctx, int8)
-                L = max(2, min(256, math.ceil(4 * L2_BYTES / nbytes)))
-                ln = torch.full((B,), ctx, dtype=torch.int32, device=dev)
-                q = torch.randn(B, KVH, GQA, HEAD_DIM, generator=gen,
-                                device=dev)
-                # slot: a cache of exactly ctx positions per layer
-                k, v, ks, vs = _attn_cache((L, B, KVH, ctx, HEAD_DIM), dev,
-                                           gen, int8)
-                if int8:
-                    slot = lambda i: at.flash_decode_attention_stacked_i8(
-                        q, k, v, ks, vs, i % L, ln)
-                    slot_plain = lambda i: (
-                        at.flash_decode_attention_stacked_i8_plain(
-                            q, k, v, ks, vs, i % L, ln))
-                else:
-                    slot = lambda i: at.flash_decode_attention_stacked(
-                        q, k, v, i % L, ln)
-                    slot_plain = lambda i: (
-                        at.flash_decode_attention_stacked_plain(
-                            q, k, v, i % L, ln))
+                held, slot, slot_plain, L = slot_case(B, ctx, int8)
                 t_slot = timed(name, slot)
                 plain_slot = device_ms(slot_plain, 20)
                 lib = None
                 if not int8:
+                    q, k, v = held
                     qs = q.to(torch.bfloat16).reshape(B, KVH * GQA, 1,
                                                       HEAD_DIM)
                     lib = device_ms(lambda i: F.scaled_dot_product_attention(
                         qs, k[i % L], v[i % L], enable_gqa=True), 200)
-                del k, v, ks, vs
+                del held, slot, slot_plain
                 record(name, "slot", B, ctx, 1, t_slot, plain_slot, lib, L)
                 # paged: page 256, each row's pages shuffled over the pool
-                held, run, plain, forced, n_pos = paged_case(B, ctx, int8, 1)
+                held, run, plain, forced, n_pos, L = paged_case(B, ctx, int8,
+                                                                1)
                 record(name, "paged", B, ctx, 1, timed(name, run),
-                       device_ms(plain, 20), lib, held[0].shape[0])
+                       device_ms(plain, 20), lib, L)
                 for chunk in ATTN_SWEEP_CHUNKS:
                     n = -(-n_pos // chunk)
                     if chunk > n_pos:
@@ -1125,15 +1228,80 @@ def phase_attn_time(dev, gen, results):
                     and r["ctx"] == ctx))
                 del held, run, plain, forced
                 torch.cuda.empty_cache()
-        # 32 query rows over the pool (speculative verify of 8 positions)
+        # 32 query rows over the pool (speculative verify of 8 positions);
+        # SDPA (for K3) with the verify window's causal mask
         for B in ATTN_BATCHES:
-            held, run, plain, _, _ = paged_case(B, 1900, int8, 8)
+            held, run, plain, _, _, L = paged_case(B, 1900, int8, 8)
+            lib = None if int8 else _sdpa_ms(B, 1900, 8, dev, gen)
             record(name, "paged", B, 1900, 8, timed(name, run),
-                   device_ms(plain, 20), None, held[0].shape[0])
+                   device_ms(plain, 20), lib, L)
             del held, run, plain
             torch.cuda.empty_cache()
+
+    # Gemma2-9B's shape
+    g2 = (G2_KVH, G2_GQA, G2_HEAD_DIM)
+    knobs = dict(softcap=G2_CAP, window=G2_WINDOW)
+    extra = dict(head_dim=G2_HEAD_DIM, kvh=G2_KVH, gqa=G2_GQA, **knobs)
+    B, ctx = G2_TIMED_B, G2_TIMED_CTX
+    lib = {qs: _sdpa_ms(B, ctx, qs, dev, gen, *g2, window=G2_WINDOW)
+           for qs in (1, 16)}
+    for int8 in (False, True):
+        name = "flash_decode_i8" if int8 else "flash_decode"
+        held, run, plain, L = slot_case(B, ctx, int8, g2, knobs)
+        record(name, "slot", B, ctx, 1, timed(name, run),
+               device_ms(plain, 20), lib[1], L, g2, rows_d256, extra)
+        del held, run, plain
+        for q_span in (1, 16):
+            held, run, plain, forced, n_pos, L = paged_case(
+                B, ctx, int8, q_span, g2, knobs)
+            record(name, "paged", B, ctx, q_span, timed(name, run),
+                   device_ms(plain, 20), lib[q_span], L, g2, rows_d256, extra)
+            for chunk in ATTN_SWEEP_CHUNKS:
+                if chunk <= n_pos:
+                    n = -(-n_pos // chunk)
+                    sweep_d256.append(dict(
+                        kernel=name, q_span=q_span, n_split=n, chunk=chunk,
+                        ms=device_ms(forced((n, chunk)), 200)))
+            log(f"  {name:15s} D=256 sweep q_span={q_span:2d}: " + ", ".join(
+                f"{r['n_split']}x{r['chunk']} {r['ms'] * 1e3:.2f} us"
+                for r in sweep_d256 if r["kernel"] == name
+                and r["q_span"] == q_span))
+            del held, run, plain, forced
+        torch.cuda.empty_cache()
     results["attn_time"] = rows
     results["attn_sweep"] = sweep
+    results["attn_time_d256"] = rows_d256
+    results["attn_sweep_d256"] = sweep_d256
+
+
+# decode attention at Gemma2-9B: 8 kv heads, 2 query heads each, head_dim
+# 256, softcap 50, the 4096-position window of the even layers (the odd
+# layers' 2**30 is global)
+G2_KVH, G2_GQA, G2_HEAD_DIM = 8, 2, 256
+G2_WINDOW, G2_CAP = 4096, 50.0
+# 17 pages of 256 a row: the attention checks' caches, the long
+# generate's cache and the engine's max_seq, past the window
+G2_SEQ = 4352
+G2_ATTN_LENS = {1: (4300,), 4: (1, 1900, 4097, 4300)}
+G2_ATTN_KNOBS = ((None, None), (G2_WINDOW, G2_CAP), (2 ** 30, G2_CAP))
+G2_Q_SPANS = (1, 4, 16)        # 16 positions: 32 query rows at G = 2
+G2_TIMED_B, G2_TIMED_CTX = 4, 1900
+
+
+def phase_attn_gemma2(dev, gen, results):
+    """K3 and K4 at Gemma2-9B's attention shapes (KVH 8, G 2, D 256)
+    against their plain versions (:func:`_attn_check_cases`): the slot
+    cache of 4352 positions and the paged pool (page 256, 17 pages a
+    row), q_span 1, 4 and 16 (32 query rows in four groups), B 1 and 4
+    with lengths up to 4300, past the 4096 window; no window or softcap,
+    the even layers' window 4096 with softcap 50, and the odd layers'
+    2**30 with softcap 50. Tolerance 1e-5 * max|out|, as at head_dim
+    128."""
+    results["attn_err_d256"], results["attn_splits_d256"] = (
+        _attn_check_cases(dev, gen, kvh=G2_KVH, gqa=G2_GQA, D=G2_HEAD_DIM,
+                          S=G2_SEQ, batches=G2_ATTN_LENS.items(),
+                          knobs=G2_ATTN_KNOBS, pages=(256,),
+                          q_spans=G2_Q_SPANS, pps=(2,), tag=" at D=256"))
 
 
 def phase_model(dev, results):
@@ -2521,15 +2689,16 @@ def _tile_sweep(dev, gen):
     return out
 
 
-def _generate_runs(gen, params, ids, cfg, serve, dev, kernels, want, what):
-    """Greedy generates (a warm-up and TIMED_RUNS timed) that must launch each
-    of ``kernels`` exactly ``want`` times and give the same tokens every
-    time. Returns (tokens, times in s)."""
+def _generate_runs(gen, params, ids, cfg, serve, dev, kernels, want, what,
+                   runs=TIMED_RUNS + 1):
+    """Greedy generates (a warm-up, then ``runs - 1`` timed) that must
+    launch each of ``kernels`` exactly ``want`` times and give the same
+    tokens every time. Returns (tokens, times in s)."""
     from quantizations_tpu_torch.models.llama import KVCache
 
     times, first = [], None
     B = ids.shape[0]
-    for it in range(TIMED_RUNS + 1):
+    for it in range(runs):
         cache = KVCache.create(cfg, B, serve.max_seq_len, dev)
         before = [k.launches for k in kernels]
         start = torch.cuda.Event(enable_timing=True)
@@ -2831,14 +3000,17 @@ def _generate_k1(B, prompt, new, layers, proj=4):
     return _k1_forwards([(1, B * prompt, B), (new - 1, B, B)], layers, proj)
 
 
-def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
+def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1,
+                 max_seq=2048, prefix_req=7):
     """One ``PagedEngine`` run over ``prompts`` (the paged phase's
-    configuration) with a ``kv`` pool, driven by ``step`` or, with
-    ``spec_k``, by ``step_spec`` (``step_spec_multi`` with
-    ``steps_per_dispatch`` > 1). Counts are zeroed just before the run and
-    read just after it. Returns the run's record: wall time split into
-    admission and decode, steps, admission group sizes, the rows of every
-    admission forward, launches, stats and tokens."""
+    configuration, ``max_seq`` positions a sequence) with a ``kv`` pool,
+    driven by ``step`` or, with ``spec_k``, by ``step_spec``
+    (``step_spec_multi`` with ``steps_per_dispatch`` > 1); request
+    ``prefix_req`` must hit the prefix cache for two pages. Counts are
+    zeroed just before the run and read just after it. Returns the run's
+    record: wall time split into admission and decode, steps, admission
+    group sizes, the rows of every admission forward, launches, stats and
+    tokens."""
     from quantizations_tpu_torch.models.llama import prefill_pair_enabled
     from quantizations_tpu_torch.nn.linear import pair_max_tokens
     from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
@@ -2849,7 +3021,7 @@ def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
     from quantizations_tpu_torch.serve.paged import PagedEngine
 
     cfg = dataclasses.replace(base, kv_cache_dtype=kv)
-    eng = PagedEngine(params, cfg, slots=4, max_seq=2048,
+    eng = PagedEngine(params, cfg, slots=4, max_seq=max_seq,
                       prefill_buckets=(64, 256), admit_width=4,
                       prefix_cache=True, num_pages=40)
     if eng.page_size != 256:
@@ -2953,9 +3125,9 @@ def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1):
     if (st["pages_free"] != usable - st["prefix_cache_pages"]
             or st["live_tokens"] != 0 or st["finished"] != len(prompts)):
         raise AssertionError(f"pool not returned: {st}")
-    if spent["hits"].get(uids[-1], 0) != 512:
-        raise AssertionError(f"the eighth request hit "
-                             f"{spent['hits'].get(uids[-1])} prefix "
+    if spent["hits"].get(uids[prefix_req], 0) != 512:
+        raise AssertionError(f"request {prefix_req} hit "
+                             f"{spent['hits'].get(uids[prefix_req])} prefix "
                              "positions, expected 512")
     new = PAGED_NEW * len(prompts)
     run = dict(kv_cache_dtype=kv, spec_k=spec_k,
@@ -3357,6 +3529,572 @@ def phase_spec(dev, params, results):
                       plain_agree=agree, tokens=first.tolist()))
     results["launches_spec"] = paged[0]["launches"]
     results["launches_spec_int8"] = paged[3]["launches"]
+
+
+# -- the gemma2 phase ---------------------------------------------------------
+
+G2_NEW = 60
+G2_BATCHES = (1, 4, 8)
+G2_LONG_PROMPT = 4200          # past the 4096 window of the even layers
+# K1 at one row count per body: CUDA-core (1), split-K (8, 64), tensor-core
+# (256)
+G2_K1_TOKENS = (1, 8, 64, 256)
+# K8 at the paged arm's admission rows (256 and 1024) and one 512-row
+# launch
+G2_K8_TOKENS = (256, 512, 1024)
+# max|flash - einsum| / max|einsum| of one decode step's logits after the
+# same prefix and cache (B = 4; K3 on a bf16 cache, K4 on an int8 one):
+# the planar phase's layout bound. The einsum arm rounds q and the
+# probabilities to bf16 and the flash arm does not; random deep models
+# amplify that (32 Llama3-8B layers moved them 0.049, PERF.md). A planted
+# fault (the newest position dropped) must land above the bound. The
+# per-shape checks (1e-5) hold the kernels.
+G2_LOGIT_BOUND = 0.25
+# the same weights cut to these depths for the logit gap's reading
+G2_LOGIT_DEPTHS = (2, 8)
+G2_ARMS = (("einsum", {}), ("flash", dict(use_flash_attention=True)),
+           ("flash+int8", dict(use_flash_attention=True,
+                               kv_cache_dtype="int8")))
+
+
+def _g2_shapes(cfg):
+    """Gemma2-9B's K1 shapes (fused q|k|v and gate|up, the tied lm_head)
+    and its K2 launches a build by weight shape: q, k and v, o, gate and
+    up, down a layer, then the embedding and the lm_head (drawn, then
+    replaced by the embedding it is tied to)."""
+    h, qs, kvs, inter = (cfg.hidden_size, cfg.q_size, cfg.kv_size,
+                         cfg.intermediate_size)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    k1 = (("qkv", qs + 2 * kvs, h), ("o", h, qs), ("gate_up", 2 * inter, h),
+          ("down", h, inter), ("lm_head", V, h))
+    k2 = {}
+    for shape, n in (((qs, h), L), ((kvs, h), 2 * L), ((h, qs), L),
+                     ((inter, h), 2 * L), ((h, inter), L), ((V, h), 2)):
+        k2[shape] = k2.get(shape, 0) + n
+    return k1, k2
+
+
+def _g2_kernel_checks(cfg, dev, gen):
+    """K2 bit-exact (FP4, fp32 in, the special blocks) at each weight
+    shape of the build; then at each of the five K1 shapes, on layer 1 of
+    a stack of two with the build's fp32 scales: K1 through the stacked
+    dispatch at T = 1, 8, 64 and 256 (each body) within 1e-5 * max|y| of
+    the plain version of the body that ``pair_body`` names, K8 through
+    ``pair_prefill_matmul`` (the paged arm's call: 512-row launches) at
+    its admission rows 256, 512 and 1024 within 1e-5 * max|y| of its
+    plain version, each launched twice with the same bits, and K10 to
+    bf16 and to fp32 bit-exact against its plain version."""
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+                                             PAIR_PREFILL,
+                                             dequantize_4bit_pair,
+                                             dequantize_4bit_pair_plain,
+                                             matmul_4bit_pair_stacked,
+                                             pair_body,
+                                             quantize_4bit_kernel,
+                                             quantize_4bit_kernel_plain)
+    from quantizations_tpu_torch.ops.qmatmul import (
+        PREFILL_PAIR_CHUNK_T, pair_prefill_matmul)
+
+    k1_shapes, k2_shapes = _g2_shapes(cfg)
+    special = torch.from_numpy(k2_special_blocks()).to(dev)
+    for (M, K), n in k2_shapes.items():
+        W = torch.randn(M, K, generator=gen, device=dev) * 0.02
+        W.view(-1, 64)[:special.shape[0]] = special
+        wp, am = quantize_4bit_kernel(W, 64, "fp4")
+        wpp, amp = quantize_4bit_kernel_plain(W, 64, "fp4")
+        torch.cuda.synchronize()
+        if not (torch.equal(wp, wpp) and nan_equal(am, amp)):
+            raise AssertionError(f"Gemma2 K2 [{M}, {K}]: differs from its "
+                                 "plain version")
+        del W, wp, am, wpp, amp
+        torch.cuda.empty_cache()
+    log(f"  K2 bit-exact at the build's {len(k2_shapes)} weight shapes ("
+        + ", ".join(f"[{M}, {K}] x{n}" for (M, K), n in k2_shapes.items())
+        + f"; {sum(k2_shapes.values())} launches a build)")
+    fns = dict(_k1_body_fns())
+    worst = {b: 0.0 for b in K1_BODIES}
+    k8 = dict(max_abs_err=0.0, max_err_over_max_y=0.0, worst_case=None,
+              cases=0)
+    k10 = 0
+    for name, M, K in k1_shapes:
+        wp2, scales = _pair_operands(M, K, 2, dev, gen)
+        x = torch.randn(max(G2_K8_TOKENS), K, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        # K8's plain version is also the split-K and tensor-core bodies'
+        plains = {fns["splitk"][1]: fns["splitk"][1](wp2[1], scales[1], x,
+                                                     "fp4")}
+        for T in G2_K1_TOKENS:
+            body = pair_body(T)
+            plain = fns[body][1]
+            if plain not in plains:
+                plains[plain] = plain(wp2[1], scales[1],
+                                      x[:max(G2_K1_TOKENS)], "fp4")
+            ref = plains[plain][:T]
+            y = matmul_4bit_pair_stacked(wp2, scales, x[:T], 1, "fp4")
+            again = matmul_4bit_pair_stacked(wp2, scales, x[:T], 1, "fp4")
+            torch.cuda.synchronize()
+            if y.shape != (T, M) or not torch.isfinite(y).all():
+                raise AssertionError(f"Gemma2 K1 {name} T={T}: bad output")
+            rel = (y - ref).abs().max().item() / ref.abs().max().item()
+            if not rel <= 1e-5:
+                raise AssertionError(f"Gemma2 K1 {name} [{M}, {K}] T={T} "
+                                     f"({body}): {rel:.3e} of max|y| > 1e-5")
+            if not torch.equal(y.view(torch.int32), again.view(torch.int32)):
+                raise AssertionError(f"Gemma2 K1 {name} T={T}: two launches "
+                                     "differ")
+            worst[body] = max(worst[body], rel)
+        ref8 = plains[fns["splitk"][1]]
+        for T in G2_K8_TOKENS:
+            before = PAIR_PREFILL.launches
+            y = pair_prefill_matmul(wp2, scales, x[:T], "fp4", layer_idx=1)
+            again = pair_prefill_matmul(wp2, scales, x[:T], "fp4",
+                                        layer_idx=1)
+            torch.cuda.synchronize()
+            what = f"Gemma2 K8 {name} [{M}, {K}] T={T}"
+            if PAIR_PREFILL.launches != before + 2 * math.ceil(
+                    T / PREFILL_PAIR_CHUNK_T):
+                raise AssertionError(f"{what}: launched "
+                                     f"{PAIR_PREFILL.launches - before} times")
+            if y.shape != (T, M) or not torch.isfinite(y).all():
+                raise AssertionError(f"{what}: bad output")
+            _gate(k8, what, y, ref8[:T], 1e-5)
+            if not torch.equal(y.view(torch.int32), again.view(torch.int32)):
+                raise AssertionError(f"{what}: two launches differ")
+            k8["cases"] += 1
+        del plains, ref8, y, again
+        for dt in (torch.bfloat16, torch.float32):
+            before = DEQUANTIZE_4BIT_PAIR.launches
+            got = dequantize_4bit_pair(wp2, scales, "fp4", dt, layer_idx=1)
+            ref = dequantize_4bit_pair_plain(wp2, scales, "fp4", dt, 1)
+            torch.cuda.synchronize()
+            what = f"Gemma2 K10 {name} [{M}, {K}] -> {dt}"
+            if DEQUANTIZE_4BIT_PAIR.launches != before + 1:
+                raise AssertionError(f"{what}: not launched once")
+            if got.shape != (M, K) or not torch.equal(
+                    got.view(torch.uint8), ref.view(torch.uint8)):
+                raise AssertionError(f"{what}: not bit-exact with its plain "
+                                     "version")
+            k10 += 1
+            del got, ref
+        del wp2, scales, x
+        torch.cuda.empty_cache()
+    names = ", ".join(f"{n} [{M}, {K}]" for n, M, K in k1_shapes)
+    log(f"  K1 at Gemma2's shapes ({names}), T = {G2_K1_TOKENS}: worst "
+        "max|err| / max|y| by body "
+        + ", ".join(f"{b} {w:.3e}" for b, w in worst.items())
+        + "; the same bits twice")
+    log(f"  K8 at the same shapes, T = {G2_K8_TOKENS}: {k8['cases']} cases "
+        f"within 1e-5, worst {k8['max_err_over_max_y']:.3e} of max|y| "
+        f"({k8['worst_case']}), the same bits twice; K10 {k10} cases "
+        "bit-exact (bf16 and fp32 out)")
+    return dict(k2_shapes=[dict(M=M, K=K, launches_per_build=n)
+                           for (M, K), n in k2_shapes.items()],
+                k1_shapes=[dict(shape=n, M=M, K=K) for n, M, K in k1_shapes],
+                k1_max_err_over_max_y=worst, pair_prefill=k8,
+                dequantize_4bit_pair_cases=k10)
+
+
+def _g2_generates(params, cfg, dev):
+    """The slot generate at B = 1, 4 and 8 on each arm: 60 new tokens
+    after a 16-token prompt, run twice (the same tokens; the second run
+    timed), K1 exactly as ``_generate_k1`` reckons by body, K3 or K4
+    exactly 59 x 42 times a flash generate and never on the einsum arm,
+    K10 never."""
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+                                             FLASH_DECODE, FLASH_DECODE_I8,
+                                             PAIR_MATMUL, PAIR_MATMUL_MMA,
+                                             PAIR_MATMUL_SPLITK)
+    from quantizations_tpu_torch.serve.generate import make_generate_fn
+
+    serve = ServeConfig(max_seq_len=128, max_new_tokens=G2_NEW)
+    L = cfg.num_hidden_layers
+    recs = (PAIR_MATMUL, PAIR_MATMUL_SPLITK, PAIR_MATMUL_MMA, FLASH_DECODE,
+            FLASH_DECODE_I8, DEQUANTIZE_4BIT_PAIR)
+    ids = ((torch.arange(PROMPT_LEN, device=dev) * 7 + 11) % cfg.vocab_size
+           ).to(torch.int32)[None, :]
+    runs = []
+    for arm, knobs in G2_ARMS:
+        c = dataclasses.replace(cfg, **knobs)
+        fn = make_generate_fn(c, serve)
+        attn = (FLASH_DECODE_I8 if knobs.get("kv_cache_dtype") else
+                FLASH_DECODE if knobs else None)
+        for B in G2_BATCHES:
+            want = dict(_generate_k1(B, PROMPT_LEN, G2_NEW, L))
+            want.update(flash_decode=0, flash_decode_i8=0,
+                        dequantize_4bit_pair=0)
+            if attn is not None:
+                want[attn.name] = (G2_NEW - 1) * L
+            toks, times = _generate_runs(
+                fn, params, ids.repeat(B, 1), c, serve, dev, recs,
+                [want[k.name] for k in recs], f"Gemma2 {arm} B={B}", runs=2)
+            tps = G2_NEW * B / times[-1]
+            runs.append(dict(attention=arm, batch=B, tok_per_s=tps,
+                             generate_s=times[-1], generate_s_all=times,
+                             launches_per_generate=want,
+                             tokens=toks.tolist()))
+            log(f"  Gemma2-9B {arm} B={B}: {tps:.2f} tok/s ({times[-1]:.4f} "
+                f"s a generate, the second of 2 runs; the same tokens "
+                f"twice); K1 {want['pair_matmul']} launches "
+                f"({want['pair_matmul_splitk']} split-K, "
+                f"{want['pair_matmul_mma']} tensor-core)"
+                + ("" if attn is None else f", {attn.name} "
+                   f"{want[attn.name]}"))
+    by = {(r["attention"], r["batch"]): r["tokens"] for r in runs}
+    for B in G2_BATCHES:
+        log(f"  B={B}: flash agrees with einsum on "
+            f"{_agree(by[('flash', B)], by[('einsum', B)])}, flash+int8 on "
+            f"{_agree(by[('flash+int8', B)], by[('einsum', B)])} of "
+            f"{B * G2_NEW} tokens")
+    return runs
+
+
+@contextlib.contextmanager
+def _g2_flash_as(kind, errs=None):
+    """The model's K3/K4 calls (``models/llama.py``'s module globals) for
+    the span of a ``with``. ``kind``: None, as they are; ``"tee"``, the
+    kernel, with the plain version run on the same inputs and each call's
+    max|kernel - plain| / max|plain| appended to ``errs``; ``"plain"``,
+    the fp32 plain versions (the flash arm's function with q and the
+    probabilities in fp32, which the einsum arm rounds to bf16);
+    ``"jitter"``, the plain versions plus 1e-6 * max|out| of seeded
+    normal noise (a kernel as exact as K3/K4 per call, in another fp32
+    order); or a planted fault in K3/K4's arguments: ``"newest"`` the
+    newest position dropped (lengths - 1), ``"softcap"`` the softcap
+    dropped, ``"window"`` the window dropped."""
+    from quantizations_tpu_torch.models import llama as lm
+    from quantizations_tpu_torch.ops import attention as at
+
+    names = ("flash_decode_attention_stacked",
+             "flash_decode_attention_stacked_i8")
+    saved = {n: getattr(lm, n) for n in names}
+    noise = {}
+
+    def wrap(n):
+        real, plain = saved[n], getattr(at, n + "_plain")
+
+        def call(*args, **kw):
+            if kind == "tee":
+                out, ref = real(*args, **kw), plain(*args, **kw)
+                errs.append(((out - ref).abs().max()
+                             / ref.abs().max()).item())
+                return out
+            if kind == "jitter":
+                out = plain(*args, **kw)
+                if out.device not in noise:
+                    noise[out.device] = torch.Generator(
+                        device=out.device).manual_seed(6)
+                return out + 1e-6 * out.abs().max() * torch.randn(
+                    out.shape, generator=noise[out.device],
+                    device=out.device)
+            args = list(args)
+            if kind == "newest":
+                args[-1] = args[-1] - 1
+            else:
+                kw[kind] = None
+            return real(*args, **kw)
+        return call
+
+    for n in names:
+        if kind == "plain":
+            setattr(lm, n, getattr(at, n + "_plain"))
+        elif kind is not None:
+            setattr(lm, n, wrap(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(lm, n, f)
+
+
+def _g2_gap(got, ref):
+    """max|got - ref| / max|ref| of two logit blocks."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+def _g2_decode_arms(params, cfg, ids, dev, arms, max_seq=128):
+    """One decode step's logits after the same prefill of ``ids[:, :-1]``,
+    on each arm of ``arms`` ((name, use_flash_attention, _g2_flash_as
+    kind)): the prefill once (its attention is the einsum path's on every
+    arm), each arm's step rewriting the same position of every layer
+    before it attends to it. Returns the logits by arm and the "tee"
+    arms' per-call errors."""
+    from quantizations_tpu_torch.models.llama import (KVCache, decode_step,
+                                                      prefill)
+
+    P = ids.shape[1] - 1
+    cache = KVCache.create(cfg, ids.shape[0], max_seq, dev)
+    out, errs = {}, []
+    with torch.inference_mode():
+        prefill(params, ids[:, :P], cache, cfg, last_token_only=True)
+        for name, flash, kind in arms:
+            c = dataclasses.replace(cfg, use_flash_attention=flash)
+            with _g2_flash_as(kind, errs):
+                out[name], _ = decode_step(params, ids[:, P:], cache, P, c)
+    del cache
+    return out, errs
+
+
+def _g2_per_call(what, errs, n_layers):
+    """K3/K4 in the model's own decode step: one call a layer, each
+    within 1e-5 * max|out| of its plain version on the same inputs."""
+    if len(errs) != n_layers or not max(errs) <= 1e-5:
+        raise AssertionError(f"Gemma2 {what}: K3/K4 in the model, "
+                             f"{len(errs)} calls, worst {max(errs):.3e} of "
+                             "max|out| from the plain version")
+    return max(errs)
+
+
+def _g2_logit_check(params, cfg, dev):
+    """One B = 4 decode step after the same 16-token prefill: flash (K3)
+    against the einsum path on a bf16 cache, flash (K4) against einsum on
+    an int8 cache, each within G2_LOGIT_BOUND * max|logit|; the einsum
+    path's top-2 margin printed beside them. In that step each K3/K4 call
+    within 1e-5 * max|out| of its plain version on the same inputs.
+    Beside them, read with no gate, on the same weights cut to each of
+    G2_LOGIT_DEPTHS layers and at full depth: each arm against the flash
+    arm's fp32 plain version (the einsum arm's function with q and the
+    probabilities in fp32), and that plain version with 1e-6 * max|out|
+    of noise a call against itself. Then planted faults in K3's arguments
+    at full depth on the bf16 cache: the newest position dropped must
+    land above G2_LOGIT_BOUND (the bound sees it); the softcap dropped is
+    read. Last, past the window: B = 1 after G2_LONG_PROMPT tokens, each
+    arm and K3 with the window dropped against einsum (read)."""
+    from quantizations_tpu_torch.models.llama import map_tensors
+
+    ids = torch.randint(1, cfg.vocab_size, (4, PROMPT_LEN + 1),
+                        generator=torch.Generator().manual_seed(3)).to(
+                            torch.int32).to(dev)
+    L = cfg.num_hidden_layers
+    arms = (("einsum", False, None), ("flash", True, "tee"),
+            ("plain", True, "plain"), ("jitter", True, "jitter"))
+
+    def gaps(out):
+        return dict(flash_vs_einsum=_g2_gap(out["flash"], out["einsum"]),
+                    plain_vs_einsum=_g2_gap(out["plain"], out["einsum"]),
+                    flash_vs_plain=_g2_gap(out["flash"], out["plain"]),
+                    jitter_vs_plain=_g2_gap(out["jitter"], out["plain"]))
+
+    res = dict(depth={})
+    for depth in [d for d in G2_LOGIT_DEPTHS if d < L] + [L]:
+        p = params if depth == L else dataclasses.replace(
+            params, layers=map_tensors(lambda t: t[:depth], params.layers))
+        for kv in ("bf16", "int8"):
+            c = dataclasses.replace(cfg, num_hidden_layers=depth,
+                                    kv_cache_dtype=kv)
+            faults = (("newest", True, "newest"),
+                      ("softcap", True, "softcap")) if (
+                          depth == L and kv == "bf16") else ()
+            out, errs = _g2_decode_arms(p, c, ids, dev, arms + faults)
+            row = gaps(out)
+            row["per_call"] = _g2_per_call(f"{depth} layers {kv}", errs,
+                                           depth)
+            log(f"  B=4 decode logits at {depth} layers, {kv} cache: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in row.items())
+                + " of max|logit| (per_call: K3/K4 against the plain "
+                "version, of max|out|)")
+            res["depth"][f"{depth} {kv}"] = row
+            if depth < L:
+                continue
+            ref = out["einsum"].float()
+            top2 = ref.topk(2, dim=-1).values
+            margin = ((top2[:, 0] - top2[:, 1])
+                      / ref.abs().amax(-1)).min().item()
+            rel = row["flash_vs_einsum"]
+            top1 = (out["flash"].argmax(-1) == ref.argmax(-1)).float().mean()
+            res[kv] = dict(max_diff_over_max=rel, top1=top1.item(),
+                           min_top2_margin_over_max=margin,
+                           max_abs_logit=ref.abs().max().item())
+            log(f"  B=4 decode logits, {'K4' if kv == 'int8' else 'K3'} "
+                f"against einsum on the {kv} cache: {rel:.3e} of max|logit| "
+                f"({ref.abs().max().item():.3f}; bound {G2_LOGIT_BOUND}), "
+                f"top-1 agreement {top1.item():.3f}, einsum's smallest top-2 "
+                f"margin {margin:.3e}")
+            if not rel <= G2_LOGIT_BOUND:
+                raise AssertionError(f"Gemma2 {kv}: flash decode logits "
+                                     f"{rel:.3e} of max|logit| from einsum's")
+            if faults:
+                res["faults"] = {n: _g2_gap(out[n], out["einsum"])
+                                 for n, _, _ in faults}
+                log("  planted faults in K3's arguments, against einsum: "
+                    + ", ".join(f"{n} {v:.3e}"
+                                for n, v in res["faults"].items())
+                    + f" of max|logit| (bound {G2_LOGIT_BOUND})")
+                if not res["faults"]["newest"] > G2_LOGIT_BOUND:
+                    raise AssertionError(
+                        "Gemma2: dropping the newest position moved the "
+                        f"logits {res['faults']['newest']:.3e} of max|logit|"
+                        f", inside the bound {G2_LOGIT_BOUND}")
+            del out
+    ids = torch.randint(1, cfg.vocab_size, (1, G2_LONG_PROMPT + 1),
+                        generator=torch.Generator().manual_seed(4)).to(
+                            torch.int32).to(dev)
+    out, errs = _g2_decode_arms(params, cfg, ids, dev, arms + (
+        ("window", True, "window"),), max_seq=G2_SEQ)
+    res["long"] = gaps(out)
+    res["long"]["window_vs_einsum"] = _g2_gap(out["window"], out["einsum"])
+    res["long"]["per_call"] = _g2_per_call("long", errs, L)
+    log(f"  B=1 decode logits after {G2_LONG_PROMPT} tokens: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in res["long"].items())
+        + " of max|logit| (window: K3 with the window planted away)")
+    return res
+
+
+def _g2_long(params, cfg, dev):
+    """B = 1 after a 4,200-token prompt (past the even layers' 4096
+    window), 60 new tokens, on einsum and on flash (K3), each twice (the
+    same tokens): the prefill through the dense band (K10 exactly 4 x 42,
+    K1 only on its one lm_head row), every decode step as the generates'."""
+    from quantizations_tpu_torch.config import ServeConfig
+    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+                                             FLASH_DECODE, FLASH_DECODE_I8,
+                                             PAIR_MATMUL, PAIR_MATMUL_MMA,
+                                             PAIR_MATMUL_SPLITK)
+    from quantizations_tpu_torch.serve.generate import make_generate_fn
+
+    serve = ServeConfig(max_seq_len=G2_SEQ, max_new_tokens=G2_NEW)
+    L = cfg.num_hidden_layers
+    ids = torch.randint(1, cfg.vocab_size, (1, G2_LONG_PROMPT),
+                        generator=torch.Generator().manual_seed(4)).to(
+                            torch.int32).to(dev)
+    recs = (PAIR_MATMUL, PAIR_MATMUL_SPLITK, PAIR_MATMUL_MMA, FLASH_DECODE,
+            FLASH_DECODE_I8, DEQUANTIZE_4BIT_PAIR)
+    out = {}
+    for arm, knobs in G2_ARMS[:2]:
+        c = dataclasses.replace(cfg, **knobs)
+        want = dict(_generate_k1(1, G2_LONG_PROMPT, G2_NEW, L))
+        want.update(flash_decode=(G2_NEW - 1) * L if knobs else 0,
+                    flash_decode_i8=0, dequantize_4bit_pair=4 * L)
+        toks, times = _generate_runs(
+            make_generate_fn(c, serve), params, ids, c, serve, dev, recs,
+            [want[k.name] for k in recs], f"Gemma2 {arm} long", runs=2)
+        out[arm] = dict(tok_per_s=G2_NEW / times[-1], generate_s=times[-1],
+                        generate_s_all=times, launches_per_generate=want,
+                        tokens=toks.tolist())
+        log(f"  Gemma2-9B {arm} B=1 after {G2_LONG_PROMPT} tokens: "
+            f"{G2_NEW / times[-1]:.2f} tok/s ({times[-1]:.3f} s a generate, "
+            f"the prefill's 4 x {L} K10 launches and the window masking "
+            f"positions 0..{G2_LONG_PROMPT - G2_WINDOW} of the even layers "
+            "from the first step); the same tokens twice")
+    out["flash_agree"] = _agree(out["flash"]["tokens"],
+                                out["einsum"]["tokens"])
+    log(f"  after {G2_LONG_PROMPT} tokens flash agrees with einsum on "
+        f"{out['flash_agree']} of {G2_NEW} tokens")
+    return out
+
+
+def _g2_paged(params, cfg):
+    """``PagedEngine`` with the paged cell's settings (4 slots, page 256,
+    40 pages, prefill_buckets (64, 256), the prefix cache) under
+    ``QT_PREFILL_PAIR=1``, max_seq 4352: the paged phase's 8 requests and
+    a ninth of 4,200 tokens, 32 new tokens each, through ``step`` and
+    ``step_spec(16)`` (32 query rows a kv head), on a bf16 and an int8
+    pool, each run twice on fresh engines (the same tokens). Counts as
+    ``_serve_paged`` holds them (K3/K4 42 a forward), and K8 168 x
+    ceil(rows / 512) a forward above the K1 band."""
+    from quantizations_tpu_torch.nn.linear import pair_max_tokens
+
+    g = torch.Generator().manual_seed(5)
+    prompts = _paged_prompts(cfg.vocab_size) + [torch.randint(
+        1, cfg.vocab_size, (G2_LONG_PROMPT,), generator=g).tolist()]
+    proj = 4 * cfg.num_hidden_layers
+    runs = []
+    with _prefill_pair_knob():
+        for kv in ("bf16", "int8"):
+            for spec_k in (0, 16):
+                pair = [_serve_paged(params, cfg, prompts, kv, spec_k=spec_k,
+                                     max_seq=G2_SEQ, prefix_req=7)
+                        for _ in range(2)]
+                if pair[1]["tokens"] != pair[0]["tokens"]:
+                    raise AssertionError(f"Gemma2 paged {kv} spec_k={spec_k}"
+                                         ": a fresh engine gave other tokens")
+                for r in pair:
+                    want = sum(proj * math.ceil(n / 512)
+                               for n in r["admission_rows"]
+                               if n > pair_max_tokens() and n % 8 == 0)
+                    if r["launches"]["pair_prefill"] != want:
+                        raise AssertionError(
+                            f"Gemma2 paged: K8 launched "
+                            f"{r['launches']['pair_prefill']} times, expected "
+                            f"{want} (admission rows {r['admission_rows']})")
+                runs += pair
+    plain = {r["kv_cache_dtype"]: r for r in runs if not r["spec_k"]}
+    for r in runs:
+        if r["spec_k"]:
+            r["plain_agree"] = _agree(r["tokens"],
+                                      plain[r["kv_cache_dtype"]]["tokens"])
+    log(f"  int8 pool agrees with the bf16 pool on "
+        f"{_agree(plain['int8']['tokens'], plain['bf16']['tokens'])} of "
+        f"{PAGED_NEW * len(prompts)} tokens; spec_k=16 agrees with its "
+        "plain run on " + ", ".join(
+            f"{r['kv_cache_dtype']} {r['plain_agree']}" for r in runs
+            if r["spec_k"]))
+    return runs
+
+
+def phase_gemma2(dev, gen, results):
+    """Gemma2-9B at full width and depth (42 layers, hidden 3584, 16 query
+    and 8 kv heads of 256, GeGLU, sandwich norms, softcaps 50 and 30, the
+    4096 window on the even layers), FP4, random normal weights (scale
+    0.02, seed 0), the 4-bit embedding tied to the lm_head, fused q|k|v
+    and gate|up, greedy: K2 and K1 at its shapes; the build (exactly 296
+    K2 launches); the slot generate on three arms; one decode step's
+    flash logits against einsum's; a generate past the window; the
+    ``PagedEngine`` with plain and speculative steps on both pools. Peak
+    memory printed."""
+    from quantizations_tpu_torch.config import QuantConfig
+    from quantizations_tpu_torch.models.llama import (GEMMA2_9B,
+                                                      fuse_projections,
+                                                      init_llama_params,
+                                                      named_tensors)
+    from quantizations_tpu_torch.ops import KERNELS, QUANTIZE_4BIT
+
+    cfg = dataclasses.replace(GEMMA2_9B, quant=QuantConfig(
+        quantize_embedding=True))
+    rec = dict(checks=_g2_kernel_checks(cfg, dev, gen))
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = fuse_projections(init_llama_params(cfg, seed=0, device=dev))
+    params = dataclasses.replace(params, lm_head=params.embed)
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    want_k2 = sum(_g2_shapes(cfg)[1].values())
+    if QUANTIZE_4BIT.launches != want_k2:
+        raise AssertionError(f"Gemma2 build: K2 launched "
+                             f"{QUANTIZE_4BIT.launches} times, expected "
+                             f"{want_k2}")
+    wbytes = sum(t.numel() * t.element_size()
+                 for n, t in named_tensors(params)
+                 if not n.startswith("lm_head"))
+    rec["weights_gb"] = wbytes / 1e9
+    log(f"  Gemma2-9B ({cfg.num_hidden_layers} layers) built in "
+        f"{rec['build_s']:.2f} s, {wbytes / 1e9:.3f} GB of weights (the "
+        f"lm_head the embedding's), {want_k2} K2 launches")
+    rec["generate"] = _g2_generates(params, cfg, dev)
+    rec["decode_logits"] = _g2_logit_check(params, cfg, dev)
+    rec["long"] = _g2_long(params, cfg, dev)
+    totals = {k.name: k.launches for k in KERNELS}
+    rec["paged"] = _g2_paged(params, cfg)
+    for r in rec["paged"]:
+        for n, v in r["launches"].items():
+            totals[n] += v
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for n in ("quantize_4bit", "pair_matmul", "pair_matmul_splitk",
+              "pair_matmul_mma", "flash_decode", "flash_decode_i8",
+              "dequantize_4bit_pair", "pair_prefill"):
+        if totals[n] == 0:
+            raise AssertionError(f"{n} was never launched in the gemma2 "
+                                 "phase")
+    log(f"  peak memory {rec['peak_gb']:.2f} GB; launches over the phase's "
+        f"runs {totals}")
+    results["gemma2"] = rec
+    results["launches_gemma2"] = totals
+    del params
 
 
 # the load phase: a synthetic HF checkpoint at Llama3-8B's width cut to 4
@@ -4359,6 +5097,10 @@ def phase_profile(dev, results):
 
 # -- the parallel phase -------------------------------------------------------
 
+# Llama3-8B at full width, cut to 8 of its 32 layers: room in the time
+# limit for the gemma2 phase. Every gate, kernel check and closed-form
+# count follows the depth.
+PAR_LAYERS = 8
 PAR_PROMPT = 16
 PAR_NEW = 60
 PAR_SEQ = 128
@@ -4372,10 +5114,11 @@ PAR_SLOT_REQS = 6
 PAR_DEADLINE = 900.0
 # max|sharded - single-card| / max|single-card| of the first forward's
 # logits, and the single card's top-2 margin a parting stream may have,
-# in the same unit: about twice what the fp32 order alone moves on this
+# in the same unit: about twice what the fp32 order alone moves on the
 # random 32-layer model (the model phase's flash against einsum decode
-# logits, 0.049; PERF.md). It cannot tell a partly wrong kernel from the
-# order: the kernel checks at every shard shape (PAR_KERNEL_TOL) do.
+# logits, 0.049; PERF.md), kept at PAR_LAYERS. It cannot tell a partly
+# wrong kernel from the order: the kernel checks at every shard shape
+# (PAR_KERNEL_TOL) do.
 PAR_LOGIT_BOUND = 0.1
 # max|kernel - plain| / max|plain| of every kernel call of the parallel
 # paths at each new shape: the earlier phases' tolerance (K2, K7 and K10
@@ -4395,8 +5138,8 @@ def _par_cfg():
     from quantizations_tpu_torch.config import QuantConfig
     from quantizations_tpu_torch.models.llama import LLAMA3_8B
 
-    return dataclasses.replace(LLAMA3_8B, quant=QuantConfig(
-        quantize_embedding=True))
+    return dataclasses.replace(LLAMA3_8B, num_hidden_layers=PAR_LAYERS,
+                               quant=QuantConfig(quantize_embedding=True))
 
 
 def _par_ids(B, n, vocab, seed=0):
@@ -5203,8 +5946,9 @@ def _par_report(what, res, new_tokens, rec):
 
 
 def phase_parallel(dev, results):
-    """The parallel path at Llama3-8B's full width and depth (FP4, random
-    normal weights from seed 0, 4-bit embedding and lm_head), its ranks
+    """The parallel path at Llama3-8B's full width, PAR_LAYERS (8) of its
+    32 layers (FP4, random normal weights from seed 0, 4-bit embedding
+    and lm_head), its ranks
     spawned by ``parallel.launch.RankPool`` on this one card: gloo, since
     NCCL refuses two ranks on one GPU. Four ranks: TP at tp = 4 (B = 1,
     4), DP x TP at 2 x 2, PP x TP at 2 x 2. Two ranks: TP at tp = 2 (B =
@@ -5601,8 +6345,20 @@ def kernel_entries(results, kernels_seq):
                                  else "")
                               + "; launches: the paged engine's "
                               + ("int8" if "i8" in k.name else "first bf16")
-                              + " run",
+                              + " run; d256: Gemma2-9B's shape (B=4, 1900 "
+                              "live tokens, KVH 8, G 2, D 256, softcap 50, "
+                              "window 4096), library_ms there SDPA on "
+                              "contiguous bf16 keys",
                          by_shape=rows)
+            err256 = results.get("attn_err_d256", {}).get(k.name, {})
+            entry["d256"] = dict(
+                max_abs_err=err256.get("max_abs_err"),
+                max_err_over_max_out=err256.get("max_err_over_max_out"),
+                rows=[{f: r[f] for f in ("form", "q_span", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}
+                      for r in results.get("attn_time_d256", [])
+                      if r["kernel"] == k.name])
         # the load phase: K2 in every load, K10/K7 in the exports, every
         # kernel of the CLI runs
         entry["load_launches"] = results.get("launches_load", {}).get(
@@ -5614,6 +6370,9 @@ def kernel_entries(results, kernels_seq):
         # the parallel phase: every path's launches on rank 0
         entry["parallel_launches"] = results.get("launches_parallel",
                                                  {}).get(k.name, 0)
+        # the gemma2 phase: its build, generates and engine runs
+        entry["gemma2_launches"] = results.get("launches_gemma2", {}).get(
+            k.name, 0)
         # the speculative path's first bf16 run (the int8 run for K4)
         entry["spec_launches"] = results.get(
             "launches_spec_int8" if "i8" in k.name else "launches_spec",
@@ -5658,7 +6417,8 @@ def main() -> int:
     held = {}
     for ph, fn in (("k2", lambda: phase_k2(dev, gen, results)),
                    ("k1", lambda: phase_k1(dev, gen, results)),
-                   ("attn", lambda: phase_attn(dev, gen, results)),
+                   ("attn", lambda: (phase_attn(dev, gen, results),
+                                     phase_attn_gemma2(dev, gen, results))),
                    ("time", lambda: (phase_time(dev, gen, results),
                                      phase_attn_time(dev, gen, results))),
                    ("model", lambda: held.update(
@@ -5671,6 +6431,7 @@ def main() -> int:
                                                  results)),
                    ("spec", lambda: phase_spec(dev, held.pop("params"),
                                                results)),
+                   ("gemma2", lambda: phase_gemma2(dev, gen, results)),
                    ("load", lambda: phase_load(dev, results)),
                    ("evals", lambda: phase_evals(dev, results)),
                    ("parallel", lambda: phase_parallel(dev, results)),

@@ -42,7 +42,11 @@
 //    most 8 (a grid axis), so that no block holds the sums of 32 rows:
 //    each group re-reads K/V, mostly from L2;
 //  - inside a block, 4 or 8 warps (kWarps) take the chunk's 16-position
-//    tiles in turn.
+//    tiles in turn. Head dims 64, 128 and 256 (Gemma-2) are instantiated,
+//    each at both row tiles. At D = 256 a warp's ring of 512-byte rows
+//    doubles, and a block needs 133-138 KB of shared memory (K4 at 8
+//    rows 75 KB), so one block fits an SM (kMinBlocks) where two fit at
+//    D <= 128; the wrapper's split rule aims at one wave of what fits.
 //    A warp stages its tiles' K and V rows (and K4's step words) with
 //    16-byte cp.async into a ring of two stages of its own, zero-filled
 //    past the end, and copies tile i + 1 while it computes tile i; it
@@ -134,6 +138,15 @@ __host__ __device__ constexpr size_t smem_bytes() {
          (ring > fold ? ring : fold);
 }
 
+// Blocks of an instantiation that the SM's 228 KB of shared memory holds
+// (1 KB of it reserved per block), capped at the two the launch bound
+// asks for: 2 for every D <= 128 instantiation, 1 at D = 256 but for K4
+// at 8 rows. With one, the bound leaves ptxas up to 255 registers.
+constexpr size_t kSmemPerSm = 233472;
+template <typename T, int R, int D>
+constexpr int kMinBlocks =
+    2 * (smem_bytes<T, R, D>() + 1024) <= kSmemPerSm ? 2 : 1;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -194,7 +207,13 @@ template <typename T, int D>
 __device__ __forceinline__ void load_lane(const unsigned char* src,
                                           float* f) {
   using RW = Row<T, D>;
-  if constexpr (RW::kLaneBytes == 8) {
+  if constexpr (RW::kLaneBytes == 16) {   // bf16 at D = 256
+    const uint4 w = *reinterpret_cast<const uint4*>(src);
+    unpack_word<T>(w.x, f);
+    unpack_word<T>(w.y, f + 2);
+    unpack_word<T>(w.z, f + 4);
+    unpack_word<T>(w.w, f + 6);
+  } else if constexpr (RW::kLaneBytes == 8) {
     const uint2 w = *reinterpret_cast<const uint2*>(src);
     unpack_word<T>(w.x, f);
     unpack_word<T>(w.y, f + 4 / sizeof(T));
@@ -264,10 +283,11 @@ __device__ __forceinline__ void issue_tile(const Params& p, unsigned char* st,
   }
 }
 
-// Two blocks an SM, as the split rule's grid assumes; the bound also
-// keeps ptxas from capping K4's 8-warp body at 80 registers with spills.
+// Two blocks an SM where their shared memory fits (kMinBlocks), as the
+// split rule's grid assumes; the bound also keeps ptxas from capping K4's
+// 8-warp body at 80 registers with spills.
 template <typename T, int R, int D>
-__global__ void __launch_bounds__((kWarps<T, R> * 32), 2)
+__global__ void __launch_bounds__((kWarps<T, R> * 32), (kMinBlocks<T, R, D>))
 flash_decode_split(const __grid_constant__ Params p) {
   using RW = Row<T, D>;
   constexpr bool kInt8 = sizeof(T) == 1;
@@ -578,6 +598,9 @@ int dispatch(Params p, int B, int D, void* stream) {
   else if (D == 128)
     e = p.group_rows <= 4 ? launch<T, 4, 128>(p, B_KVH, st)
                           : launch<T, 8, 128>(p, B_KVH, st);
+  else if (D == 256)
+    e = p.group_rows <= 4 ? launch<T, 4, 256>(p, B_KVH, st)
+                          : launch<T, 8, 256>(p, B_KVH, st);
   return static_cast<int>(e);
 }
 
@@ -627,9 +650,10 @@ Params make_params(const void* q, int q_f32, const void* k, const void* v,
 // split into n_split chunks of `chunk` positions (n_split * chunk >=
 // n_pos), query rows in groups of group_rows <= 8. With n_split > 1,
 // part [n_split, B * KVH * QG, D] and part_ml [n_split, B * KVH * QG, 2]
-// fp32 are the partials' scratch. D is 64 or 128, QG <= 32. Launches the
-// split kernel and, when n_split > 1, the combine; allocates nothing and
-// does not synchronise. Returns cudaGetLastError() after the launches.
+// fp32 are the partials' scratch. D is 64, 128 or 256, QG <= 32.
+// Launches the split kernel and, when n_split > 1, the combine; allocates
+// nothing and does not synchronise. Returns cudaGetLastError() after the
+// launches.
 extern "C" int qt_flash_decode_bf16(
     const void* q, int q_f32, const void* k, const void* v,
     const void* table, const void* lengths, void* out, int B, int KVH, int QG,

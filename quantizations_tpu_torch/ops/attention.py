@@ -41,8 +41,10 @@ __all__ = [
     "flash_decode_attention_stacked_plain",
     "flash_decode_attention_stacked_i8_plain",
     "decode_attention_plain",
+    "blocks_per_sm",
     "decode_split",
     "row_groups",
+    "HEAD_DIMS",
 ]
 
 _NEG = -1e30
@@ -50,13 +52,30 @@ _NEG = -1e30
 # How K3/K4 cut their work (csrc/flash_decode.cu): a block of 4 warps (8
 # for K4 at up to 4 rows) takes a chunk of positions in 16-position warp
 # tiles, for a group of at most GROUP_ROWS query rows; the grid is
-# (B * KVH, n_split, row groups). The constants come from a sweep of
-# forced splits on an H100 (PERF.md, PR 7).
+# (B * KVH, n_split, row groups). The constants come from sweeps of
+# forced splits on an H100 (PERF.md, PRs 7 and 21).
 SPLIT_TILE = 16             # positions of one warp tile
 SPLIT_ALIGN = 64            # four warp tiles
 SPLIT_MIN_CHUNK = 128       # keeps the partials a few % of the K/V bytes
-SPLIT_TARGET_BLOCKS = 264   # at most two blocks per SM of an H100's 132
+SPLIT_SMS = 132             # an H100's SMs
 GROUP_ROWS = 8
+# the head dims the kernels are instantiated for (Llama's 128, Gemma-2's
+# 256, and 64)
+HEAD_DIMS = (64, 128, 256)
+
+
+def blocks_per_sm(head_dim: int, int8: bool, group_rows: int) -> int:
+    """Blocks of K3 (``int8`` False) or K4 an SM holds at once, as
+    ``kMinBlocks`` in ``csrc/flash_decode.cu`` reckons them from a
+    block's shared memory: two at every head dim up to 128; one at 256,
+    where the warps' rings of 512-byte rows take 133-138 KB, but for K4
+    at more than 4 rows a group (4 warps of 256-byte rows, 75 KB)."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"blocks_per_sm: head_dim {head_dim} not in "
+                         f"{HEAD_DIMS}")
+    if not 1 <= group_rows <= GROUP_ROWS:
+        raise ValueError(f"blocks_per_sm: group_rows {group_rows}")
+    return 2 if head_dim <= 128 or (int8 and group_rows > 4) else 1
 
 
 def row_groups(qg: int) -> Tuple[int, int]:
@@ -67,19 +86,21 @@ def row_groups(qg: int) -> Tuple[int, int]:
     return n, -(-qg // n)
 
 
-def decode_split(n_pos: int, blocks: int) -> Tuple[int, int]:
+def decode_split(n_pos: int, blocks: int, per_sm: int) -> Tuple[int, int]:
     """``(n_split, chunk)`` for ``n_pos`` attended positions and
-    ``blocks`` = B * KVH * row groups blocks per split: split ``s`` takes
+    ``blocks`` = B * KVH * row groups blocks per split, ``per_sm`` of
+    which an SM holds (:func:`blocks_per_sm`): split ``s`` takes
     positions ``[s * chunk, (s + 1) * chunk)``. As many splits as keep
-    the grid within :data:`SPLIT_TARGET_BLOCKS` (a partial second wave
-    costs as much as a whole one), with chunks a multiple of
-    :data:`SPLIT_ALIGN` and at least :data:`SPLIT_MIN_CHUNK` positions,
-    so ``n_split`` is 1 up to that many positions. Reads nothing from the
-    card: ``n_pos`` is what the host knows (``attend_len``, or
-    ``max_pages * page`` for the pool)."""
-    if n_pos < 1 or blocks < 1:
-        raise ValueError(f"decode_split: n_pos {n_pos}, blocks {blocks}")
-    want = max(1, SPLIT_TARGET_BLOCKS // blocks)
+    the grid within one wave, :data:`SPLIT_SMS` * ``per_sm`` blocks (a
+    partial second wave costs as much as a whole one), with chunks a
+    multiple of :data:`SPLIT_ALIGN` and at least :data:`SPLIT_MIN_CHUNK`
+    positions, so ``n_split`` is 1 up to that many positions. Reads
+    nothing from the card: ``n_pos`` is what the host knows
+    (``attend_len``, or ``max_pages * page`` for the pool)."""
+    if n_pos < 1 or blocks < 1 or per_sm < 1:
+        raise ValueError(f"decode_split: n_pos {n_pos}, blocks {blocks}, "
+                         f"per_sm {per_sm}")
+    want = max(1, SPLIT_SMS * per_sm // blocks)
     chunk = -(-n_pos // want)
     chunk = max(SPLIT_MIN_CHUNK, -(-chunk // SPLIT_ALIGN) * SPLIT_ALIGN)
     return -(-n_pos // chunk), chunk
@@ -166,8 +187,8 @@ def launch_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: q must be bf16 or fp32 [B, KVH, QG, D], "
                          f"got {q.dtype} {tuple(q.shape)}")
     B, KVH, QG, D = q.shape
-    if D not in (64, 128):
-        raise ValueError(f"{name}: head_dim {D} is not 64 or 128")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} is not one of {HEAD_DIMS}")
     if q_span < 1 or QG % q_span or QG > 32:
         raise ValueError(f"{name}: {QG} query rows must be q_span ({q_span}) "
                          "x G and at most 32")
@@ -204,7 +225,8 @@ def launch_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0:
         return out
     n_groups, group_rows = row_groups(QG)
-    n_split, chunk = split or decode_split(n_pos, B * KVH * n_groups)
+    n_split, chunk = split or decode_split(
+        n_pos, B * KVH * n_groups, blocks_per_sm(D, int8, group_rows))
     if not (1 <= n_split <= 1024 and chunk >= 1
             and n_split * chunk >= n_pos):
         raise ValueError(f"{name}: split ({n_split}, {chunk}) does not "

@@ -6,7 +6,9 @@
   softcap, scale, ``attend_len``, ``q_span`` and ``pages_per_step``.
   Tolerance: 1e-5 * max|out|. Both sides read the same bf16 or int8
   values and compute in fp32; they differ in summation order and in the
-  online softmax's rescaling only.
+  online softmax's rescaling only. Again at Gemma-2's head_dim 256 (G 2,
+  softcap 50, a window the lengths pass, ``q_span`` up to 16), bf16 and
+  int8.
 - ``quantize_kv_i8`` bit-exact.
 - Greedy generation with ``use_flash_attention`` and/or an int8 KV cache
   gives the JAX package's tokens on ``TINY_LLAMA``. The port's projections
@@ -151,6 +153,85 @@ def test_paged_plain_matches_jax(int8, q_span, window, softcap, pps):
         got = tpa.paged_flash_decode_attention(
             _t(q), _t(pk), _t(pv), _t(table), 1, _t(lengths), window=window,
             **common)
+    _close(got, ref)
+
+
+# -- head_dim 256 (Gemma-2): the five entry points at G = 2, softcap 50 and a
+# window of 20 that the longer rows pass, q_span up to 16 (32 query rows)
+
+D256, G256, WIN256, CAP256 = 256, 2, 20, 50.0
+CASES_256 = [("unstacked", False, 1), ("stacked", False, 1),
+             ("stacked", True, 1), ("paged", False, 1), ("paged", True, 1),
+             ("paged", False, 4), ("paged", True, 4), ("paged", False, 16),
+             ("paged", True, 16)]
+
+
+@pytest.mark.parametrize("form,int8,q_span", CASES_256)
+def test_head_dim_256_matches_jax(form, int8, q_span):
+    rng = np.random.default_rng(20)
+    common = dict(softcap=CAP256)
+    win = jnp.int32(WIN256)
+    if form == "unstacked":
+        S = 48
+        q = _bf16(rng, (B, KVH, G256, D256))
+        ck, cv = _bf16(rng, (B, KVH, S, D256)), _bf16(rng, (B, KVH, S, D256))
+        lengths = jnp.asarray([1, 30, 48], jnp.int32)
+        ref = ja.flash_decode_attention(q, ck, cv, lengths, s_blk=16,
+                                        interpret=True, window=WIN256,
+                                        **common)
+        got = ta.flash_decode_attention(_t(q), _t(ck), _t(cv), _t(lengths),
+                                        window=WIN256, **common)
+    elif form == "stacked":
+        L, S, li, attend = 3, 48, 1, 32
+        q = _bf16(rng, (B, KVH, G256, D256))
+        lengths = jnp.asarray([1, 17, attend], jnp.int32)
+        kw = dict(attend_len=attend, **common)
+        shape = (L, B, KVH, S, D256)
+        if int8:
+            ck, cv = _i8(rng, shape), _i8(rng, shape)
+            ks, vs = _steps(rng, shape[:-1]), _steps(rng, shape[:-1])
+            ref = ja.flash_decode_attention_stacked_i8(
+                q, ck, cv, ks, vs, jnp.int32(li), lengths, s_blk=16,
+                interpret=True, window=win, **kw)
+            got = ta.flash_decode_attention_stacked_i8(
+                _t(q), _t(ck), _t(cv), _t(ks), _t(vs), li, _t(lengths),
+                window=WIN256, **kw)
+        else:
+            ck, cv = _bf16(rng, shape), _bf16(rng, shape)
+            ref = ja.flash_decode_attention_stacked(
+                q, ck, cv, jnp.int32(li), lengths, s_blk=16, interpret=True,
+                window=win, **kw)
+            got = ta.flash_decode_attention_stacked(
+                _t(q), _t(ck), _t(cv), li, _t(lengths), window=WIN256, **kw)
+    else:
+        L, P, page, mp = 2, 9, 16, 4
+        perm = rng.permutation(np.arange(1, P))
+        table = np.zeros((B, mp), np.int32)       # unused entries: page 0
+        table[0, :1] = perm[:1]
+        table[1, :3] = perm[1:4]
+        table[2, :4] = perm[4:8]
+        lengths = np.asarray([1, 30, 64 - q_span + 1], np.int32)
+        q = _bf16(rng, (B, KVH, q_span * G256, D256))
+        kw = dict(q_span=q_span, pages_per_step=2, **common)
+        shape = (L, P, KVH, page, D256)
+        if int8:
+            pk, pv = _i8(rng, shape), _i8(rng, shape)
+            ks, vs = _steps(rng, shape[:-1]), _steps(rng, shape[:-1])
+            ref = jpa.paged_flash_decode_attention_i8(
+                q, pk, pv, ks, vs, jnp.asarray(table), jnp.int32(1),
+                jnp.asarray(lengths), interpret=True, window=win, **kw)
+            got = tpa.paged_flash_decode_attention_i8(
+                _t(q), _t(pk), _t(pv), _t(ks), _t(vs), _t(table), 1,
+                _t(lengths), window=WIN256, **kw)
+        else:
+            pk, pv = _bf16(rng, shape), _bf16(rng, shape)
+            ref = jpa.paged_flash_decode_attention(
+                q, pk, pv, jnp.asarray(table), jnp.int32(1),
+                jnp.asarray(lengths), interpret=True, window=win, **kw)
+            got = tpa.paged_flash_decode_attention(
+                _t(q), _t(pk), _t(pv), _t(table), 1, _t(lengths),
+                window=WIN256, **kw)
+    assert got.shape[-1] == D256
     _close(got, ref)
 
 

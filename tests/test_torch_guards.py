@@ -7,8 +7,9 @@
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card,
   and raises on a spill or a missing instantiation in the ``ptxas -v``
   log of K1/K9's CUDA-core body, of their split-K body
-  (``csrc/pair_splitk.cu``) or of ``csrc/planar_matmul.cu`` (K5's two
-  bodies, K6).
+  (``csrc/pair_splitk.cu``), of ``csrc/planar_matmul.cu`` (K5's two
+  bodies, K6) or of K3/K4 (``csrc/flash_decode.cu``, head dims 64, 128
+  and 256).
 - The checkpoint path and the CLIs import no ``safetensors`` or
   ``orbax``, and only the serving CLI's optional tokenizer imports
   ``transformers``.
@@ -208,6 +209,39 @@ def test_chip_smoke_checks_pair_matmul_ptxas(tiles, spilled, ok):
     assert [e["kernel"] for e in results["ptxas_pair_matmul"]] == [
         f"TT={t}" for t in cs.PAIR_TILES]
     assert {e["registers"] for e in results["ptxas_pair_matmul"]} == {64}
+
+
+@pytest.mark.parametrize("case", ["complete", "missing_d256", "spill"])
+def test_chip_smoke_checks_flash_decode_ptxas(case):
+    """``chip_smoke.py`` reads K3/K4's ``ptxas -v`` log: both types at
+    each row tile of ``FD_ROW_TILES`` and head dim of ``FD_HEAD_DIMS``
+    (64, 128 and 256) and the combine, once each, no spill, or it
+    raises."""
+    cs = _chip_smoke()
+    assert cs.FD_HEAD_DIMS == (64, 128, 256)
+    names = {f"{t} R={r} D={d}":
+             f"18flash_decode_splitI{m}Li{r}ELi{d}EEEvN_6ParamsE"
+             for t, m in (("K3 bf16", "13__nv_bfloat16"), ("K4 int8", "a"))
+             for r in cs.FD_ROW_TILES for d in cs.FD_HEAD_DIMS}
+    names["combine"] = "20flash_decode_combineEPKfS1_Pfiii"
+    log = ""
+    for label, tail in names.items():
+        if case == "missing_d256" and label == "K3 bf16 R=8 D=256":
+            continue
+        fn = "_ZN12_GLOBAL__N_1" + tail
+        sp = 8 * (case == "spill" and label == "K4 int8 R=4 D=256")
+        log += (f"ptxas info    : Compiling entry function '{fn}' for "
+                f"'sm_90a'\nptxas info    : Function properties for {fn}\n"
+                f"    0 bytes stack frame, {sp} bytes spill stores, {sp} "
+                f"bytes spill loads\nptxas info    : Used 200 registers, "
+                f"used 1 barriers, 420 bytes cmem[0]\n")
+    results = {}
+    if case != "complete":
+        with pytest.raises(AssertionError):
+            cs.read_ptxas_report({"flash_decode": _DoneNvcc(log)}, results)
+        return
+    cs.read_ptxas_report({"flash_decode": _DoneNvcc(log)}, results)
+    assert sorted(e["kernel"] for e in results["ptxas"]) == sorted(names)
 
 
 def _planar_ptxas_log(cs, drop=None, spilled=None):
@@ -773,10 +807,11 @@ def _paged(q, k, v, ks, vs, table, lengths, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("q_span,G,window,softcap", [
     (1, 4, None, None), (1, 1, 7, 50.0), (3, 2, 2 ** 30, None),
-    (4, 8, 20, 30.0), (8, 4, None, None), (8, 4, 150, 30.0)])
+    (4, 8, 20, 30.0), (8, 4, None, None), (8, 4, 150, 30.0),
+    (1, 2, 40, 50.0), (16, 2, 150, 50.0)])
 @pytest.mark.parametrize("layout", sorted(PAGED_LAYOUTS))
 def test_k3_k4_paged_match_plain_on_card(cuda, rng, int8, D, q_span, G,
                                          window, softcap, layout):
@@ -790,12 +825,13 @@ def test_k3_k4_paged_match_plain_on_card(cuda, rng, int8, D, q_span, G,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D,G", [(128, 4), (256, 2)])
 @pytest.mark.parametrize("attend_len,window,softcap,S", [
     (None, None, None, 320), (96, 7, 50.0, 320), (300, 2 ** 30, None, 320),
     (None, None, None, 1300), (1200, 40, 30.0, 1300)])
-def test_k3_k4_slot_match_plain_on_card(cuda, rng, int8, attend_len, window,
-                                        softcap, S):
-    B, KVH, G, D = 3, 2, 4, 128
+def test_k3_k4_slot_match_plain_on_card(cuda, rng, int8, D, G, attend_len,
+                                        window, softcap, S):
+    B, KVH = 3, 2
     k, v, ks, vs = _decode_operands(rng, int8, B, KVH, S, D)
     n = attend_len or S
     lengths = torch.tensor([1, 33, n], dtype=torch.int32)
@@ -821,6 +857,39 @@ def test_k3_k4_slot_match_plain_on_card(cuda, rng, int8, attend_len, window,
                                           window=window)
         _agree(got1, ref1)
     _agree(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D", [96, 512, 32, 255])
+def test_k3_k4_refuse_other_head_dims_on_card(cuda, rng, int8, D):
+    """Head dims other than 64, 128 and 256 raise ValueError before any
+    launch, slot and paged."""
+    q, k, v, ks, vs, table, lengths = [
+        None if t is None else t.to(cuda)
+        for t in _paged_operands(rng, int8, "one_split", 1, 2, D)]
+    kern = FLASH_DECODE_I8 if int8 else FLASH_DECODE
+    before = kern.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        _paged(q, k, v, ks, vs, table, lengths)
+    with pytest.raises(ValueError, match="head_dim"):
+        tat.launch_decode(q, k[2], v[2], lengths, page=k.shape[3], n_pos=0,
+                          scale=D ** -0.5, softcap=None, window=None,
+                          table=table,
+                          k_step=None if ks is None else ks[2],
+                          v_step=None if ks is None else vs[2])
+    slot_k, slot_v = k[2, :3].contiguous(), v[2, :3].contiguous()
+    with pytest.raises(ValueError, match="head_dim"):
+        if int8:
+            tat.launch_decode(q, slot_k, slot_v, lengths, page=k.shape[3],
+                              n_pos=8, scale=1.0, softcap=None, window=None,
+                              k_step=ks[2, :3].contiguous(),
+                              v_step=vs[2, :3].contiguous())
+        else:
+            tat.flash_decode_attention(q.to(torch.bfloat16), slot_k, slot_v,
+                                       lengths)
+    torch.cuda.synchronize()
+    assert kern.launches == before
 
 
 @pytest.mark.cuda
@@ -863,7 +932,8 @@ def test_k3_k4_launches_are_bit_identical_on_card(cuda, rng, int8, layout):
     assert torch.equal(a, b)
     # the record keeps the grid launched: the rule's split, 4 row groups
     B, page, mp, _ = PAGED_LAYOUTS[layout]
-    n_split, chunk = tat.decode_split(mp * page, B * 2 * 4)
+    n_split, chunk = tat.decode_split(
+        mp * page, B * 2 * 4, tat.blocks_per_sm(128, int8, 8))
     assert kern.last_grid == (n_split, chunk, B * 2 * 4 * n_split)
 
 

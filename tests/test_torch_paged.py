@@ -51,6 +51,11 @@ GEMMA2 = dict(sliding_window=6, sliding_layers="even", post_norms=True,
               embed_normalizer=True, attn_logit_softcap=50.0,
               final_logit_softcap=30.0, query_scale=24)
 QWEN3 = dict(qk_norm=True)
+# the Gemma-2 knobs at Gemma2-9B's head_dim 256: 2 kv heads of 2 query
+# heads each
+GEMMA2_256 = dict(GEMMA2, num_attention_heads=4, num_key_value_heads=2,
+                  head_dim=256, query_scale=256, tie_word_embeddings=True)
+SEED_256 = 50
 
 
 def _tree(obj):
@@ -378,6 +383,26 @@ def test_paged_engine_prefix_cache_matches_jax(kv_dtype):
     assert teng.stats() == jeng.stats()
     assert list(teng._prefix.values()) == list(jeng._prefix.values())
     assert teng.stats()["pages_free"] == 23 - len(teng._prefix)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_paged_engine_gemma2_head_dim_256_matches_jax(kv_dtype):
+    """A tiny Gemma-2 at head_dim 256 through the engine: batched
+    admission with the prefix cache, decode past the window of 6 on the
+    even layer. The prompts of seeds 50-52 meet no near-tie on either
+    pool (see the module docstring)."""
+    jparams, tparams, jcfg, tcfg = _model(kv_cache_dtype=kv_dtype,
+                                          **GEMMA2_256)
+    assert tcfg.head_dim == 256
+    base = _prompt(SEED_256, 36)
+    prompts = [base, _prompt(SEED_256 + 1, 5), base[:33] + [9, 9],
+               _prompt(SEED_256 + 2, 19)]
+    lens = [6, 8, 5, 7]
+    kw = dict(ENGINE, prefix_cache=True, admit_width=2)
+    jeng, ref = _run_engine(jp, jparams, jcfg, prompts, lens, **kw)
+    teng, got = _run_engine(tp, tparams, tcfg, prompts, lens, **kw)
+    assert got == ref
+    assert teng.stats() == jeng.stats()
 
 
 def test_paged_engine_step_window_matches_jax():
