@@ -5029,6 +5029,21 @@ PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "quantizations_tpu_torch", "build", "profile")
 
 
+def device_kernels(events):
+    """The device kernels among a profile's events (``prof.events()``):
+    their count and their seconds by name. The device timeline's copy of
+    a ``record_function`` range (the program's ``qt:`` spans) is no
+    kernel."""
+    by_name, n = {}, 0
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.is_user_annotation:
+            n += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e6
+    return n, by_name
+
+
 def phase_profile(dev, results):
     """Where one FP4 batch-1 generate spends its time: ``utils/profiling
     trace()`` (``torch.profiler``, its Chrome trace written under
@@ -5068,12 +5083,7 @@ def phase_profile(dev, results):
     trace_s = time.perf_counter() - t_trace
     trace_mb = os.path.getsize(os.path.join(PROFILE_DIR, "trace.json")) / 1e6
     wall_s = start.elapsed_time(end) / 1e3
-    by_name, n_kernels = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n_kernels += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e6
+    n_kernels, by_name = device_kernels(prof.events())
     busy_s = sum(by_name.values())
     if busy_s == 0.0:
         raise AssertionError("the profiler saw no device time")

@@ -68,6 +68,7 @@ from ..quant.functional import (
     quantize_4bit,
     quantize_blockwise,
 )
+from ..utils.profiling import span
 
 __all__ = [
     "LlamaConfig",
@@ -692,6 +693,7 @@ def dense_twin_weight(lin: QLinear, quant_type: str) -> torch.Tensor:
     return dq(lin.wp, lin.scales, quant_type, dtype=torch.bfloat16)
 
 
+@span("linear.4bit")
 def _ql(x2: torch.Tensor, lin: QLinear, qcfg: QuantConfig,
         idx: Optional[int] = None) -> torch.Tensor:
     """Apply a (possibly layer-stacked) QLinear, in the JAX package's
@@ -916,9 +918,11 @@ def _slot_attend(cache: KVCache, idx: int, positions: torch.Tensor,
 
     Einsum operands are fp32 on the CPU and the cache dtype (bf16; bf16
     ``code * step`` for int8) on the GPU, with fp32 products, sums and
-    softmax on both."""
+    softmax on both. The callable runs in span ``attn.prefill`` (it
+    serves the admissions' prefill and the slot engine's decode)."""
     int8 = cache.k_scale is not None
 
+    @span("attn.prefill")
     def attend(q, k, v):
         B, T, n_q, D = q.shape
         n_kv = k.shape[2]

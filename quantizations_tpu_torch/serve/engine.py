@@ -26,6 +26,7 @@ from ..models.llama import (
     named_tensors,
     prefill,
 )
+from ..utils.profiling import count, span
 from .speculative import spec_accept_sample_vec, spec_window_tokens
 
 __all__ = ["Request", "Engine", "draft_lookup_host", "truncate_rows",
@@ -167,6 +168,7 @@ def clamp_buckets(buckets, max_seq: int) -> tuple:
             or (max_seq,))
 
 
+@span("prefill.round")
 def prefill_round(params: LlamaParams, cfg: LlamaConfig, cache: KVCache,
                   ids: np.ndarray, starts: np.ndarray, plens: np.ndarray,
                   max_seq: int, axis_name: Any = None) -> torch.Tensor:
@@ -200,7 +202,9 @@ def run_chunk_rounds(entries, n_rows: int, default_starts,
     row (past their valid prefix: never attended, never scattered).
     ``dispatch(ids, starts, plens) -> out[row]`` runs one round (the
     paged engine's returns each row's logits). Returns {row: ``out[row]``
-    of its final real round}."""
+    of its final real round}. Counts each round's rows x bucket length
+    (``prefill.rows``) and the prompt tokens its rows with a chunk feed
+    (``prefill.tokens``)."""
     rounds = max(len(c) for _, _, _, c in entries)
     out: dict = {}
     for j in range(rounds):
@@ -208,6 +212,7 @@ def run_chunk_rounds(entries, n_rows: int, default_starts,
         ids = np.zeros((n_rows, blen), np.int32)
         starts = np.asarray(default_starts, np.int32).copy()
         plens = np.ones(n_rows, np.int32)
+        fed = 0
         for row, prompt, cov, c in entries:
             if j >= len(c):
                 starts[row] = len(prompt)   # garbage round
@@ -216,6 +221,9 @@ def run_chunk_rounds(entries, n_rows: int, default_starts,
             ids[row, :take] = prompt[cov + start:cov + start + take]
             starts[row] = cov + start
             plens[row] = take
+            fed += take
+        count("prefill.rows", n_rows * blen)
+        count("prefill.tokens", fed)
         tok = dispatch(ids, starts, plens)
         for row, _, _, c in entries:
             if j == len(c) - 1:

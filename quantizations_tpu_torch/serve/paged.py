@@ -45,6 +45,7 @@ from ..ops.paged_attention import (
     paged_flash_decode_attention,
     paged_flash_decode_attention_i8,
 )
+from ..utils.profiling import count, span
 from .engine import (
     Request,
     clamp_buckets,
@@ -624,8 +625,10 @@ class PagedEngine:
         plen = len(r.prompt_ids)
         psz = self.page_size
         self._ensure_pages(slot, plen + 1)
-        self.pages = insert_prefill(self.pages, scratch, self.owned[slot],
-                                    plen, start_page=n_shared, row=row)
+        with span("admit.insert", (r.uid,)):
+            self.pages = insert_prefill(self.pages, scratch,
+                                        self.owned[slot], plen,
+                                        start_page=n_shared, row=row)
         if self._prefix is not None:
             for j in range(plen // psz):
                 k = tuple(r.prompt_ids[:(j + 1) * psz])
@@ -639,6 +642,7 @@ class PagedEngine:
 
     # -- admission -----------------------------------------------------
 
+    @span("engine.admit")
     def _admit(self) -> None:
         """Admit queued requests into free slots, in groups of up to
         ``admit_width`` prefilled together (one prefill per chunk round).
@@ -675,13 +679,15 @@ class PagedEngine:
                         failed.append((slot, r))
                         continue
                     try:
-                        self._admit_one(slot, r)
+                        with span("admit.one", (r.uid,)):
+                            self._admit_one(slot, r)
                     except MemoryError:
                         self._rollback(slot)
                         failed.append((slot, r))
             else:
                 try:
-                    self._admit_group(group)
+                    with span("admit.group", [r.uid for _, r in group]):
+                        self._admit_group(group)
                 except _AdmitOOM as e:
                     for slot, r in group[e.row:]:
                         self._rollback(slot)
@@ -720,6 +726,7 @@ class PagedEngine:
         return prefill_round(self.params, self.cfg, scratch, ids, starts,
                              plens, self.max_seq, self._axis)
 
+    @span("admit.sample")
     def _sample_first(self, logits: torch.Tensor,
                       samp: torch.Tensor) -> np.ndarray:
         """Each admitted row's first token from its final chunk's logits:
@@ -740,6 +747,8 @@ class PagedEngine:
                 plen - cov, self._buckets, max_len=self.max_seq, base=cov):
             ids = np.zeros((1, blen), np.int32)
             ids[0, :take] = r.prompt_ids[cov + start:cov + start + take]
+            count("prefill.rows", blen)
+            count("prefill.tokens", take)
             logits = self._prefill_round(ids, scratch,
                                          np.asarray([cov + start]),
                                          np.asarray([take]))
@@ -802,24 +811,37 @@ class PagedEngine:
         self.owned[i] = []
         self.table[i, :] = 0
 
+    @span("engine.step")
     def step(self) -> int:
+        """Admit, then one decode step over every active slot. Spans:
+        ``decode.prepare`` (pages, the table, position and token copies,
+        the sampling rows), ``decode.forward`` (the forward's enqueue),
+        ``decode.sample``, ``decode.readback`` (the host's wait for the
+        sampled tokens) and ``decode.commit``."""
         self._admit()
         act = [i for i, r in enumerate(self.active) if r is not None]
         if not act:
             return 0
-        for i in act:
-            self._ensure_pages(i, int(self.pos[i]) + 1)
-        mp = self._attend_pages(act, 1)
-        logits, self.pages = paged_decode_step(
-            self.params, self._dev(self._cur)[:, None], self.pages,
-            self._dev(self.table), self._dev(self.pos), self.cfg, mp,
-            self._axis)
-        nxt = sample_rows_samp(logits, self._slot_samp(),
-                               self._gen).cpu().numpy()
+        with span("decode.prepare"):
+            for i in act:
+                self._ensure_pages(i, int(self.pos[i]) + 1)
+            mp = self._attend_pages(act, 1)
+            cur = self._dev(self._cur)[:, None]
+            table, pos = self._dev(self.table), self._dev(self.pos)
+            samp = self._slot_samp()
+        with span("decode.forward"):
+            logits, self.pages = paged_decode_step(
+                self.params, cur, self.pages, table, pos, self.cfg, mp,
+                self._axis)
+        with span("decode.sample"):
+            nxt = sample_rows_samp(logits, samp, self._gen)
+        with span("decode.readback"):
+            nxt = nxt.cpu().numpy()
         self._steps += 1
-        for i in act:
-            if not self._commit(i, [int(self._cur[i])]):
-                self._cur[i] = nxt[i]
+        with span("decode.commit"):
+            for i in act:
+                if not self._commit(i, [int(self._cur[i])]):
+                    self._cur[i] = nxt[i]
         return len(act)
 
     def step_window(self, n: int) -> int:

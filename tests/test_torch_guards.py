@@ -171,6 +171,40 @@ def _chip_smoke():
     return mod
 
 
+def test_chip_smoke_counts_no_range_as_a_kernel(tmp_path):
+    """``chip_smoke.device_kernels`` counts a profile's device kernels and
+    not the device timeline's copies of ``record_function`` ranges, such
+    as the program's ``qt:`` spans that ``profiling.trace()`` turns on,
+    whose time covers the kernels inside them: the ``profile`` phase's
+    kernels a forward and busy time."""
+    from types import SimpleNamespace
+
+    from quantizations_tpu_torch.utils import profiling
+
+    cs = _chip_smoke()
+    with profiling.trace(str(tmp_path)) as prof:
+        with profiling.span("linear.4bit"):
+            torch.ones(2) + 1
+    assert [e.is_user_annotation for e in prof.events()
+            if e.name == "qt:linear.4bit"] == [True]
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(name, dev, us, annotation=False):
+        return SimpleNamespace(name=name, device_type=dev,
+                               is_user_annotation=annotation,
+                               time_range=SimpleNamespace(
+                                   elapsed_us=lambda: us))
+
+    n, by_name = cs.device_kernels([
+        ev("qt:linear.4bit", cpu, 50.0, True),
+        ev("qt:linear.4bit", cuda, 42.0, True),
+        ev("pair_mma_kernel", cuda, 30.0), ev("pair_mma_kernel", cuda, 10.0),
+        ev("aten::mm", cpu, 5.0), ev("flash_decode_kernel", cuda, 2.0)])
+    assert n == 3
+    assert by_name == pytest.approx({"pair_mma_kernel": 40e-6,
+                                     "flash_decode_kernel": 2e-6})
+
+
 class _DoneNvcc:
     """A finished ``nvcc -Xptxas -v`` process with the given log."""
 
