@@ -67,7 +67,17 @@ Phases, each raising on failure:
    softcap 50, window 4096): slot, paged, and paged at q_span 16, beside
    the bound, the plain version and SDPA on contiguous bf16 keys, with
    the paged cases' split sweep;
-7. ``model``: first one FP4 model build under ``torch.profiler``: the
+7. ``glue``: K11-K13 at Mistral-7B's widths (hidden 4096, 32 query and
+   8 kv heads of 128, intermediate 14336) at 1, 7, 256 and 1024 rows in
+   every form the layer calls them (K11 with an fp32 delta into bf16,
+   with ``1 + w``, and without a delta into fp32 as a post norm; K12 on
+   views of the q|k|v slab, decode and 256-token prefill rows; K13 silu
+   and tanh-gelu into bf16, silu into fp32), one launch a call, against
+   their plain versions: the residual, rope and activation bit for bit,
+   the norm within one bf16 ulp; then timed at 1, 256 and 1024 rows
+   (operands rotating past the L2) beside the bound, the plain version
+   and, for K11, ``torch.nn.functional.rms_norm`` (the norm alone);
+8. ``model``: first one FP4 model build under ``torch.profiler``: the
    host and device time of K2, ``torch.randn``, the plain double
    quantization, ``planar_to_pair`` and ``fuse_projections``, and the
    device kernels that took the most. Then Llama3-8B at full width and
@@ -79,14 +89,16 @@ Phases, each raising on failure:
    (K4); NF4 at batch 1. Every generate must launch K1 exactly
    60 * (4 * 32 + 1) = 7740 times, each on the body ``pair_body`` names
    for its rows (the split-K body's count exact: the 16B-row prefill and,
-   from B = 4, every launch), and K3 or K4 exactly 59 * 32 = 1888
-   times, K10 never, and give the same tokens on every run; tok/s is new tokens
+   from B = 4, every launch), K3 or K4 exactly 59 * 32 = 1888
+   times, K10 never, the glue kernels K11-K13 exactly as
+   ``_glue_forwards`` reckons for 60 forwards (60 * (2 * 32 + 1) K11,
+   60 * 32 K12 and K13), and give the same tokens on every run; tok/s is new tokens
    over the whole generate call, from CUDA events, the median of
    TIMED_RUNS (2)
    timed runs after a warm-up, printed with their min and max. A tiny
    model then checks the CUDA path against the CPU's plain path on the
    same parameters (prefill, and a flash decode step, bf16 and int8);
-8. ``planar``: the planar layout. K5 (planar dequant-matmul: each of
+9. ``planar``: the planar layout. K5 (planar dequant-matmul: each of
    its two bodies launched directly, and the dispatch, which must give
    the bits of the body ``planar_body`` names; the tensor-core body
    bit-identical across two launches) and K6 (planar fp32 GEMV,
@@ -113,7 +125,7 @@ Phases, each raising on failure:
    64} per shape and per forward, with the crossover; K6 per T = 3
    forward; K7 at [14336, 4096] and the lm_head), the plain versions and
    dense bf16 ``torch.matmul``;
-9. ``pair_variants``: the pair kernel's variants. The tensor-core body
+10. ``pair_variants``: the pair kernel's variants. The tensor-core body
    (``csrc/pair_prefill.cu``: K8, and K1 above 128 rows) within K8_GATE
    * max|y| of its plain versions and of K1's CUDA-core body, with K1
    above 128 rows bit-identical to K8, and K9 (the manual-pipeline pair
@@ -158,7 +170,7 @@ Phases, each raising on failure:
    ``QT_PREFILL_PAIR`` (K8 launched 128 x ceil(rows / 512) times per
    admission forward above the K1 band with a row count divisible by 8,
    K10 128 times per other admission forward above the band);
-10. ``paged``: the paged engine. ``PagedEngine(slots=4, max_seq=2048,
+11. ``paged``: the paged engine. ``PagedEngine(slots=4, max_seq=2048,
    prefill_buckets=(64, 256), admit_width=4, prefix_cache=True,
    num_pages=40)`` (page 256) over the FP4 model serves 8 greedy
    requests of 32 new tokens: prompts of 16, 100, 300, 700, 1100, 1500
@@ -172,12 +184,13 @@ Phases, each raising on failure:
    the body ``pair_body`` names (the tensor-core body 128 times per
    admission forward of 129-256 rows: 20 chunks of 256, 2,560) and K10
    exactly 128 times per admission forward above 256 rows (the batched
-   group's 3 rounds of 1024: 384), finish
+   group's 3 rounds of 1024: 384), K11-K13 in every forward as
+   ``_glue_forwards`` reckons, finish
    every request with 32 in-vocabulary
    tokens and return every page but the prefix cache's pins. Printed:
    aggregate new tokens per second, steps, admission group sizes, and
    the wall time split into admission and decode;
-11. ``spec``: speculative decoding and the slot ``Engine`` on the same
+12. ``spec``: speculative decoding and the slot ``Engine`` on the same
    FP4 model. First the paged verify window on a tiny model with 4
    query heads per kv head (windows of 4 and 8 tokens, 32 query rows at
    8) against the CPU's plain path: logits within 2e-2 * max|logit|, bf16
@@ -200,7 +213,7 @@ Phases, each raising on failure:
    129 per forward by body, the same tokens every run; tok/s the median
    of 3) beside the
    model phase's generate;
-12. ``gemma2``: Gemma2-9B at full width and depth (42 layers, hidden
+13. ``gemma2``: Gemma2-9B at full width and depth (42 layers, hidden
    3584, 16 query and 8 kv heads of 256, GeGLU, sandwich norms, softcaps
    50 and 30, the 4096 window on the even layers), FP4, random normal
    weights from seed 0, the 4-bit embedding tied to the lm_head, fused
@@ -211,7 +224,8 @@ Phases, each raising on failure:
    296 K2 launches); greedy generates of 60 tokens after 16 at B = 1,
    4, 8 on the einsum arm, with flash (K3) and with flash and an int8
    cache (K4), each run twice (the same tokens), K1 exact by body, K3/K4
-   exactly 59 x 42 a flash generate; one B = 4 decode step's flash
+   exactly 59 x 42 a flash generate, K11 four a layer (the post norms)
+   and K12/K13 one; one B = 4 decode step's flash
    logits within ``G2_LOGIT_BOUND`` (0.25) of max|logit| of the einsum
    arm's on the same cache, bf16 and int8, each K3/K4 call of that step
    within 1e-5 * max|out| of its plain version on the same inputs, and
@@ -229,7 +243,7 @@ Phases, each raising on failure:
    tokens), K3/K4 exactly 42 a forward and K8 168 x ceil(rows / 512) a
    forward above the K1 band. tok/s, admission and decode walls and
    peak memory printed;
-13. ``load``: the checkpoint path and the command line. A synthetic HF
+14. ``load``: the checkpoint path and the command line. A synthetic HF
    checkpoint at Llama3-8B's width cut to 4 of its 32 layers (3.85 GB of
    bf16, 4 shards and an index, the port's own writer, in a temporary
    directory; it raises when the disk has less than 10 GB free) loaded
@@ -248,7 +262,7 @@ Phases, each raising on failure:
    raises, a ``PagedEngine`` that hangs past the deadline and a healthy
    one: every request finishes, the pages return, the healthy engine's
    own requests equal an undisturbed run;
-14. ``evals``: the accuracy path at Llama3-8B's full width and depth,
+15. ``evals``: the accuracy path at Llama3-8B's full width and depth,
    FP4 with the evals CLI's ``QuantConfig`` (a dense embedding),
    ``dist="trained_proxy"`` from seed 0. The proxy sampler's statistics
    at three shapes (the Student-t draws' excess kurtosis and variance,
@@ -267,7 +281,7 @@ Phases, each raising on failure:
    ``python -m quantizations_tpu_torch.evals --preset 8b --proxy
    --parity --parity-control`` as a subprocess, its JSON equal to the
    direct calls field for field;
-15. ``parallel``: the parallel path at Llama3-8B's full width, 8 of its
+16. ``parallel``: the parallel path at Llama3-8B's full width, 8 of its
    32 layers (FP4, random normal weights from seed 0, 4-bit embedding and
    lm_head)
    on ranks that share this one card under gloo (``parallel.launch``;
@@ -282,7 +296,8 @@ Phases, each raising on failure:
    load, bit for bit) and the serving CLI with ``--tp 2`` (the direct
    call's tokens). Every kernel call of every path, at each shard shape
    it runs, against its plain version on the same inputs (1e-5 *
-   max|y|; K2, K7 and K10 bit for bit); every rank's tokens equal; each
+   max|y|; K2, K7, K10, K12 and K13 bit for bit, K11's residual bit
+   for bit and its norm within one bf16 ulp); every rank's tokens equal; each
    path's first logits within ``PAR_LOGIT_BOUND`` of the single card's
    (the engines' against the single-card engine's), its greedy tokens
    the single card's or parting only where the single card's top-2
@@ -292,9 +307,11 @@ Phases, each raising on failure:
    card: no TP speed), the collectives' share of the wall, the staged
    collectives, the shard shapes each kernel ran, each rank's peak
    memory;
-16. ``profile``: one FP4 batch-1 generate of 8 new tokens under
-   ``torch.profiler``: device kernel time by name, kernels per forward,
-   the device's busy share of the wall time, the host's enqueue time.
+17. ``profile``: one FP4 batch-1 generate of 8 new tokens under
+   ``torch.profiler``: device kernel time by name, kernels per forward
+   (K11-K13's launches among them, exactly as ``_glue_forwards``
+   reckons), the device's busy share of the wall time, the host's
+   enqueue time.
 
 Then one JSON line of kernel results (without the per-shape detail),
 the ``nvidia-smi`` line again, and last ``{"ok": true, "device":
@@ -397,6 +414,15 @@ BAND_TIMED_T = (256, 512, 1024)
 PLAIN_BAND_T = (512, 1024)
 BAND_GATE = 1e-5               # max|band - plain| / max|plain|
 PV_BATCHES = (1, 4, 8)
+# the glue phase: K11-K13 at Mistral-7B's widths (Llama3-8B's too):
+# hidden, query and kv heads (D = HEAD_DIM), intermediate, rope theta;
+# checked at GLUE_ROWS (7 an odd count), timed at GLUE_TIMED_ROWS, their
+# kernel entries read at GLUE_MAIN_ROWS (a decode step of 256 rows)
+GLUE_H, GLUE_NQ, GLUE_NKV, GLUE_I, GLUE_THETA = 4096, 32, 8, 14336, 1e6
+GLUE_ROWS = (1, 7, 256, 1024)
+GLUE_TIMED_ROWS = (1, 256, 1024)
+GLUE_MAIN_ROWS = 256
+GLUE_EPS = 1e-5
 # (K9, K1) launches per manual generate (60 tokens, a 16-token prompt):
 # K9 takes qkv and o up to 128 rows and down up to 16 (manual_vmem_ok),
 # K1 gate_up and the lm_head. B = 1: 60 forwards x (96 K9 + 33 K1); at
@@ -1304,6 +1330,136 @@ def phase_attn_gemma2(dev, gen, results):
                           q_spans=G2_Q_SPANS, pps=(2,), tag=" at D=256"))
 
 
+def _glue_operands(N, dev, gen):
+    """One set of K11-K13's operands at ``N`` rows in the layer's forms:
+    the bf16 residual ``x``, an fp32 delta ``d`` (an o or down output),
+    the bf16 gain ``w``; ``q`` and ``k`` as views of an fp32 q|k|v slab
+    at one position a row (decode) with their tables at positions below
+    32,768; ``g`` and ``u`` as views of an fp32 gate|up slab."""
+    from quantizations_tpu_torch.models.llama import rope_cos_sin
+
+    H, I, D, nq, nkv = GLUE_H, GLUE_I, HEAD_DIM, GLUE_NQ, GLUE_NKV
+    slab = torch.randn(N, (nq + 2 * nkv) * D, generator=gen, device=dev)
+    gu = 2 * torch.randn(N, 2 * I, generator=gen, device=dev)
+    pos = torch.randint(0, 32768, (N, 1), generator=gen, device=dev)
+    cos, sin = rope_cos_sin(pos, D, GLUE_THETA)
+    return dict(
+        x=torch.randn(N, H, generator=gen, device=dev).to(torch.bfloat16),
+        d=0.5 * torch.randn(N, H, generator=gen, device=dev),
+        w=(1 + 0.1 * torch.randn(H, generator=gen, device=dev)).to(
+            torch.bfloat16),
+        q=slab[:, :nq * D].reshape(N, 1, nq, D),
+        k=slab[:, nq * D:(nq + nkv) * D].reshape(N, 1, nkv, D),
+        cos=cos, sin=sin, g=gu[:, :I], u=gu[:, I:])
+
+
+def _glue_calls(o):
+    """(kernel, form, call, gate) for every form the layer calls K11-K13
+    in; ``call(fn)`` runs the wrapper or its plain version on ``o``."""
+    bf, f32, eps = torch.bfloat16, torch.float32, GLUE_EPS
+    N, D = o["x"].shape[0], HEAD_DIM
+    out = [
+        ("add_rms_norm", "x + fp32 delta -> bf16",
+         lambda f: f(o["x"], o["d"], o["w"], eps, False, bf), "norm"),
+        ("add_rms_norm", "1 + w, x + fp32 delta -> bf16",
+         lambda f: f(o["x"], o["d"], o["w"], eps, True, bf), "norm"),
+        ("add_rms_norm", "fp32, no delta -> fp32 (post norm)",
+         lambda f: f(o["d"], None, o["w"], eps, True, f32), "norm"),
+        ("rope_qk", "decode, views of q|k|v",
+         lambda f: f(o["q"], o["k"], o["cos"], o["sin"]), "bits"),
+        ("glu_act", "silu -> bf16",
+         lambda f: f(o["g"], o["u"], "silu", bf), "bits"),
+        ("glu_act", "gelu_tanh -> bf16",
+         lambda f: f(o["g"], o["u"], "gelu_tanh", bf), "bits"),
+        ("glu_act", "silu -> fp32",
+         lambda f: f(o["g"], o["u"], "silu", f32), "bits")]
+    if N % 256 == 0:                  # prefill: 256-token rows a sequence
+        B = N // 256
+        out.append(("rope_qk", f"prefill B={B} T=256, views of q|k|v",
+                    lambda f: f(o["q"].reshape(B, 256, GLUE_NQ, D),
+                                o["k"].reshape(B, 256, GLUE_NKV, D),
+                                o["cos"].reshape(B, 256, D),
+                                o["sin"].reshape(B, 256, D)), "bits"))
+    return out
+
+
+def phase_glue(dev, gen, results):
+    """K11-K13 at Mistral-7B's widths: each wrapper in every form of
+    ``_glue_calls`` at GLUE_ROWS, one launch a call, against its plain
+    version on the same inputs (the residual, rope and activation bit for
+    bit, the norm within one bf16 ulp: ``_kernel_err``'s gates); then
+    timed at GLUE_TIMED_ROWS in the decode layer's form (bf16 out, silu),
+    the operands rotating over enough copies to exceed the L2 four times,
+    beside the bound (bytes over 3.35 TB/s), the plain version and, for
+    K11, ``torch.nn.functional.rms_norm`` (the norm alone, without the
+    residual add; torch has no fused rope or gated activation)."""
+    from quantizations_tpu_torch.ops import glue
+    from quantizations_tpu_torch.ops.cuda import KERNELS
+
+    recs = {k.name: k for k in KERNELS if k.name in GLUE_KERNELS}
+    errs = {n: dict(max_abs_err=0.0, max_err_over_max_y=0.0, forms=[])
+            for n in GLUE_KERNELS}
+    for N in GLUE_ROWS:
+        o = _glue_operands(N, dev, gen)
+        for name, form, call, gate in _glue_calls(o):
+            before = recs[name].launches
+            out = call(getattr(glue, name))
+            if recs[name].launches != before + 1:
+                raise AssertionError(f"{name} {form} N={N}: "
+                                     f"{recs[name].launches - before} "
+                                     "launches, expected 1")
+            ref = call(getattr(glue, name + "_plain"))
+            torch.cuda.synchronize()
+            rel = _kernel_err(f"{name} {form} N={N}", out, ref, gate)
+            y, r = (out[-1], ref[-1]) if gate == "norm" else (out, ref)
+            ab = float((y.float() - r.float()).abs().max()) if \
+                gate == "norm" else 0.0
+            e = errs[name]
+            e["max_abs_err"] = max(e["max_abs_err"], ab)
+            e["max_err_over_max_y"] = max(e["max_err_over_max_y"], rel)
+            e["forms"].append(f"{form} N={N}")
+        del o
+    for name, e in errs.items():
+        log(f"  {name}: {len(e['forms'])} forms "
+            + ("residual bit for bit, norm within one bf16 ulp, max|err| "
+               f"{e['max_abs_err']:.3e}" if name == "add_rms_norm"
+               else "bit for bit") + " against the plain version")
+    H, I, D = GLUE_H, GLUE_I, HEAD_DIM
+    bf, eps = torch.bfloat16, GLUE_EPS
+    rows = []
+    for N in GLUE_TIMED_ROWS:
+        nbytes = {"add_rms_norm": N * H * (2 + 4 + 2 + 2) + 2 * H,
+                  "rope_qk": N * (GLUE_NQ + GLUE_NKV) * D * 4 * 2
+                  + 2 * N * D * 4,
+                  "glu_act": N * I * (4 + 4 + 2)}
+        R = min(32, max(2, math.ceil(4 * L2_BYTES / sum(nbytes.values()))))
+        ops = [_glue_operands(N, dev, gen) for _ in range(R)]
+        timed = {"add_rms_norm": lambda f, o: f(o["x"], o["d"], o["w"], eps,
+                                                False, bf),
+                 "rope_qk": lambda f, o: f(o["q"], o["k"], o["cos"],
+                                           o["sin"]),
+                 "glu_act": lambda f, o: f(o["g"], o["u"], "silu", bf)}
+        for name, call in timed.items():
+            fn, plain = getattr(glue, name), getattr(glue, name + "_plain")
+            ms = device_ms(lambda i: call(fn, ops[i % R]), 64)
+            pms = device_ms(lambda i: call(plain, ops[i % R]), 16)
+            lms = (device_ms(lambda i: torch.nn.functional.rms_norm(
+                ops[i % R]["x"], (H,), ops[i % R]["w"], eps), 64)
+                if name == "add_rms_norm" else None)
+            bms, by = bound(nbytes[name], 0)
+            rows.append(dict(kernel=name, N=N, ms=ms, plain_ms=pms,
+                             library_ms=lms, bound_ms=bms, bound_by=by,
+                             share_of_bound=bms / ms))
+            log(f"  {name:12s} N={N:5d}: {ms * 1e3:8.2f} us  bound "
+                f"{bms * 1e3:7.2f} us ({100 * bms / ms:5.1f}%)  plain "
+                f"{pms * 1e3:8.2f} us"
+                + ("" if lms is None else
+                   f"  torch rms_norm alone {lms * 1e3:7.2f} us"))
+        del ops
+        torch.cuda.empty_cache()
+    results["glue"] = dict(err=errs, rows=rows)
+
+
 def phase_model(dev, results):
     """Greedy generation at full Llama3-8B: FP4 at B = 1, 4, 8 on the
     einsum path, with ``use_flash_attention`` (K3), and with flash and an
@@ -1313,17 +1469,19 @@ def phase_model(dev, results):
     from quantizations_tpu_torch.models.llama import (
         LLAMA3_8B, TINY_LLAMA, KVCache, decode_step, fuse_projections,
         init_llama_params, map_tensors, named_tensors, prefill)
-    from quantizations_tpu_torch.ops import (FLASH_DECODE, FLASH_DECODE_I8,
+    from quantizations_tpu_torch.ops import (ADD_RMS_NORM, FLASH_DECODE,
+                                             FLASH_DECODE_I8, GLU_ACT,
                                              KERNELS, PAIR_MATMUL,
                                              PAIR_MATMUL_MMA,
                                              PAIR_MATMUL_SPLITK,
-                                             QUANTIZE_4BIT)
+                                             QUANTIZE_4BIT, ROPE_QK)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
 
     serve = ServeConfig(max_seq_len=128, max_new_tokens=60, temperature=0.0)
     layers = LLAMA3_8B.num_hidden_layers
     per_generate = serve.max_new_tokens * (4 * layers + 1)
-    k1_recs = (PAIR_MATMUL, PAIR_MATMUL_SPLITK, PAIR_MATMUL_MMA)
+    k1_recs = (PAIR_MATMUL, PAIR_MATMUL_SPLITK, PAIR_MATMUL_MMA,
+               ADD_RMS_NORM, ROPE_QK, GLU_ACT)
     per_generate_attn = (serve.max_new_tokens - 1) * layers
     variants = (("fp4", "einsum", {}, (1, 4, 8)),
                 ("fp4", "flash", dict(use_flash_attention=True), (1, 4, 8)),
@@ -1383,11 +1541,13 @@ def phase_model(dev, results):
             idsb = ids.repeat(B, 1)
             times, first = [], None
             # K1 by body: the 16B-row prefill (its lm_head at B rows), then
-            # 59 decode steps at B rows
+            # 59 decode steps at B rows; the glue in each of the 60
+            # forwards
             want_k1 = _generate_k1(B, PROMPT_LEN, serve.max_new_tokens,
                                    layers)
             if want_k1[PAIR_MATMUL.name] != per_generate:
                 raise AssertionError(f"K1's closed form {want_k1}")
+            want_k1.update(_glue_forwards(serve.max_new_tokens, layers))
             for it in range(TIMED_RUNS + 1):
                 cache = KVCache.create(cfg, B, serve.max_seq_len, dev)
                 before = {k.name: k.launches for k in k1_recs}
@@ -1401,8 +1561,9 @@ def phase_model(dev, results):
                 end.synchronize()
                 got = {k.name: k.launches - before[k.name] for k in k1_recs}
                 if got != want_k1:
-                    raise AssertionError(f"K1 launched {got} in one "
-                                         f"generate, expected {want_k1}")
+                    raise AssertionError(f"K1 and the glue launched {got} "
+                                         f"in one generate, expected "
+                                         f"{want_k1}")
                 if attn_kernel is not None:
                     got = attn_kernel.launches - before_attn
                     if got != per_generate_attn:
@@ -1461,7 +1622,8 @@ def phase_model(dev, results):
         raise AssertionError("K10 launched by a generate: no projection of "
                              "a 16-token prompt is above the K1 band")
     results["decode_logits"] = _decode_logit_check(fp4_params, dev)
-    for k in (PAIR_MATMUL, QUANTIZE_4BIT, FLASH_DECODE, FLASH_DECODE_I8):
+    for k in (PAIR_MATMUL, QUANTIZE_4BIT, FLASH_DECODE, FLASH_DECODE_I8,
+              ADD_RMS_NORM, ROPE_QK, GLU_ACT):
         if k.launches == 0:
             raise AssertionError(f"{k.name} was never launched on the "
                                  "generate path")
@@ -3000,6 +3162,21 @@ def _generate_k1(B, prompt, new, layers, proj=4):
     return _k1_forwards([(1, B * prompt, B), (new - 1, B, B)], layers, proj)
 
 
+# the glue kernels' records (ops/glue.py), in _glue_forwards' order
+GLUE_KERNELS = ("add_rms_norm", "rope_qk", "glu_act")
+
+
+def _glue_forwards(n, layers, heads=None, norms=2):
+    """K11-K13's launches in ``n`` forwards of ``layers`` layers through
+    ``models/llama.py _layer_forward``: ``norms`` K11 a layer (each norm
+    with the residual add before it; 4 with Gemma-2's post norms), one
+    K12 and one K13, and one K11 for the final norm of each of the
+    ``heads`` forwards (all ``n`` by default) that run the lm_head."""
+    heads = n if heads is None else heads
+    return {"add_rms_norm": n * norms * layers + heads,
+            "rope_qk": n * layers, "glu_act": n * layers}
+
+
 def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1,
                  max_seq=2048, prefix_req=7):
     """One ``PagedEngine`` run over ``prompts`` (the paged phase's
@@ -3107,6 +3284,13 @@ def _serve_paged(params, base, prompts, kv, spec_k=0, steps_per_dispatch=1,
                              f"forwards ({win} windows), expected {want_k1} "
                              f"(admission rows {spent['rows']}, sequences "
                              f"{spent['heads']})")
+    # the glue in every admission forward and every decode step or window
+    want_glue = _glue_forwards(len(spent["rows"]) + st["steps"], layers,
+                               norms=4 if base.post_norms else 2)
+    got_glue = {n: launches[n] for n in GLUE_KERNELS}
+    if got_glue != want_glue:
+        raise AssertionError(f"K11-K13 launched {got_glue}, expected "
+                             f"{want_glue}")
     mma = launches[PAIR_MATMUL_MMA.name]
     splitk = launches[PAIR_MATMUL_SPLITK.name]
     core = launches[PAIR_MATMUL.name] - mma - splitk
@@ -3701,16 +3885,19 @@ def _g2_generates(params, cfg, dev):
     exactly 59 x 42 times a flash generate and never on the einsum arm,
     K10 never."""
     from quantizations_tpu_torch.config import ServeConfig
-    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+    from quantizations_tpu_torch.ops import (ADD_RMS_NORM,
+                                             DEQUANTIZE_4BIT_PAIR,
                                              FLASH_DECODE, FLASH_DECODE_I8,
-                                             PAIR_MATMUL, PAIR_MATMUL_MMA,
-                                             PAIR_MATMUL_SPLITK)
+                                             GLU_ACT, PAIR_MATMUL,
+                                             PAIR_MATMUL_MMA,
+                                             PAIR_MATMUL_SPLITK, ROPE_QK)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
 
     serve = ServeConfig(max_seq_len=128, max_new_tokens=G2_NEW)
     L = cfg.num_hidden_layers
     recs = (PAIR_MATMUL, PAIR_MATMUL_SPLITK, PAIR_MATMUL_MMA, FLASH_DECODE,
-            FLASH_DECODE_I8, DEQUANTIZE_4BIT_PAIR)
+            FLASH_DECODE_I8, DEQUANTIZE_4BIT_PAIR, ADD_RMS_NORM, ROPE_QK,
+            GLU_ACT)
     ids = ((torch.arange(PROMPT_LEN, device=dev) * 7 + 11) % cfg.vocab_size
            ).to(torch.int32)[None, :]
     runs = []
@@ -3722,7 +3909,8 @@ def _g2_generates(params, cfg, dev):
         for B in G2_BATCHES:
             want = dict(_generate_k1(B, PROMPT_LEN, G2_NEW, L))
             want.update(flash_decode=0, flash_decode_i8=0,
-                        dequantize_4bit_pair=0)
+                        dequantize_4bit_pair=0,
+                        **_glue_forwards(G2_NEW, L, norms=4))
             if attn is not None:
                 want[attn.name] = (G2_NEW - 1) * L
             toks, times = _generate_runs(
@@ -3947,10 +4135,12 @@ def _g2_long(params, cfg, dev):
     same tokens): the prefill through the dense band (K10 exactly 4 x 42,
     K1 only on its one lm_head row), every decode step as the generates'."""
     from quantizations_tpu_torch.config import ServeConfig
-    from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
+    from quantizations_tpu_torch.ops import (ADD_RMS_NORM,
+                                             DEQUANTIZE_4BIT_PAIR,
                                              FLASH_DECODE, FLASH_DECODE_I8,
-                                             PAIR_MATMUL, PAIR_MATMUL_MMA,
-                                             PAIR_MATMUL_SPLITK)
+                                             GLU_ACT, PAIR_MATMUL,
+                                             PAIR_MATMUL_MMA,
+                                             PAIR_MATMUL_SPLITK, ROPE_QK)
     from quantizations_tpu_torch.serve.generate import make_generate_fn
 
     serve = ServeConfig(max_seq_len=G2_SEQ, max_new_tokens=G2_NEW)
@@ -3959,13 +4149,15 @@ def _g2_long(params, cfg, dev):
                         generator=torch.Generator().manual_seed(4)).to(
                             torch.int32).to(dev)
     recs = (PAIR_MATMUL, PAIR_MATMUL_SPLITK, PAIR_MATMUL_MMA, FLASH_DECODE,
-            FLASH_DECODE_I8, DEQUANTIZE_4BIT_PAIR)
+            FLASH_DECODE_I8, DEQUANTIZE_4BIT_PAIR, ADD_RMS_NORM, ROPE_QK,
+            GLU_ACT)
     out = {}
     for arm, knobs in G2_ARMS[:2]:
         c = dataclasses.replace(cfg, **knobs)
         want = dict(_generate_k1(1, G2_LONG_PROMPT, G2_NEW, L))
         want.update(flash_decode=(G2_NEW - 1) * L if knobs else 0,
-                    flash_decode_i8=0, dequantize_4bit_pair=4 * L)
+                    flash_decode_i8=0, dequantize_4bit_pair=4 * L,
+                    **_glue_forwards(G2_NEW, L, norms=4))
         toks, times = _generate_runs(
             make_generate_fn(c, serve), params, ids, c, serve, dev, recs,
             [want[k.name] for k in recs], f"Gemma2 {arm} long", runs=2)
@@ -4312,21 +4504,24 @@ def _cli_want(kind, flags, rows, forwards, L):
     16-row prefill, then decode steps at one row; speculative: the
     prefill, then windows of 8 rows; the engines: each admission forward
     of ``rows`` (token rows, sequences), then decode steps at their 4
-    slots' rows), K10 per admission forward above the K1 band, K3 or K4
-    per paged decode step."""
+    slots' rows), K11-K13 in each of those forwards, K10 per admission
+    forward above the K1 band, K3 or K4 per paged decode step."""
     from quantizations_tpu_torch.nn.linear import pair_max_tokens
     from quantizations_tpu_torch.ops import (DEQUANTIZE_4BIT_PAIR,
                                              FLASH_DECODE, FLASH_DECODE_I8)
 
     proj = 4 if "--fuse" in flags else 7
     if kind == "generate":
-        return {k: v for k, v in _generate_k1(1, 16, forwards, L,
-                                              proj).items() if v}
+        return {k: v for k, v in {**_generate_k1(1, 16, forwards, L, proj),
+                                  **_glue_forwards(forwards, L)}.items()
+                if v}
     if kind == "speculative":
-        return {k: v for k, v in _k1_forwards(
-            [(1, 16, 1), (forwards, 8, 8)], L, proj).items() if v}
+        return {k: v for k, v in {**_k1_forwards(
+            [(1, 16, 1), (forwards, 8, 8)], L, proj),
+            **_glue_forwards(1 + forwards, L)}.items() if v}
     want = _k1_serving([r for r, _ in rows], [h for _, h in rows],
                        [(forwards, 4)], L, proj)
+    want.update(_glue_forwards(len(rows) + forwards, L))
     want[DEQUANTIZE_4BIT_PAIR.name] = proj * L * sum(
         1 for r, _ in rows if r > pair_max_tokens())
     if kind == "paged":
@@ -4888,11 +5083,15 @@ def phase_evals(dev, results):
         [(1, EVALS_TOKENS, EVALS_TOKENS)], L, proj=7).items() if v}
     if k1[PAIR_MATMUL.name] != per:
         raise AssertionError(f"K1's closed form {k1}")
+    # the port's forward (its glue: K11-K13) in every arm; the reference's
+    # dense forward is plain torch
+    glue = _glue_forwards(1, L)
+    k1.update(glue)
     for name, c, want in (
             ("bf16", cfg, {**k1, DEQUANTIZE_4BIT_PAIR.name: per}),
             ("int8", dataclasses.replace(cfg, kv_cache_dtype="int8"),
              {**k1, DEQUANTIZE_4BIT_PAIR.name: per}),
-            ("control", twin, {DEQUANTIZE_4BIT_PAIR.name: 2 * per})):
+            ("control", twin, {**glue, DEQUANTIZE_4BIT_PAIR.name: 2 * per})):
         rep, wall, n = _counted(lambda: parity.logit_parity(params, c, ids))
         _expect(f"parity {name}", n, want)
         add(n)
@@ -4918,7 +5117,8 @@ def phase_evals(dev, results):
         rounded = {}
         for name, c, want in (
                 ("bf16", cfg, {**k1, DEQUANTIZE_4BIT_PAIR.name: per}),
-                ("control", twin, {DEQUANTIZE_4BIT_PAIR.name: 2 * per})):
+                ("control", twin,
+                 {**glue, DEQUANTIZE_4BIT_PAIR.name: 2 * per})):
             rep, wall, n = _counted(
                 lambda: parity.logit_parity(params, c, ids))
             _expect(f"parity {name}, rounded twin", n, want)
@@ -4966,10 +5166,15 @@ def phase_evals(dev, results):
                 **_k1_serving(quant["rows"], quant["heads"],
                               [(quant["stats"]["steps"], EVALS_SLOTS)], L,
                               proj=7),
+                **_glue_forwards(quant["stats"]["steps"]
+                                 + len(quant["rows"]), L),
                 DEQUANTIZE_4BIT_PAIR.name: 7 * L * sum(
                     1 for r in quant["rows"] if r > band)}),
-            ("dense twin", twin_arm, {DEQUANTIZE_4BIT_PAIR.name: per * (
-                twin_arm["stats"]["steps"] + len(twin_arm["rows"]))})):
+            ("dense twin", twin_arm, {
+                **_glue_forwards(twin_arm["stats"]["steps"]
+                                 + len(twin_arm["rows"]), L),
+                DEQUANTIZE_4BIT_PAIR.name: per * (
+                    twin_arm["stats"]["steps"] + len(twin_arm["rows"]))})):
         _expect(f"ifeval proxy, {what} arm", a["launches"],
                 {k: v for k, v in want.items() if v})
         add(a["launches"])
@@ -5051,12 +5256,14 @@ def phase_profile(dev, results):
     keep the trace small), the device kernels summed by name, the
     device's busy share of the generate's wall time (CUDA events) and the
     host's enqueue time (the generate call returning before the device
-    finishes). The profiler slows the host, so the busy share here is a
-    lower bound."""
+    finishes), and the glue kernels' launches (K11-K13, exactly as
+    :func:`_glue_forwards` reckons). The profiler slows the host, so the
+    busy share here is a lower bound."""
     from quantizations_tpu_torch.config import QuantConfig, ServeConfig
     from quantizations_tpu_torch.models.llama import (LLAMA3_8B, KVCache,
                                                       fuse_projections,
                                                       init_llama_params)
+    from quantizations_tpu_torch.ops import KERNELS
     from quantizations_tpu_torch.serve.generate import make_generate_fn
     from quantizations_tpu_torch.utils.profiling import trace
 
@@ -5073,6 +5280,7 @@ def phase_profile(dev, results):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t_trace = time.perf_counter()
+    before = {k.name: k.launches for k in KERNELS}
     with trace(PROFILE_DIR) as prof:
         t0 = time.perf_counter()
         start.record()
@@ -5081,6 +5289,12 @@ def phase_profile(dev, results):
         host_s = time.perf_counter() - t0
         end.synchronize()
     trace_s = time.perf_counter() - t_trace
+    after = {k.name: k.launches for k in KERNELS}
+    glue = {n: after[n] - before[n] for n in GLUE_KERNELS}
+    want_glue = _glue_forwards(serve.max_new_tokens, cfg.num_hidden_layers)
+    if glue != want_glue:
+        raise AssertionError(f"profile: K11-K13 launched {glue}, expected "
+                             f"{want_glue}")
     trace_mb = os.path.getsize(os.path.join(PROFILE_DIR, "trace.json")) / 1e6
     wall_s = start.elapsed_time(end) / 1e3
     n_kernels, by_name = device_kernels(prof.events())
@@ -5092,13 +5306,15 @@ def phase_profile(dev, results):
     results["profile"] = dict(
         wall_s=wall_s, host_enqueue_s=host_s, device_busy_s=busy_s,
         device_busy_share=busy_s / wall_s, kernels=n_kernels,
-        kernels_per_forward=n_kernels / steps, trace_s=trace_s,
+        kernels_per_forward=n_kernels / steps, glue_launches=glue,
+        trace_s=trace_s,
         trace_mb=trace_mb,
         top=[dict(name=n[:120], s=s, share=s / busy_s) for n, s in top])
     log(f"  fp4 B=1 generate: wall {wall_s:.4f} s (CUDA events), host "
         f"enqueue {host_s:.4f} s, device busy {busy_s:.4f} s "
         f"({100 * busy_s / wall_s:.1f}% of wall), {n_kernels} device "
-        f"kernels ({n_kernels / steps:.0f} per forward); the traced "
+        f"kernels ({n_kernels / steps:.0f} per forward, of them "
+        f"{sum(glue.values()) / steps:.0f} K11-K13 {glue}); the traced "
         f"block and its Chrome trace ({trace_mb:.1f} MB) {trace_s:.2f} s")
     for n, s in top:
         log(f"    {s * 1e3:9.2f} ms  {100 * s / busy_s:5.1f}%  {n[:90]}")
@@ -5161,7 +5377,8 @@ def _par_ids(B, n, vocab, seed=0):
 # the kernel wrappers of the parallel paths, by ``ops`` module, and the
 # gate each is held to against its plain version ``<wrapper>_plain`` (the
 # earlier phases' gates): "rel" within PAR_KERNEL_TOL * max|plain|,
-# "bits" bit for bit
+# "bits" bit for bit, "norm" (K11) its residual bit for bit and its norm
+# within one bf16 ulp of the plain version's
 _PAR_WRAPPERS = (
     ("qmatmul", ("matmul_4bit_pair", "matmul_4bit_pair_stacked",
                  "matmul_4bit_pair_manual", "matmul_4bit_pair_manual_stacked",
@@ -5175,6 +5392,8 @@ _PAR_WRAPPERS = (
                          "paged_flash_decode_attention_i8"), "rel"),
     ("quantize", ("quantize_4bit_kernel", "dequantize_4bit_kernel",
                   "dequantize_4bit_pair"), "bits"),
+    ("glue", ("rope_qk", "glu_act"), "bits"),
+    ("glue", ("add_rms_norm",), "norm"),
 )
 
 
@@ -5204,6 +5423,8 @@ def _kernel_label(name, a, out):
     """A kernel call's shape as the log prints it."""
     if "x" in a:                      # [M, K] and the rows
         return f"[{out.shape[-1]}, {a['x'].shape[-1]}] x {a['x'].shape[0]}"
+    if "q" in a and "k" in a:         # rope: the query and key heads
+        return f"q {list(a['q'].shape)} k {list(a['k'].shape)}"
     if "q" in a:                      # the query and the cache or pool
         kv = a.get("cache_k", a.get("pages_k"))
         return f"q {list(a['q'].shape)} kv {list(kv.shape)}"
@@ -5213,11 +5434,22 @@ def _kernel_label(name, a, out):
 
 
 def _kernel_err(what, out, ref, gate):
-    """max|out - ref| / max|ref| (0.0 for "bits"), or raise past the
-    gate."""
+    """max|out - ref| / max|ref| (0.0 for "bits"; the norm's for
+    "norm"), or raise past the gate."""
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     worst = 0.0
+    if gate == "norm":                # (residual, norm)
+        if not torch.equal(outs[0], refs[0]):
+            raise AssertionError(f"{what}: the residual is not bit for bit "
+                                 "the plain version's")
+        o, r = outs[1].float(), refs[1].float()
+        ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+        if o.shape != r.shape or not bool(((o - r).abs() <= ulp).all()):
+            raise AssertionError(f"{what}: the norm is more than one bf16 "
+                                 "ulp from the plain version's")
+        return (float((o - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                if o.numel() else 0.0)
     for o, r in zip(outs, refs):
         if o.shape != r.shape:
             raise AssertionError(f"{what}: shape {tuple(o.shape)}, plain "
@@ -5328,7 +5560,7 @@ class _LogitTap:
 
 
 def _par_fwd(rows, layers, attn=None, col=5, planar=2,
-             col_kernel="pair_matmul", head=None):
+             col_kernel="pair_matmul", head=None, glue=True):
     """Each kernel's launches in one forward of ``rows`` token rows over
     ``layers`` layers: ``col`` pair-word projections a layer (q, k, v,
     gate and up, the column shards; all seven unsharded) and ``planar``
@@ -5340,7 +5572,10 @@ def _par_fwd(rows, layers, attn=None, col=5, planar=2,
     body from PLANAR_MMA_MIN_TOKENS, K6, or K7 above 64 rows); one K1
     launch for the lm_head at ``head`` rows (its sampled rows, at most
     128 here; None: ``rows``, 0: no lm_head); with ``attn`` (K3 or K4) one
-    attention launch a layer."""
+    attention launch a layer; with ``glue``, K11-K13 as
+    :func:`_glue_forwards` reckons (without, the layers' glue is plain
+    torch, as in the ring's prefill, and only the lm_head's final norm is
+    a K11)."""
     from quantizations_tpu_torch.models.llama import prefill_pair_enabled
     from quantizations_tpu_torch.nn.linear import (GEMV_MAX_TOKENS,
                                                    QMATMUL_MAX_TOKENS,
@@ -5379,6 +5614,9 @@ def _par_fwd(rows, layers, attn=None, col=5, planar=2,
         add_k1("pair_matmul", head, 1)
     if attn:
         add(attn, layers)
+    for k, v in _glue_forwards(1, layers if glue else 0,
+                               heads=int(bool(head))).items():
+        add(k, v)
     return n
 
 
@@ -5713,11 +5951,13 @@ def _par_sp(sp):
         return logits, torch.stack(toks, 1)
 
     (first, toks), m = _par_measure(mesh, run)
-    # every rank: its chunk's projections (the attention is the ring's
-    # torch), the last token's lm_head, then the decode steps unsharded
+    # every rank: its chunk's projections (the attention and the glue are
+    # the ring's torch), the last token's lm_head, then the decode steps
+    # unsharded
     L = cfg.num_hidden_layers
     m["expected"] = _par_sum(
-        (1, _par_fwd(PAR_SP_PROMPT // sp, L, col=7, planar=0, head=1)),
+        (1, _par_fwd(PAR_SP_PROMPT // sp, L, col=7, planar=0, head=1,
+                     glue=False)),
         (PAR_SP_DECODE - 1, _par_fwd(1, L, col=7, planar=0)))
     return dict(tokens=toks, first=first, **m)
 
@@ -6331,6 +6571,32 @@ def kernel_entries(results, kernels_seq):
                      "planar generates (the dense band of the B = 8 "
                      "prefill)",
                 by_shape=rows)
+        elif k.name in GLUE_KERNELS:
+            g = results.get("glue", {})
+            rows = [r for r in g.get("rows", []) if r["kernel"] == k.name]
+            main = next((r for r in rows if r["N"] == GLUE_MAIN_ROWS), {})
+            err = g.get("err", {}).get(k.name, {})
+            entry.update(
+                launches=paged_launches.get(k.name, 0),
+                max_abs_err=err.get("max_abs_err"),
+                max_err_over_max_y=err.get("max_err_over_max_y"),
+                ms=main.get("ms"), plain_ms=main.get("plain_ms"),
+                bound_ms=main.get("bound_ms"),
+                bound_by=main.get("bound_by", "bytes"),
+                library_ms=main.get("library_ms"),
+                unit=f"one launch at {GLUE_MAIN_ROWS} rows in the decode "
+                     f"layer's form at Mistral-7B's widths (hidden "
+                     f"{GLUE_H}, {GLUE_NQ}/{GLUE_NKV} heads of "
+                     f"{HEAD_DIM}, intermediate {GLUE_I}); max_abs_err: "
+                     + ("the norm against the plain version's (the "
+                        "residual bit for bit)" if k.name == "add_rms_norm"
+                        else "against the plain version (bit for bit)")
+                     + "; library_ms: "
+                     + ("torch.nn.functional.rms_norm, the norm alone"
+                        if k.name == "add_rms_norm" else "none (torch has "
+                        "no fused form)")
+                     + "; launches: the paged engine's first bf16 run",
+                by_shape=rows)
         else:
             n = (results.get("launches_paged_int8", {}) if "i8" in k.name
                  else paged_launches).get(k.name, 0)
@@ -6431,6 +6697,7 @@ def main() -> int:
                                      phase_attn_gemma2(dev, gen, results))),
                    ("time", lambda: (phase_time(dev, gen, results),
                                      phase_attn_time(dev, gen, results))),
+                   ("glue", lambda: phase_glue(dev, gen, results)),
                    ("model", lambda: held.update(
                        params=phase_model(dev, results))),
                    ("planar", lambda: phase_planar(dev, gen, results,

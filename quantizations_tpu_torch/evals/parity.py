@@ -28,8 +28,6 @@ from ..models.llama import (
     LlamaLayer,
     LlamaParams,
     QLinear,
-    _act,
-    _norm,
     apply_rope,
     dense_twin_weight,
     embed_lookup,
@@ -38,6 +36,7 @@ from ..models.llama import (
     rope_cos_sin,
 )
 from ..nn.linear import dense_product
+from ..ops.glue import activation, add_rms_norm_plain
 
 __all__ = ["dequantized_params", "logit_parity", "parity_report",
            "perplexity", "ParityReport"]
@@ -152,6 +151,7 @@ def _dense_forward(dense: LlamaParams, token_ids: torch.Tensor,
         return dense_product(x2.to(torch.bfloat16), W)
 
     D = cfg.head_dim
+    eps, plus_one = cfg.rms_norm_eps, cfg.norm_plus_one
     for i in range(cfg.num_hidden_layers):
         lay = _layer(dense.layers, i, qt, lazy)
         if cfg.sliding_window is None or cfg.sliding_layers == "all":
@@ -162,7 +162,7 @@ def _dense_forward(dense: LlamaParams, token_ids: torch.Tensor,
             mask = mask_win if use_win else mask_full
         n_q = lay.q.shape[0] // D
         n_kv = lay.k.shape[0] // D
-        xa = _norm(x, lay.attn_norm, cfg)
+        xa = add_rms_norm_plain(x, None, lay.attn_norm, eps, plus_one)[1]
         x2 = xa.reshape(B * T, -1)
         q = proj(x2, lay.q)
         k = proj(x2, lay.k)
@@ -183,18 +183,20 @@ def _dense_forward(dense: LlamaParams, token_ids: torch.Tensor,
         o = proj(attn, lay.o)
         ob = o.reshape(B, T, -1)
         if lay.post_attn_norm is not None:
-            ob = _norm(ob, lay.post_attn_norm, cfg)
-        x = x + ob.to(x.dtype)
-        xm = _norm(x, lay.mlp_norm, cfg)
+            ob = add_rms_norm_plain(ob, None, lay.post_attn_norm, eps,
+                                    plus_one)[1]
+        x, xm = add_rms_norm_plain(x, ob, lay.mlp_norm, eps, plus_one)
         x2 = xm.reshape(B * T, -1)
-        act = _act(proj(x2, lay.gate), cfg) * proj(x2, lay.up)
+        act = (activation(proj(x2, lay.gate), cfg.hidden_activation)
+               * proj(x2, lay.up))
         d = proj(act, lay.down)
         db = d.reshape(B, T, -1)
         if lay.post_mlp_norm is not None:
-            db = _norm(db, lay.post_mlp_norm, cfg)
+            db = add_rms_norm_plain(db, None, lay.post_mlp_norm, eps,
+                                    plus_one)[1]
         x = x + db.to(x.dtype)
 
-    x = _norm(x, dense.final_norm, cfg)
+    x = add_rms_norm_plain(x, None, dense.final_norm, eps, plus_one)[1]
     head = dense.lm_head
     if lazy and isinstance(head, QLinear):
         head = dense_twin_weight(head, qt)

@@ -45,6 +45,17 @@ from ..ops.attention import (
     flash_decode_attention_stacked_i8,
 )
 from ..ops.gemv import _SHIFTS, gemv_4bit_stacked, pack_i32_rows
+from ..ops.glue import (
+    GLUE_DTYPES,
+    add_rms_norm,
+    add_rms_norm_plain,
+    apply_rope,
+    glu_act,
+    glu_act_plain,
+    rms_norm,
+    rope_qk,
+    rope_qk_plain,
+)
 from ..ops.qmatmul import (
     PREFILL_PAIR_CHUNK_T,
     _unblockmajor,
@@ -88,6 +99,7 @@ __all__ = [
     "layer_window",
     "layer_params",
     "slot_layers",
+    "add_residual",
     "embed_tokens",
     "lm_head_logits",
     "quantize_kv_i8",
@@ -590,26 +602,22 @@ def fuse_projections(params: LlamaParams) -> LlamaParams:
 # Forward
 # --------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in fp32 (HF Llama numerics); returns fp32."""
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)) * w.float()
+def _glue(compute_dtype: Any):
+    """The layer's glue, ``(norm, rope, act)``: K11-K13
+    (:mod:`~quantizations_tpu_torch.ops.glue`; their plain versions on the
+    CPU) where the compute dtype is one they write, else the plain
+    versions."""
+    if compute_dtype in GLUE_DTYPES:
+        return add_rms_norm, rope_qk, glu_act
+    return add_rms_norm_plain, rope_qk_plain, glu_act_plain
 
 
-def _norm(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """RMSNorm with the family's gain: ``w`` (Llama) or ``1 + w`` (Gemma)."""
-    wf = w.float()
-    if cfg.norm_plus_one:
-        wf = wf + 1.0
-    return rms_norm(x, wf, cfg.rms_norm_eps)
-
-
-def _act(g: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """SwiGLU silu (Llama) or GeGLU tanh-gelu (Gemma)."""
-    if cfg.hidden_activation == "gelu_tanh":
-        return torch.nn.functional.gelu(g, approximate="tanh")
-    return torch.nn.functional.silu(g)
+def add_residual(x: torch.Tensor,
+                 delta: Optional[torch.Tensor]) -> torch.Tensor:
+    """The residual stream with a layer's pending output ``delta`` added
+    in ``x``'s dtype (``x`` itself for None): what the next norm's K11
+    would add, for a caller that needs the stream itself."""
+    return x if delta is None else x + delta.to(x.dtype)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
@@ -632,16 +640,6 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
     ang = positions.float()[..., None] * inv
     ang = torch.cat([ang, ang], dim=-1)
     return torch.cos(ang), torch.sin(ang)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """``x [B, T, H, D]`` with cos/sin ``[B, T, D]`` (HF ``rotate_half``)."""
-    d2 = x.shape[-1] // 2
-    rot = torch.cat([-x[..., d2:], x[..., :d2]], dim=-1)
-    c = cos[:, :, None, :].to(x.dtype)
-    s = sin[:, :, None, :].to(x.dtype)
-    return x * c + rot * s
 
 
 def embed_lookup(embed: Union[torch.Tensor, QLinear], token_ids: torch.Tensor,
@@ -828,13 +826,21 @@ Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cos: torch.Tensor,
                    sin: torch.Tensor, cfg: LlamaConfig, idx: int,
-                   attend: Attend, axis_name: Any = None) -> torch.Tensor:
-    """One decoder layer on ``x [B, T, hidden]`` (bf16): projections,
-    q/k norms and rope, then ``attend`` (which owns the cache: slot or
-    paged), the o projection and the MLP. Under a tensor-parallel
-    ``axis_name`` the layer holds one shard: its head counts come from
-    its own q/k/v rows, and o and down are summed over the axis
-    (:func:`_ql_psum`)."""
+                   attend: Attend, axis_name: Any = None,
+                   delta: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer on the residual stream ``x [B, T, hidden]``
+    (bf16) with ``delta``, the previous layer's MLP output not yet added
+    (None before the first layer): projections, q/k norms and rope, then
+    ``attend`` (which owns the cache: slot or paged), the o projection
+    and the MLP. Returns ``(x, delta)``: the stream after the attention
+    block and this layer's MLP output, which the next layer's first norm
+    (or :func:`lm_head_logits`' final norm) adds in the same launch
+    (:func:`add_residual` adds it alone). Each norm with its residual
+    add, the rope of q and k, and the activation are one kernel each
+    (K11-K13, :func:`_glue`). Under a tensor-parallel ``axis_name`` the
+    layer holds one shard: its head counts come from its own q/k/v rows,
+    and o and down are summed over the axis (:func:`_ql_psum`)."""
     B, T, h = x.shape
     D = cfg.head_dim
     if layer.qkv is not None:
@@ -845,10 +851,13 @@ def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cos: torch.Tensor,
         n_q = layer.q.out_features // D
         n_kv = layer.k.out_features // D
     qcfg = cfg.quant
+    cd = qcfg.compute_dtype
+    norm, rope, act = _glue(cd)
+    eps, plus_one = cfg.rms_norm_eps, cfg.norm_plus_one
 
     # -- attention --
-    xa = _norm(x, layer.attn_norm, cfg)
-    x2 = xa.to(qcfg.compute_dtype).reshape(B * T, h)
+    x, xa = norm(x, delta, layer.attn_norm, eps, plus_one, cd)
+    x2 = xa.reshape(B * T, h)
     if layer.qkv is not None:
         qkv = _ql(x2, layer.qkv, qcfg, idx)
         if layer.qkv_bias is not None:
@@ -867,21 +876,20 @@ def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cos: torch.Tensor,
     k = k.reshape(B, T, n_kv, D)
     v = v.reshape(B, T, n_kv, D)
     if layer.q_norm is not None:
-        q = rms_norm(q, layer.q_norm, cfg.rms_norm_eps)
-        k = rms_norm(k, layer.k_norm, cfg.rms_norm_eps)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+        q = rms_norm(q, layer.q_norm, eps)
+        k = rms_norm(k, layer.k_norm, eps)
+    q, k = rope(q, k, cos, sin)
     attn = attend(q, k, v)
 
     o = _ql_psum(attn, layer.o, qcfg, idx, axis_name, cfg.tp_overlap_chunks)
     ob = o.reshape(B, T, h)
     if layer.post_attn_norm is not None:
-        ob = _norm(ob, layer.post_attn_norm, cfg)
-    x = x + ob.to(x.dtype)
+        ob = norm(ob, None, layer.post_attn_norm, eps, plus_one,
+                  torch.float32)[1]
 
     # -- MLP (SwiGLU / GeGLU) --
-    xm = _norm(x, layer.mlp_norm, cfg)
-    x2 = xm.to(qcfg.compute_dtype).reshape(B * T, h)
+    x, xm = norm(x, ob, layer.mlp_norm, eps, plus_one, cd)
+    x2 = xm.reshape(B * T, h)
     if layer.gate_up is not None:
         gu = _ql(x2, layer.gate_up, qcfg, idx)
         inter = gu.shape[-1] // 2
@@ -889,13 +897,13 @@ def _layer_forward(x: torch.Tensor, layer: LlamaLayer, cos: torch.Tensor,
     else:
         g = _ql(x2, layer.gate, qcfg, idx)
         u = _ql(x2, layer.up, qcfg, idx)
-    act = _act(g, cfg) * u
-    d = _ql_psum(act.to(qcfg.compute_dtype), layer.down, qcfg, idx,
+    d = _ql_psum(act(g, u, cfg.hidden_activation, cd), layer.down, qcfg, idx,
                  axis_name, cfg.tp_overlap_chunks)
     db = d.reshape(B, T, h)
     if layer.post_mlp_norm is not None:
-        db = _norm(db, layer.post_mlp_norm, cfg)
-    return x + db.to(x.dtype)
+        db = norm(db, None, layer.post_mlp_norm, eps, plus_one,
+                  torch.float32)[1]
+    return x, db
 
 
 def _kv_rows(k: torch.Tensor, v: torch.Tensor, int8: bool, dtype):
@@ -997,18 +1005,24 @@ def embed_tokens(params: LlamaParams, token_ids: torch.Tensor,
 
 
 def lm_head_logits(params: LlamaParams, x: torch.Tensor,
-                   cfg: LlamaConfig, axis_name: Any = None) -> torch.Tensor:
-    """Final norm, lm_head and final softcap: ``x [B, T, hidden]`` ->
+                   cfg: LlamaConfig, axis_name: Any = None,
+                   delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Final norm, lm_head and final softcap: ``x [B, T, hidden]`` (with
+    the last layer's pending output ``delta`` added by the norm's K11) ->
     fp32 logits ``[B, T, vocab]``. Under a tensor-parallel ``axis_name``
     the lm_head is a vocab shard and the logits are gathered over the
     axis."""
     B, T, _ = x.shape
-    x = _norm(x, params.final_norm, cfg)
-    if isinstance(params.lm_head, QLinear):
-        logits = _ql(x.to(cfg.quant.compute_dtype).reshape(B * T, -1),
-                     params.lm_head, cfg.quant).reshape(B, T, -1)
+    cd = cfg.quant.compute_dtype
+    quantized = isinstance(params.lm_head, QLinear)
+    _, x = _glue(cd)[0](x, delta, params.final_norm, cfg.rms_norm_eps,
+                        cfg.norm_plus_one,
+                        cd if quantized else torch.bfloat16)
+    if quantized:
+        logits = _ql(x.reshape(B * T, -1), params.lm_head,
+                     cfg.quant).reshape(B, T, -1)
     else:
-        logits = torch.einsum("bth,vh->btv", x.to(torch.bfloat16).float(),
+        logits = torch.einsum("bth,vh->btv", x.float(),
                               params.lm_head.float())
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
@@ -1024,19 +1038,22 @@ def slot_layers(params: LlamaParams, x: torch.Tensor, cache: KVCache,
                 positions: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 mask: torch.Tensor, mask_full: torch.Tensor,
                 cfg: LlamaConfig, attend_len: Optional[int] = None,
-                axis_name: Any = None, first_layer: int = 0) -> torch.Tensor:
+                axis_name: Any = None, first_layer: int = 0
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Every layer of ``params`` over the slot cache (layer ``i`` of the
     stacks and of ``cache``), the layer's global index ``first_layer +
     i`` choosing its window (a pipeline stage holds a slice of the
-    layers)."""
+    layers). Returns ``(x, delta)`` as :func:`_layer_forward` does (delta
+    None without layers)."""
+    delta = None
     for i in range(params.layers.attn_norm.shape[0]):
         use_win, win_eff = layer_window(cfg, first_layer + i)
         mask_i = mask if use_win is None or use_win else mask_full
         attend = _slot_attend(cache, i, positions, mask_i, cfg, attend_len,
                               win_eff)
-        x = _layer_forward(x, layer_params(params.layers, i), cos, sin, cfg,
-                           i, attend, axis_name)
-    return x
+        x, delta = _layer_forward(x, layer_params(params.layers, i), cos,
+                                  sin, cfg, i, attend, axis_name, delta)
+    return x, delta
 
 
 def _forward(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
@@ -1071,14 +1088,17 @@ def _forward(params: LlamaParams, token_ids: torch.Tensor, cache: KVCache,
         mask = mask & (key_pos[None, None, :]
                        > positions[:, :, None] - cfg.sliding_window)
 
-    x = slot_layers(params, x, cache, positions, cos, sin, mask, mask_full,
-                    cfg, attend_len, axis_name)
+    x, delta = slot_layers(params, x, cache, positions, cos, sin, mask,
+                           mask_full, cfg, attend_len, axis_name)
 
     if logits_at is not None:
-        x = x[torch.arange(B, device=dev), logits_at.to(dev).long()][:, None]
+        rows = (torch.arange(B, device=dev), logits_at.to(dev).long())
+        x = x[rows][:, None]
+        delta = None if delta is None else delta[rows][:, None]
     elif last_token_only:
         x = x[:, -1:, :]
-    return lm_head_logits(params, x, cfg, axis_name), cache
+        delta = None if delta is None else delta[:, -1:, :]
+    return lm_head_logits(params, x, cfg, axis_name, delta), cache
 
 
 def check_cache_room(pos: Union[int, torch.Tensor], T: int,

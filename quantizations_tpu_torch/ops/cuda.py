@@ -6,8 +6,8 @@ two bodies and K6, ``dequantize.cu`` K7 and K10, ``pair_matmul.cu`` K1's
 CUDA-core body and K9, ``pair_splitk.cu`` the split-K tensor-core body
 that K1 and K9 launch at 3-128 token rows (from ``PAIR_SPLITK_MIN_TOKENS``
 in ``ops/qmatmul.py``), ``pair_prefill.cu`` the tensor-core body that K8
-and K1 above 128 rows launch, each with its own :class:`Kernel` record
-and launch counter). A
+and K1 above 128 rows launch, ``fused_glue.cu`` the decoder layer's glue
+K11-K13, each with its own :class:`Kernel` record and launch counter). A
 source is compiled by its own ``nvcc`` call for ``sm_90a`` into a shared
 library under ``quantizations_tpu_torch/build/`` (named by a hash of the source,
 so an edited source rebuilds) and loaded with ``ctypes``. :func:`build`
@@ -36,7 +36,7 @@ __all__ = ["Kernel", "PAIR_MATMUL", "PAIR_MATMUL_MMA", "PAIR_MATMUL_SPLITK",
            "FLASH_DECODE", "FLASH_DECODE_I8", "PLANAR_MATMUL",
            "PLANAR_MATMUL_MMA", "GEMV_4BIT",
            "DEQUANTIZE_4BIT", "DEQUANTIZE_4BIT_PAIR", "PAIR_PREFILL",
-           "PAIR_MANUAL", "KERNELS",
+           "PAIR_MANUAL", "ADD_RMS_NORM", "ROPE_QK", "GLU_ACT", "KERNELS",
            "build", "launch", "nvcc_path", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -50,6 +50,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 
 
 @dataclasses.dataclass
@@ -166,10 +167,32 @@ PAIR_MANUAL = Kernel(
     "quantizations_tpu/ops/qmatmul.py:1048 _manual_kernel_body "
     "(matmul_4bit_pair_manual :1103, matmul_4bit_pair_manual_stacked :1163)",
     {"qt_pair_manual": _PAIR_ARGS})
+# K11-K13: no Pallas site; the reference leaves the layer's glue to XLA
+_GLUE = "quantizations_tpu_torch/csrc/fused_glue.cu"
+ADD_RMS_NORM = Kernel(
+    "add_rms_norm", _GLUE,
+    "quantizations_tpu/models/llama.py:616 rms_norm, :623 _norm and the "
+    "residual adds :1039, :1058 (XLA; no Pallas site)",
+    # (x, x_kind, ldx, delta, delta_kind, ldd, w, w_kind, plus_one, res, y,
+    #  y_kind, N, H, eps, inv_h)
+    {"qt_add_rms_norm": [_P, _I, _L, _P, _I, _L, _P, _I, _I, _P, _P, _I, _I,
+                         _I, _F, _F, _P]})
+ROPE_QK = Kernel(
+    "rope_qk", _GLUE,
+    "quantizations_tpu/models/llama.py:666 apply_rope (XLA; no Pallas "
+    "site)",
+    # (q, ldq, k, ldk, cos, sin, q_out, k_out, N, n_q, n_kv, D)
+    {"qt_rope_qk": [_P, _L, _P, _L, _P, _P, _P, _P, _L, _I, _I, _I, _P]})
+GLU_ACT = Kernel(
+    "glu_act", _GLUE,
+    "quantizations_tpu/models/llama.py:632 _act and the gated product "
+    "(XLA; no Pallas site)",
+    # (g, ldg, u, ldu, out, out_kind, N, I, act)
+    {"qt_glu_act": [_P, _L, _P, _L, _P, _I, _L, _I, _I, _P]})
 KERNELS = (PAIR_MATMUL, PAIR_MATMUL_SPLITK, PAIR_MATMUL_MMA, QUANTIZE_4BIT,
            FLASH_DECODE, FLASH_DECODE_I8, PLANAR_MATMUL, PLANAR_MATMUL_MMA,
            GEMV_4BIT, DEQUANTIZE_4BIT, PAIR_PREFILL, PAIR_MANUAL,
-           DEQUANTIZE_4BIT_PAIR)
+           DEQUANTIZE_4BIT_PAIR, ADD_RMS_NORM, ROPE_QK, GLU_ACT)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -228,12 +251,22 @@ def build(kernels: Sequence[Kernel] = KERNELS) -> None:
 def launch(kernel: Kernel, fn: str, device: torch.device, *args) -> None:
     """Call C entry point ``fn`` of ``kernel`` on ``device``'s current
     stream (appended as the last argument), raise if the launch was
-    refused, and count it."""
-    if kernel.name not in _libs:
+    refused, and count it. The stream and the current device are read
+    through ``torch._C`` directly (a device guard only where ``device`` is
+    not the current one): ``torch.cuda.device`` and ``current_stream``
+    cost more host time than the launch itself."""
+    lib = _libs.get(kernel.name)
+    if lib is None:
         build([kernel])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_libs[kernel.name], fn)(*args, stream)
+        lib = _libs[kernel.name]
+    cur = torch.cuda.current_device()
+    idx = cur if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == cur:
+        err = getattr(lib, fn)(*args, stream)
+    else:
+        with torch.cuda.device(idx):
+            err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(
             f"{kernel.name}: CUDA launch failed with error {err}")

@@ -232,8 +232,12 @@ def pair_table(quant_type: str) -> Tuple[torch.Tensor, float]:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_table(quant_type: str, device: torch.device) -> torch.Tensor:
-    return pair_table(quant_type)[0].to(device)
+def _device_table(quant_type: str, device: torch.device
+                  ) -> Tuple[torch.Tensor, float]:
+    """:func:`pair_table` with the table on ``device``, built once (the
+    launch path calls this for every K1/K8/K9 launch)."""
+    table, out_factor = pair_table(quant_type)
+    return table.to(device), out_factor
 
 
 def _bf16_scales(scales: torch.Tensor, out_factor: float) -> torch.Tensor:
@@ -334,8 +338,7 @@ def _launch_pair(wp2, scales, x, quant_type, kernel=PAIR_MATMUL,
     y = torch.empty((T, 2 * M2), dtype=torch.float32, device=x.device)
     if T == 0 or M2 == 0:
         return y
-    _, out_factor = pair_table(quant_type)
-    table = _device_table(quant_type, x.device)
+    table, out_factor = _device_table(quant_type, x.device)
     launch(kernel, entry, x.device, wp2.data_ptr(),
            scales.data_ptr(),
            kind, table.data_ptr(), x.data_ptr(), y.data_ptr(), T, M2, K4,

@@ -30,6 +30,7 @@ from ..models.llama import (
     KVCache,
     LlamaConfig,
     LlamaParams,
+    add_residual,
     embed_tokens,
     lm_head_logits,
     map_tensors,
@@ -100,9 +101,9 @@ def _stage_forward(params: LlamaParams, x: torch.Tensor, cache: KVCache,
     GLOBAL index ``stage * L_local + i`` (the Gemma-2 alternation crosses
     stage boundaries)."""
     per = params.layers.attn_norm.shape[0]
-    return slot_layers(params, x, cache, positions, cos, sin, mask,
-                       mask_full, cfg, axis_name=tp_axis,
-                       first_layer=stage * per)
+    return add_residual(*slot_layers(params, x, cache, positions, cos, sin,
+                                     mask, mask_full, cfg, axis_name=tp_axis,
+                                     first_layer=stage * per))
 
 
 def _microbatch_cache(cache: KVCache, rows: slice, contiguous: bool

@@ -24,8 +24,6 @@ import torch
 from ..models.llama import (
     LlamaConfig,
     LlamaParams,
-    _act,
-    _norm,
     _ql,
     _ql_psum,
     apply_rope,
@@ -37,6 +35,7 @@ from ..models.llama import (
     rms_norm,
     rope_cos_sin,
 )
+from ..ops.glue import activation, add_rms_norm_plain
 from .collectives import all_gather_cat, broadcast, ring_shift
 from .mesh import Axis, Mesh
 from .shard import AXIS, check_mesh, validate_tp
@@ -164,9 +163,10 @@ def make_sp_prefill_fn(mesh: Mesh, cfg: LlamaConfig, axis_name: str = "sp",
                                 cfg.rope_scaling)
         x = embed_tokens(params, tokens, cfg)
         chunks = []
+        eps, plus_one = cfg.rms_norm_eps, cfg.norm_plus_one
         for i in range(params.layers.attn_norm.shape[0]):
             lay = layer_params(params.layers, i)
-            xa = _norm(x, lay.attn_norm, cfg)
+            xa = add_rms_norm_plain(x, None, lay.attn_norm, eps, plus_one)[1]
             x2 = xa.to(qcfg.compute_dtype).reshape(B * C, -1)
             q = _ql(x2, lay.q, qcfg, i)
             k = _ql(x2, lay.k, qcfg, i)
@@ -206,17 +206,19 @@ def make_sp_prefill_fn(mesh: Mesh, cfg: LlamaConfig, axis_name: str = "sp",
                          lay.o, qcfg, i, tp, cfg.tp_overlap_chunks)
             ob = o.reshape(B, C, -1)
             if lay.post_attn_norm is not None:
-                ob = _norm(ob, lay.post_attn_norm, cfg)
-            x = x + ob.to(x.dtype)
-            xm = _norm(x, lay.mlp_norm, cfg)
+                ob = add_rms_norm_plain(ob, None, lay.post_attn_norm, eps,
+                                        plus_one)[1]
+            x, xm = add_rms_norm_plain(x, ob, lay.mlp_norm, eps, plus_one)
             x2 = xm.to(qcfg.compute_dtype).reshape(B * C, -1)
             g = _ql(x2, lay.gate, qcfg, i)
             u = _ql(x2, lay.up, qcfg, i)
-            dn = _ql_psum((_act(g, cfg) * u).to(qcfg.compute_dtype),
+            act = activation(g, cfg.hidden_activation) * u
+            dn = _ql_psum(act.to(qcfg.compute_dtype),
                           lay.down, qcfg, i, tp, cfg.tp_overlap_chunks)
             db = dn.reshape(B, C, -1)
             if lay.post_mlp_norm is not None:
-                db = _norm(db, lay.post_mlp_norm, cfg)
+                db = add_rms_norm_plain(db, None, lay.post_mlp_norm, eps,
+                                        plus_one)[1]
             x = x + db.to(x.dtype)
         # the global last token lives on the axis's last coordinate
         xl = broadcast(x[:, -1:, :].contiguous(), sp, sp.size - 1)

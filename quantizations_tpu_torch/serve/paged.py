@@ -266,13 +266,13 @@ def _paged_forward(params: LlamaParams, token_ids: torch.Tensor,
     off = positions % psz
     lengths = (pos + 1).to(torch.int32)
     attn_table = table[:, :max_pages].contiguous()
-    x = embed_tokens(params, token_ids, cfg)
+    x, delta = embed_tokens(params, token_ids, cfg), None
     for i in range(cfg.num_hidden_layers):
         attend = _paged_attend(pages, i, attn_table, page_of, off, lengths,
                                cfg)
-        x = _layer_forward(x, layer_params(params.layers, i), cos, sin, cfg,
-                           i, attend, axis_name)
-    return lm_head_logits(params, x, cfg, axis_name), pages
+        x, delta = _layer_forward(x, layer_params(params.layers, i), cos,
+                                  sin, cfg, i, attend, axis_name, delta)
+    return lm_head_logits(params, x, cfg, axis_name, delta), pages
 
 
 def paged_decode_step(params: LlamaParams, token_ids: torch.Tensor,
